@@ -1,0 +1,42 @@
+"""Weights bridge from the reference's parameter trees.
+
+No single reference counterpart: ``torch.Generator`` cannot replay
+``jax.random``, so parity runs take the reference's ``lm_init`` tree as
+numpy arrays (nested dicts and lists keyed by the same paths) and load it
+here. Needs no JAX: bf16 arrays (``ml_dtypes.bfloat16``) cross as their raw
+16-bit patterns. The npz+manifest checkpoint format of ``repro/checkpoint``
+waits for ROADMAP A.8.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.buckets import BucketLayout, PackedParams
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+__all__ = ["array_to_torch", "params_from_numpy"]
+
+
+def array_to_torch(a, device) -> torch.Tensor:
+    """A tensor holding a copy of ``a`` (never a view of the caller's
+    buffer: the port updates in place)."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree, *, layout: Optional[BucketLayout] = None,
+                      lead: Tuple[int, ...] | None = None, device="cuda"):
+    """The port's params from a numpy tree: the same tree of tensors, or,
+    with ``layout``, a ``PackedParams`` packed through ``PackedParams.pack``
+    (``lead=(dp,)`` broadcasts one replica's tree to dp replicas)."""
+    dev = resolve_device(device)
+    out = tree_map(lambda a: array_to_torch(a, dev), tree)
+    if layout is None:
+        return out
+    return PackedParams.pack(out, layout, lead=lead, device=dev)

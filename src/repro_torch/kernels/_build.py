@@ -1,0 +1,135 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+No reference counterpart: Pallas kernels compile inside ``jax.jit``. Here
+each source is compiled on first use with ``nvcc -gencode
+arch=compute_90a,code=sm_90a`` into a shared library with a plain C
+interface, which ``ctypes`` loads. The libraries land in ``build/kernels/``
+at the root of the checkout (listed in ``.gitignore``), named by a hash of
+their sources and flags, so an edited kernel is rebuilt and an unchanged one
+is reused. ``build_all`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module, and
+this machine may have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+__all__ = ["SOURCES", "Launches", "build_all", "kernel", "check_launch",
+           "dtype_code", "lib_path", "BUILD_DIR"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# kernel name -> (source file, C symbol, ctypes argtypes)
+SOURCES = {
+    "gossip_mix": ("gossip_mix.cu", "gossip_mix_launch",
+                   [_I, _P, _P, _LL, _F, _F, _P]),
+    "fused_sgd": ("fused_sgd.cu", "fused_sgd_launch",
+                  [_I, _P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _P]),
+}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Launches:
+    """Launch count of one kernel wrapper: ``count`` grows by one where the
+    wrapper launches its kernel, and nowhere else."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def reset(self) -> None:
+        self.count = 0
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    return _DTYPE_CODES[dtype]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def lib_path(name: str) -> Path:
+    """Where kernel ``name``'s library is built (its nvcc output, ptxas
+    report included, sits beside it with the suffix ``.log``)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name][0]]:
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
+    """Build every named kernel that is not built yet, one ``nvcc`` per
+    source, all started together. Returns the seconds each build took (0.0
+    for a library that was already there); raises on a failed build, with
+    the compiler's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    seconds = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def kernel(name: str):
+    """The bound C entry point of kernel ``name``, built on first use."""
+    build_all([name])
+    _, symbol, argtypes = SOURCES[name]
+    fn = getattr(ctypes.CDLL(str(lib_path(name))), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, rc: int) -> None:
+    """A refused launch never runs and ``synchronize`` does not report it,
+    so every wrapper checks the launch's own error code."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError_t {rc})")

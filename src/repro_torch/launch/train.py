@@ -1,0 +1,109 @@
+"""Training launcher CLI (port of ``repro/launch/train.py``).
+
+Takes the reference's flags plus ``--device {cuda,cpu}`` (default cuda).
+In this slice the replicas live stacked on one device: ``--smoke-mesh
+1,DP,1`` runs DP replicas there, and ``POD > 1`` or ``MODEL > 1`` raise.
+Flags of parts not ported yet (the async ring, the compressed wire,
+checkpoints, multi-pod meshes, the per-leaf engine) raise
+``NotImplementedError`` naming their ROADMAP item.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --smoke --packed --smoke-mesh 1,4,1 --steps 8 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+from repro_torch.configs import get_config, list_archs
+from repro_torch.data import ShardedTokenDataset
+from repro_torch.models import reduced
+from repro_torch.optim import sgd, step_decay
+from repro_torch.train import Trainer, init_train_state, make_train_step_bundle
+
+
+def _unported(args) -> None:
+    checks = [
+        (args.wire_dtype != "fp32" or args.gossip_subset != 1.0,
+         "the compressed / partition-sampled wire (ROADMAP A.10)"),
+        (args.drop_timeout != 0.0, "drop injection of the async ring (ROADMAP A.9)"),
+        (args.checkpoint is not None or args.resume,
+         "checkpoints (ROADMAP A.8)"),
+        (args.multi_pod, "multi-pod meshes (ROADMAP A.12)"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=list_archs())
+    ap.add_argument("--protocol", default="gossip",
+                    choices=["gossip", "gossip_async", "agd", "every_logp",
+                             "none"])
+    ap.add_argument("--topology", default="dissemination",
+                    choices=["dissemination", "hypercube"])
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=0.1)
+    ap.add_argument("--num-rotations", type=int, default=2)
+    ap.add_argument("--staleness", type=int, default=1,
+                    help="gossip_async inbox-ring depth (not ported yet)")
+    ap.add_argument("--drop-timeout", type=float, default=0.0, metavar="RATE")
+    ap.add_argument("--drop-seed", type=int, default=0)
+    ap.add_argument("--wire-dtype", default="fp32",
+                    choices=["fp32", "bf16", "int8", "fp8"])
+    ap.add_argument("--gossip-subset", type=float, default=1.0, metavar="FRAC")
+    ap.add_argument("--wire-seed", type=int, default=0)
+    ap.add_argument("--packed", action="store_true",
+                    help="bucketed persistent-buffer gossip engine")
+    ap.add_argument("--fused-update", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="single-sweep fused mix+apply engine (default on "
+                    "for --packed; --no-fused-update mixes after the update)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced fp32 config")
+    ap.add_argument("--smoke-mesh", default="1,1,1", metavar="POD,DATA,MODEL",
+                    help="DATA replicas stacked on the one device; POD and "
+                    "MODEL must be 1 in this slice")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    _unported(args)
+
+    pod, dp, model = (int(x) for x in args.smoke_mesh.split(","))
+    if pod > 1 or model > 1:
+        raise NotImplementedError(
+            "pod > 1 and model > 1 need multi-device meshes (ROADMAP A.12); "
+            "this slice stacks DATA replicas on one device")
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = dataclasses.replace(reduced(cfg, d_model=args.d_model),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+    opt = sgd(step_decay(args.lr, 0.1, max(args.steps // 3, 1)), momentum=0.9)
+    bundle = make_train_step_bundle(
+        cfg, opt, dp=dp, protocol=args.protocol, topology=args.topology,
+        num_rotations=args.num_rotations, gossip_packed=args.packed,
+        fused_update=args.fused_update, device=args.device)
+    state = init_train_state(cfg, opt, dp=dp, packed=args.packed,
+                             layout=bundle.layout, seed=0, device=args.device)
+    ds = ShardedTokenDataset(cfg.vocab, args.seq_len, n_shards=dp,
+                             batch_per_shard=args.global_batch // dp)
+    hist = Trainer(bundle, state, ds, log_every=args.log_every).run(args.steps)
+    print(json.dumps({"arch": cfg.name, "protocol": args.protocol,
+                      "fused": bundle.fused, "dp": dp,
+                      "final_loss": hist[-1]["loss"],
+                      "first_loss": hist[0]["loss"], "start_step": 0}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,80 @@
+"""Model configuration schema, the attention-only part.
+
+Port of ``repro/models/config.py`` (``AttnSpec``, ``BlockSpec``,
+``ModelConfig``, ``reduced``) for the dense attention family the main path
+runs. The MLA, SSM, MoE, encoder and vision fields wait for the other model
+families (ROADMAP A.13); a config that needs them cannot be expressed here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["AttnSpec", "BlockSpec", "ModelConfig", "reduced"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    """Multi-head attention (MHA/GQA) with optional qk-norm, partial rotary
+    and sliding window. ``window=None`` means full causal attention."""
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_frac: float = 1.0
+    rope_theta: float = 10000.0
+    window: Optional[int] = None
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """One residual layer: attention, then a dense (Swi)GLU MLP if d_ff."""
+    kind: str
+    attn: Optional[AttnSpec] = None
+    d_ff: int = 0
+    mlp_act: str = "swiglu"         # only "swiglu" is ported
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    d_model: int
+    vocab: int
+    blocks: Tuple[BlockSpec, ...]
+    norm: str = "rms"               # only "rms" is ported
+    tie_embeddings: bool = False
+    max_seq: int = 8192
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    dist_mode: str = "replica"
+    source: str = ""
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.blocks)
+
+
+def _shrink_attn(a: Optional[AttnSpec], heads: int,
+                 head_dim: int) -> Optional[AttnSpec]:
+    if a is None:
+        return None
+    return dataclasses.replace(
+        a, n_heads=heads, n_kv_heads=min(a.n_kv_heads, heads),
+        head_dim=head_dim, window=min(a.window, 64) if a.window else None)
+
+
+def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
+            vocab: int = 512) -> ModelConfig:
+    """Smoke-test variant of the same family, as the reference's
+    ``reduced``: <= 2 layers, 4 heads, d_ff = 2 * d_model, tiny vocab."""
+    heads = 4
+    head_dim = d_model // heads
+    blocks = [dataclasses.replace(b, attn=_shrink_attn(b.attn, heads, head_dim),
+                                  d_ff=(2 * d_model if b.d_ff else 0))
+              for b in cfg.blocks[:n_layers]]
+    while len(blocks) < n_layers:
+        blocks.append(blocks[-1])
+    return dataclasses.replace(cfg, name=cfg.name + "-smoke", d_model=d_model,
+                               vocab=vocab, blocks=tuple(blocks), max_seq=256,
+                               dist_mode="replica")

@@ -1,0 +1,40 @@
+"""Next-token cross entropy, per replica.
+
+Port of ``repro/train/loss.py`` (``cross_entropy``, ``make_loss_fn``) for
+models without MoE or MTP heads. The reference's loss is per replica under a
+``vmap``; here it is a vector over the leading replica axis, and the train
+step back-propagates its sum, which gives every replica exactly the
+gradient of its own loss.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models import lm_apply
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["cross_entropy", "make_loss_fn"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token CE per replica in fp32: logits (dp, ..., V) of any float
+    dtype, labels (dp, ...) int -> (dp,)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - gold).flatten(1).mean(1)
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """``loss_fn(params, batch) -> (loss (dp,), metrics)`` for params with a
+    leading replica axis and ``batch["tokens"]`` of shape (dp, b, S+1)."""
+
+    def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        tokens = batch["tokens"]
+        logits = lm_apply(params, cfg, tokens[..., :-1])
+        ce = cross_entropy(logits, tokens[..., 1:])
+        return ce, {"ce": ce, "loss": ce}
+
+    return loss_fn

@@ -20,6 +20,8 @@ import repro  # noqa: E402,F401
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-device subprocess / dry-run tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without them")
 
 
 @pytest.fixture(scope="session")
