@@ -6,34 +6,51 @@
 Needs one CUDA card and nvcc. Imports nothing of JAX or of the reference
 package ``repro``. Phases, each of which fails the run on any error:
 
-1. builds the hand-written kernels (one nvcc per source, in parallel);
-2. holds each kernel against its plain PyTorch version on the card at the
-   main path's bucket shapes (the smallest and the largest bucket of
-   full-width qwen3-0.6b at dp=4, fp32 and bf16, alpha 0.5 and 0 static and
-   0.25 as a tensor): bit equality expected. Times kernel, plain version,
-   the PyTorch yardstick and the bound, and the fused sweep over all buckets;
-3. main path: full-width qwen3-0.6b in bf16, 4 gossip replicas stacked on
-   the card, packed + fused sync gossip, seq 256, 2 sequences per replica,
-   8 steps (two periods of the dp=4 schedule), through
-   make_train_step_bundle / init_train_state / Trainer, with the kernels'
-   launch counts reset before and read after; then one more step under
-   torch.profiler for the device's busy time;
-4. the same engine at a small fp32 size on the card and on the CPU (plain
-   versions) from one init: the trajectories agree (rtol = atol = 2e-4);
-5. ``fused_update=False`` at full width and 2 layers, 4 steps, so the mix
-   kernel runs on the path.
+1. ``[build]`` builds the hand-written kernels (one nvcc per source, in
+   parallel).
+2. ``[check]`` holds each kernel against its plain PyTorch version on the
+   card at the smallest and the largest bucket of full-width qwen3-0.6b at
+   dp=4, fp32 and bf16: the raw mix and fused sweep (alpha 0.5 and 0
+   static, 0.25 as a () tensor, one alpha per replica row), a bf16 partner
+   on an fp32 bucket, and ``gossip_mix_q`` and the scaled fused sweep on
+   int8 and fp8 wire codes. Bit equality expected. Also the wire encode on
+   the card against the CPU, bit for bit.
+3. ``[time]`` times each kernel, its plain version, the PyTorch yardstick
+   and the bound at the largest bucket in bf16, the fused sweep over all
+   buckets, and the int8 wire encode (per bucket and per step).
+4. ``[main]`` the first slice's path: full-width qwen3-0.6b in bf16, 4
+   gossip replicas stacked on the card, packed + fused sync gossip, seq 256,
+   2 sequences per replica, 8 steps, with the kernels' launch counts reset
+   before and read after, then one profiled step.
+5. ``[async_wire]`` this slice's path on the same model: ``gossip_async``
+   (staleness 2, drop 0.2) on the int8 wire with subset 0.5, fused, 8 steps,
+   launch counts checked, then one profiled step.
+6. ``[async_unfused]`` and ``[sync_fp8]`` at full width and 2 layers: the
+   async ring unfused on the int8 wire (``gossip_mix_q`` launches equal the
+   count computed from ``selected(phase - k)``) and the sync fused engine on
+   the fp8 wire.
+7. ``[agree]`` small fp32 models (5 buckets) on the card and on the CPU
+   (plain versions) from one init: sync fused, async int8 subset 0.5 fused
+   and unfused, sync bf16 wire unfused. Trajectories agree within rtol =
+   atol = 2e-4, except bucket elements one wire code step apart (at most
+   0.1% of them).
+8. ``[unfused]`` sync ``fused_update=False`` at full width and 2 layers, so
+   the raw mix kernel runs on its path.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 the line ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,8 +62,12 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet: device memory
 FP32_FLOPS_PER_S = 67e12       # and fp32 outside the tensor cores
 DP, SEQ, PER_REPLICA = 4, 256, 2
-MAIN_STEPS, UNFUSED_STEPS, UNFUSED_LAYERS = 8, 4, 2
+MAIN_STEPS, SHORT_STEPS, SHORT_LAYERS = 8, 4, 2
 LR, MOMENTUM, WD = 0.01, 0.9, 1e-4   # kernel checks
+ASYNC_WIRE = dict(protocol="gossip_async", staleness=2, drop_rate=0.2,
+                  wire_dtype="int8", gossip_subset=0.5)
+AGREE_BUCKET_BYTES = 96 << 10        # 5 buckets for the small model
+KERNELS = ("gossip_mix", "gossip_mix_q", "fused_sgd", "fused_sgd_q")
 
 
 def log(msg: str) -> None:
@@ -83,11 +104,11 @@ def phase_build():
     secs = _build.build_all()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
-    for name in _build.SOURCES:
-        lib = _build.lib_path(name)
-        for line in lib.with_suffix(".log").read_text().splitlines():
+    for src in secs:
+        for line in _build.lib_path(src).with_suffix(".log").read_text(
+                ).splitlines():
             if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+                log(f"[build] {src}: {line.strip()}")
 
 
 def _inputs(n, dtype, gen, dev):
@@ -95,100 +116,200 @@ def _inputs(n, dtype, gen, dev):
     return mk(1.0), mk(0.1), mk(1.0), mk(0.1)  # p, g, partner, mom
 
 
-def phase_kernels(layout, dev):
-    """Bit equality with the plain versions at the main path's shapes, and
-    timings at the largest bucket in the main path's dtype."""
-    from repro_torch.kernels import (fused_sgd_bucket, fused_sgd_plain,
-                                     gossip_mix_bucket, gossip_mix_plain)
-    sizes = (min(layout.bucket_sizes), max(layout.bucket_sizes))
-    alphas = (("0.5", 0.5), ("0", 0.0), ("tensor 0.25", torch.tensor(0.25)))
-    err = {"gossip_mix": 0.0, "fused_sgd": 0.0}
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        for n in sizes:
-            p, g, b, m = _inputs(n, dtype, gen, dev)
-            for an, alpha in alphas:
-                want = gossip_mix_plain(p, b, alpha)
-                got = gossip_mix_bucket(p.clone(), b, alpha)
-                torch.cuda.synchronize()
-                e_mix = (got.float() - want.float()).abs().max().item()
-                eq_mix = torch.equal(got, want)
-                del got, want
-                wp, wm = fused_sgd_plain(p, g, b, m, lr=LR, alpha=alpha,
-                                         momentum=MOMENTUM, weight_decay=WD)
-                gp, gm = p.clone(), m.clone()
-                fused_sgd_bucket(gp, g, b, gm, lr=LR, alpha=alpha,
-                                 momentum=MOMENTUM, weight_decay=WD)
-                torch.cuda.synchronize()
-                e_sgd = max((gp.float() - wp.float()).abs().max().item(),
-                            (gm.float() - wm.float()).abs().max().item())
-                eq_sgd = torch.equal(gp, wp) and torch.equal(gm, wm)
-                del gp, gm, wp, wm
-                err["gossip_mix"] = max(err["gossip_mix"], e_mix)
-                err["fused_sgd"] = max(err["fused_sgd"], e_sgd)
-                log(f"[check] {str(dtype)[6:]} shape ({DP}, {n}) alpha {an}: "
-                    f"gossip_mix equal={eq_mix} max_abs_err={e_mix} | "
-                    f"fused_sgd equal={eq_sgd} max_abs_err={e_sgd}")
-                assert eq_mix and eq_sgd, "kernel disagrees with its plain version"
-            del p, g, b, m
-            torch.cuda.empty_cache()
+def _encode(x, code):
+    from repro_torch.kernels.quantize import encode_wire, wire_key
+    return encode_wire(x, code, keys=wire_key(0, np.arange(x.shape[0]), 0))
 
-    # timings: the largest bucket in bf16 (the main path's), alpha 0.5
-    # per element: the mix reads a and b and writes a (2 mul + 1 add); the
-    # fused sweep reads p, g, partner and m and writes p and m (the mix, then
-    # m = mu*m + g and p - lr*m: 7 operations with no weight decay)
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor on the CPU, one-byte codes as their raw bytes."""
+    t = t.cpu()
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def _diff(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_kernels(layout, dev):
+    """Bit equality with the plain versions at the main path's shapes."""
+    from repro_torch.kernels import (fused_sgd_bucket, fused_sgd_plain,
+                                     gossip_mix_bucket, gossip_mix_plain,
+                                     gossip_mix_q_plain)
+    row = torch.tensor([0.5, 0.0, 0.25, 0.5], device=dev)
+    alphas = (("0.5", 0.5), ("0", 0.0), ("tensor 0.25",
+                                         torch.tensor(0.25, device=dev)),
+              ("per-row", row))
+    err = dict.fromkeys(KERNELS, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def check(kind, tag, an, got_want_pairs):
+        e = max(_diff(g, w) for g, w in got_want_pairs)
+        eq = all(torch.equal(g, w) for g, w in got_want_pairs)
+        err[kind] = max(err[kind], e)
+        log(f"[check] {kind} {tag} alpha {an}: equal={eq} max_abs_err={e}")
+        assert eq, f"{kind} disagrees with its plain version"
+
+    def mix_and_sweep(tag, p, g, b, m, wire_kinds, mix_plain):
+        mix_kind, sgd_kind = wire_kinds
+        scales = b["s"] if isinstance(b, dict) else None
+        partner = b["q"] if isinstance(b, dict) else b
+        for an, alpha in alphas:
+            want = mix_plain(p, alpha)
+            got = gossip_mix_bucket(p.clone(), b, alpha)
+            torch.cuda.synchronize()
+            check(mix_kind, tag, an, [(got, want)])
+            del got, want
+            wp, wm = fused_sgd_plain(p, g, partner, m, lr=LR, alpha=alpha,
+                                     momentum=MOMENTUM, weight_decay=WD,
+                                     partner_scales=scales)
+            gp, gm = p.clone(), m.clone()
+            fused_sgd_bucket(gp, g, b, gm, lr=LR, alpha=alpha,
+                             momentum=MOMENTUM, weight_decay=WD)
+            torch.cuda.synchronize()
+            check(sgd_kind, tag, an, [(gp, wp), (gm, wm)])
+            del gp, gm, wp, wm
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (min(layout.bucket_sizes), max(layout.bucket_sizes)):
+            p, g, b, m = _inputs(n, dtype, gen, dev)
+            tag = f"{str(dtype)[6:]} ({DP}, {n})"
+            mix_and_sweep(tag, p, g, b, m, ("gossip_mix", "fused_sgd"),
+                          lambda a_, al: gossip_mix_plain(a_, b, al))
+            if dtype == torch.float32:  # a bf16 wire on an fp32 bucket
+                b16 = b.to(torch.bfloat16)
+                mix_and_sweep(tag + " bf16 partner", p, g, b16, m,
+                              ("gossip_mix", "fused_sgd"),
+                              lambda a_, al: gossip_mix_plain(a_, b16, al))
+                del b16
+            for code in ("int8", "fp8"):
+                enc = _encode(b, code)
+                mix_and_sweep(
+                    f"{tag} {code} codes", p, g, enc, m,
+                    ("gossip_mix_q", "fused_sgd_q"),
+                    lambda a_, al: gossip_mix_q_plain(a_, enc["q"], enc["s"],
+                                                      al))
+                del enc
+            # the wire encode itself: card against CPU on a row slice
+            x = p[:, :min(n, 1 << 20)].contiguous()
+            for code in ("int8", "fp8"):
+                card, cpu = _encode(x, code), _encode(x.cpu(), code)
+                eq = all(torch.equal(_bits(card[k]), _bits(cpu[k]))
+                         for k in ("q", "s"))
+                log(f"[check] encode {code} {tag} slice {tuple(x.shape)}: "
+                    f"card equals cpu={eq}")
+                assert eq, "the wire encode differs between card and CPU"
+            del p, g, b, m, x
+            torch.cuda.empty_cache()
+    return err
+
+
+def phase_time(layout, dev):
+    """Kernel, plain and yardstick times at the largest bucket in bf16
+    (the main path's dtype), the fused sweep over all buckets, and the
+    int8 encode."""
+    from repro_torch.core.gossip import wire_subset_of
+    from repro_torch.kernels import (fused_sgd_bucket, fused_sgd_plain,
+                                     gossip_mix_bucket, gossip_mix_plain,
+                                     gossip_mix_q_plain)
+    from repro_torch.kernels.quantize import WireFormat
+    gen = torch.Generator(device=dev).manual_seed(1)
     n = max(layout.bucket_sizes)
     p, g, b, m = _inputs(n, torch.bfloat16, gen, dev)
+    enc = _encode(b, "int8")
+    q, s = enc["q"], enc["s"]
+    row = torch.tensor([0.5, 0.5, 0.0, 0.5], device=dev)
     elems = DP * n
-    nbytes = elems * p.element_size()
+    tiles = elems / 128
+    # per element: the raw mix reads a, b and writes a (2 mul + 1 add); the
+    # q-mix reads a (2 B), a code (1 B) and a 128th of a scale, writes a
+    # (decode mul + the mix); the fused sweep reads p, g, partner, m and
+    # writes p, m (the mix, m = mu*m + g, p - lr*m: 7 operations, 8 with
+    # the decode)
     t = {
         "gossip_mix": dict(
             ms=time_ms(lambda: gossip_mix_bucket(p, b, 0.5)),
             plain_ms=time_ms(lambda: gossip_mix_plain(p, b, 0.5)),
             library_ms=time_ms(lambda: p.lerp_(b, 0.5)),
-            **bound(3 * nbytes, 3 * elems)),
+            **bound(3 * 2 * elems, 3 * elems)),
+        "gossip_mix_q": dict(
+            ms=time_ms(lambda: gossip_mix_bucket(p, enc, 0.5)),
+            ms_row_alpha=time_ms(lambda: gossip_mix_bucket(p, enc, row)),
+            plain_ms=time_ms(lambda: gossip_mix_q_plain(p, q, s, 0.5)),
+            library_ms=None,
+            **bound(5 * elems + 4 * tiles, 4 * elems)),
         "fused_sgd": dict(
             ms=time_ms(lambda: fused_sgd_bucket(p, g, b, m, lr=LR, alpha=0.5)),
             plain_ms=time_ms(lambda: fused_sgd_plain(p, g, b, m, lr=LR,
                                                      alpha=0.5)),
             library_ms=None,
-            **bound(6 * nbytes, 7 * elems)),
+            **bound(6 * 2 * elems, 7 * elems)),
+        "fused_sgd_q": dict(
+            ms=time_ms(lambda: fused_sgd_bucket(p, g, enc, m, lr=LR,
+                                                alpha=0.5)),
+            ms_row_alpha=time_ms(lambda: fused_sgd_bucket(p, g, enc, m, lr=LR,
+                                                          alpha=row)),
+            plain_ms=time_ms(lambda: fused_sgd_plain(
+                p, g, q, m, lr=LR, alpha=0.5, partner_scales=s)),
+            library_ms=None,
+            **bound(11 * elems + 4 * tiles, 8 * elems)),
     }
     for k, v in t.items():
         log(f"[time] {k} bf16 ({DP}, {n}): " + json.dumps(v))
+    del enc, q, s
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    enc_ms = time_ms(lambda: _encode(p, "int8"), reps=3, warmup=1)
+    enc_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"[time] encode int8 bf16 ({DP}, {n}): " + json.dumps(
+        {"ms": enc_ms, "peak_extra_gb": enc_peak,
+         **bound(2 * elems + elems + 4 * tiles, 0)}))
     del p, g, b, m
     torch.cuda.empty_cache()
 
-    # the fused sweep of one full step: every bucket of the layout, bf16
-    bufs = [_inputs(s, torch.bfloat16, gen, dev) for s in layout.bucket_sizes]
+    # every bucket of the layout, bf16: the fused sweep of one step and the
+    # encode of each bucket, summed over the buckets a step sends
+    bufs = [_inputs(sz, torch.bfloat16, gen, dev) for sz in layout.bucket_sizes]
 
     def sweep():
         for p_, g_, b_, m_ in bufs:
             fused_sgd_bucket(p_, g_, b_, m_, lr=LR, alpha=0.5)
 
-    total = sum(DP * s for s in layout.bucket_sizes)
+    total = sum(DP * sz for sz in layout.bucket_sizes)
     sweep_ms = time_ms(sweep, reps=5, warmup=1)
     log(f"[time] fused_sgd sweep over all {layout.num_buckets} buckets bf16 "
         f"dp={DP}: " + json.dumps({"ms": sweep_ms,
                                    **bound(6 * 2 * total, 7 * total)}))
+    per_bucket = [time_ms(lambda p_=p_: _encode(p_, "int8"), reps=2,
+                          warmup=1) for p_, _, _, _ in bufs]
+    sub = wire_subset_of(WireFormat("int8", ASYNC_WIRE["gossip_subset"]),
+                         layout.num_buckets)
+    steps = [sum(ms for ms, sel in zip(per_bucket, sub.selected(ph)) if sel)
+             for ph in range(sub.period)]
+    log("[time] encode int8 per step (subset "
+        f"{ASYNC_WIRE['gossip_subset']}): " + json.dumps(
+            {"ms_per_step": sum(steps) / len(steps), "ms_by_phase": steps,
+             "ms_all_buckets": sum(per_bucket)}))
     del bufs, sweep
     torch.cuda.empty_cache()
-    return err, t
+    return t
 
 
 def _train(cfg, *, fused, steps, dev, params=None, dp=DP, seq=SEQ,
-           per_replica=PER_REPLICA):
+           per_replica=PER_REPLICA, protocol="gossip", **wire):
     from repro_torch.data import ShardedTokenDataset
     from repro_torch.optim import sgd, step_decay
     from repro_torch.train import (Trainer, init_train_state,
                                    make_train_step_bundle)
     opt = sgd(step_decay(0.1, 0.1, max(steps // 3, 1)), momentum=0.9)
-    bundle = make_train_step_bundle(cfg, opt, dp=dp, protocol="gossip",
+    bundle = make_train_step_bundle(cfg, opt, dp=dp, protocol=protocol,
                                     gossip_packed=True, fused_update=fused,
-                                    device=dev)
+                                    device=dev, **wire)
     state = init_train_state(cfg, opt, dp=dp, packed=True,
                              layout=bundle.layout, seed=0, params=params,
-                             device=dev)
+                             device=dev, inbox=bundle.protocol.staleness,
+                             wire=bundle.wire)
     ds = ShardedTokenDataset(cfg.vocab, seq, n_shards=dp,
                              batch_per_shard=per_replica)
     return bundle, Trainer(bundle, state, ds, log_every=0)
@@ -196,14 +317,17 @@ def _train(cfg, *, fused, steps, dev, params=None, dp=DP, seq=SEQ,
 
 def _reset_counts():
     from repro_torch.kernels import fused_update, gossip_mix
-    gossip_mix.launches.reset()
-    fused_update.launches.reset()
+    for c in (gossip_mix.launches, gossip_mix.q_launches,
+              fused_update.launches, fused_update.scaled_launches):
+        c.reset()
 
 
 def _counts():
     from repro_torch.kernels import fused_update, gossip_mix
     return {"gossip_mix": gossip_mix.launches.count,
-            "fused_sgd": fused_update.launches.count}
+            "gossip_mix_q": gossip_mix.q_launches.count,
+            "fused_sgd": fused_update.launches.count,
+            "fused_sgd_q": fused_update.scaled_launches.count}
 
 
 def _finite_buckets(trainer) -> bool:
@@ -211,10 +335,26 @@ def _finite_buckets(trainer) -> bool:
                trainer.state["params"].buckets)
 
 
-def phase_main(cfg, dev):
-    bundle, tr = _train(cfg, fused=True, steps=MAIN_STEPS, dev=dev)
-    assert bundle.fused and bundle.protocol.period == 4
-    nb = bundle.layout.num_buckets
+def consumed(bundle, steps: int, start: int = 0) -> int:
+    """Buckets that meet a partner over ``steps`` steps: the consumed
+    subset ``selected(phase - k)`` (k = 0 for sync), every bucket without
+    a subset."""
+    from repro_torch.core.gossip import wire_subset_of
+    proto, nb = bundle.protocol, bundle.layout.num_buckets
+    sub = wire_subset_of(proto.wire, nb)
+    if sub is None:
+        return steps * nb
+    return sum(int(sub.selected(s % proto.period - proto.staleness).sum())
+               for s in range(start, start + steps))
+
+
+def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
+             **proto):
+    """Drive one path through Trainer with the launch counts reset just
+    before and read just after; ``expect(bundle)`` gives the counts it
+    must show."""
+    bundle, tr = _train(cfg, fused=fused, steps=steps, dev=dev, **proto)
+    assert bundle.fused == fused
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -222,37 +362,40 @@ def phase_main(cfg, dev):
     tr.run(1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    hist = tr.run(MAIN_STEPS - 1, start_step=1)
+    hist = tr.run(steps - 1, start_step=1)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = _counts()
     losses = [h["loss"] for h in hist]
-    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
-           "dp": DP, "seq": SEQ, "per_replica": PER_REPLICA,
-           "num_buckets": nb, "losses": losses,
+    want = expect(bundle)
+    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "dp": DP,
+           "seq": SEQ, "per_replica": PER_REPLICA, "fused": fused,
+           **{k: v for k, v in proto.items()},
+           "period": bundle.protocol.period,
+           "num_buckets": bundle.layout.num_buckets, "losses": losses,
            "first_step_ms": (t1 - t0) * 1e3,
-           "ms_per_step": (t2 - t1) * 1e3 / (MAIN_STEPS - 1),
-           "tokens_per_s": DP * PER_REPLICA * SEQ * (MAIN_STEPS - 1) / (t2 - t1),
+           "ms_per_step": (t2 - t1) * 1e3 / (steps - 1),
+           "tokens_per_s": DP * PER_REPLICA * SEQ * (steps - 1) / (t2 - t1),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": counts}
-    log("[main] " + json.dumps(res))
+           "launches": counts, "expected_launches": want}
+    log(f"[{name}] " + json.dumps(res))
     assert all(math.isfinite(v) for v in losses), "non-finite loss"
     assert abs(losses[0] - math.log(cfg.vocab)) <= 1.0, losses[0]
-    assert counts["fused_sgd"] == MAIN_STEPS * nb, counts
-    assert counts["gossip_mix"] == 0, counts
+    assert counts == want, (counts, want)
     assert _finite_buckets(tr), "non-finite parameters"
-    profile_step(tr, res["ms_per_step"])
+    if profile:
+        profile_step(name, tr, res["ms_per_step"])
     del tr, bundle
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_step(tr, ms_per_step: float) -> None:
-    """One more main-path step under torch.profiler, after the counted
-    window. Device busy time is the sum of the kernels (device-side events
-    only: an operator's row repeats its kernels' time); the idle share is
-    taken against the step time measured without the profiler, which slows
-    the host. Also times the host's synthetic batch for one step."""
+def profile_step(name, tr, ms_per_step: float) -> None:
+    """One more step under torch.profiler, after the counted window.
+    Device busy time is the sum of the kernels (device-side events only:
+    an operator's row repeats its kernels' time); the idle share is taken
+    against the step time measured without the profiler, which slows the
+    host. Also times the host's synthetic batch for one step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -272,63 +415,86 @@ def profile_step(tr, ms_per_step: float) -> None:
                    if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    log("[profile] " + json.dumps({
+    groups = {g: sum(ms for k, ms, _ in rows if g in k)
+              for g in ("fused_sgd_kernel", "gossip_mix_kernel", "index")}
+    log(f"[profile {name}] " + json.dumps({
         "device_busy_ms": busy_ms, "step_ms_unprofiled": ms_per_step,
         "idle_share": 1.0 - busy_ms / ms_per_step,
         "profiled_wall_ms": wall_ms,
         "device_ops_per_step": sum(r[2] for r in rows),
-        "host_batch_ms": batch_ms}))
-    for name, ms, count in rows[:12]:
-        log(f"[profile] {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+        "host_batch_ms": batch_ms, "device_ms_by_kernel_name": groups}))
+    for key, ms, count in rows[:16]:
+        log(f"[profile {name}] {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+
+
+@contextlib.contextmanager
+def _bucket_bytes(nbytes: int):
+    """Small buckets for the small model, so a subset has buckets to pick
+    from (the tests force the same layout in both packages)."""
+    import repro_torch.train.step as step_mod
+    orig = step_mod.build_layout
+    step_mod.build_layout = functools.partial(orig, target_bucket_bytes=nbytes)
+    try:
+        yield
+    finally:
+        step_mod.build_layout = orig
+
+
+def _code_step(ref: np.ndarray, wire: str | None) -> np.ndarray:
+    """0.5 (alpha) times one wire code step of each element's tile."""
+    if wire is None or wire in ("fp32", "bf16"):
+        return np.zeros_like(ref)
+    tiles = ref.reshape(ref.shape[:-1] + (-1, 128))
+    amax = np.abs(tiles).max(-1, keepdims=True)
+    if wire == "int8":
+        step = amax / 127.0 + 0 * tiles
+    else:
+        scale = amax / 448.0
+        y = np.abs(tiles) / np.where(scale > 0, scale, 1.0)
+        step = scale * 2.0 ** (np.floor(np.log2(np.maximum(y, 2.0 ** -6)))
+                               - 3)
+    return (0.5 * step).reshape(ref.shape)
 
 
 def phase_agree(dev):
-    """Small fp32 run on the card (kernels) and on the CPU (plain versions)
-    from one init: both trajectories of the fused engine agree."""
+    """Small fp32 runs on the card (kernels) and on the CPU (plain
+    versions) from one init agree."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm_init, reduced
     from repro_torch.tree import tree_map
     cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b"), d_model=64),
                               param_dtype="float32", compute_dtype="float32")
     init = lm_init(cfg, seed=0, device="cpu")
-    out = {}
-    for d in ("cpu", dev):
-        params = tree_map(lambda t, d=d: t.to(d), init)
-        _, tr = _train(cfg, fused=True, steps=4, dev=d, params=params,
-                       seq=16, per_replica=2)
-        losses = [h["loss"] for h in tr.run(4)]
-        out[str(d)] = (losses, [b.detach().cpu() for b in
-                                tr.state["params"].buckets])
-    (lc, bc), (lg, bg) = out["cpu"], out[str(dev)]
-    np.testing.assert_allclose(lg, lc, rtol=2e-4, atol=2e-4)
-    for a, b in zip(bg, bc):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-4, atol=2e-4)
-    log("[agree] card vs cpu losses " + json.dumps({"cuda": lg, "cpu": lc}))
-
-
-def phase_unfused(cfg, dev):
-    cfg2 = dataclasses.replace(cfg, blocks=cfg.blocks[:UNFUSED_LAYERS])
-    bundle, tr = _train(cfg2, fused=False, steps=UNFUSED_STEPS, dev=dev)
-    assert not bundle.fused
-    nb = bundle.layout.num_buckets
-    _reset_counts()
-    t0 = time.perf_counter()
-    hist = tr.run(UNFUSED_STEPS)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = _counts()
-    losses = [h["loss"] for h in hist]
-    log("[unfused] " + json.dumps({"layers": UNFUSED_LAYERS, "num_buckets": nb,
-                                   "losses": losses,
-                                   "ms_per_step": dt * 1e3 / UNFUSED_STEPS,
-                                   "launches": counts}))
-    assert all(math.isfinite(v) for v in losses), "non-finite loss"
-    assert counts["gossip_mix"] == UNFUSED_STEPS * nb, counts
-    assert counts["fused_sgd"] == 0, counts
-    assert _finite_buckets(tr), "non-finite parameters"
-    del tr, bundle
-    torch.cuda.empty_cache()
-    return counts
+    cases = [("sync fused", True, {}),
+             ("async int8 sub0.5 fused", True, ASYNC_WIRE),
+             ("async int8 sub0.5 unfused", False, ASYNC_WIRE),
+             ("sync bf16-wire unfused", False, dict(wire_dtype="bf16"))]
+    for name, fused, proto in cases:
+        out = {}
+        with _bucket_bytes(AGREE_BUCKET_BYTES):
+            for d in ("cpu", dev):
+                params = tree_map(lambda t, d=d: t.to(d), init)
+                bundle, tr = _train(cfg, fused=fused, steps=4, dev=d,
+                                    params=params, seq=16, per_replica=2,
+                                    **proto)
+                assert bundle.layout.num_buckets == 5
+                losses = [h["loss"] for h in tr.run(4)]
+                out[str(d)] = (losses, [b.detach().cpu().numpy() for b in
+                                        tr.state["params"].buckets])
+        (lc, bc), (lg, bg) = out["cpu"], out[str(dev)]
+        np.testing.assert_allclose(lg, lc, rtol=2e-4, atol=2e-4)
+        flips = total = 0
+        for a, b in zip(bg, bc):
+            bad = ~np.isclose(a, b, rtol=2e-4, atol=2e-4)
+            step = _code_step(b, proto.get("wire_dtype"))
+            assert (np.abs(a - b)[bad] <= step[bad] * 1.001 + 2e-4).all(), \
+                name
+            flips += int(bad.sum())
+            total += a.size
+        assert flips <= 1e-3 * total, (name, flips, total)
+        log(f"[agree] {name}: card vs cpu losses " + json.dumps(
+            {"cuda": lg, "cpu": lc, "code_step_elements": flips,
+             "elements": total}))
 
 
 def main() -> int:
@@ -346,26 +512,80 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    failures = []
+
+    def guard(name, fn, *args, **kw):
+        """Run one phase; a failure is recorded and the next phase runs."""
+        try:
+            return fn(*args, **kw)
+        except Exception:  # noqa: BLE001 - every phase failure is reported
+            traceback.print_exc()
+            log(f"[FAIL] {name}")
+            failures.append(name)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return None
+
     phase_build()
     cfg = get_config("qwen3-0.6b")
+    short = dataclasses.replace(cfg, blocks=cfg.blocks[:SHORT_LAYERS])
     layout = build_layout(lm_specs(cfg))
-    err, timing = phase_kernels(layout, dev)
-    main_counts = phase_main(cfg, dev)
-    phase_agree(dev)
-    unfused_counts = phase_unfused(cfg, dev)
+    err = guard("check", phase_kernels, layout, dev) or {}
+    timing = guard("time", phase_time, layout, dev) or {}
+
+    def none(**kw):
+        return dict(dict.fromkeys(KERNELS, 0), **kw)
+
+    main_counts = guard(
+        "main", run_path, "main", cfg, dev, fused=True, steps=MAIN_STEPS,
+        profile=True,
+        expect=lambda b: none(fused_sgd=MAIN_STEPS * b.layout.num_buckets))
+    async_counts = guard(
+        "async_wire", run_path, "async_wire", cfg, dev, fused=True,
+        steps=MAIN_STEPS, profile=True,
+        expect=lambda b: none(fused_sgd=MAIN_STEPS * b.layout.num_buckets,
+                              fused_sgd_q=consumed(b, MAIN_STEPS)),
+        **ASYNC_WIRE)
+    if async_counts is not None and async_counts["fused_sgd"] != 104:
+        failures.append(f"async_wire fused_sgd launches {async_counts}")
+    q_counts = guard(
+        "async_unfused", run_path, "async_unfused", short, dev, fused=False,
+        steps=SHORT_STEPS,
+        expect=lambda b: none(gossip_mix_q=consumed(b, SHORT_STEPS)),
+        **ASYNC_WIRE)
+    guard("sync_fp8", run_path, "sync_fp8", short, dev, fused=True,
+          steps=SHORT_STEPS,
+          expect=lambda b: none(fused_sgd=SHORT_STEPS * b.layout.num_buckets,
+                                fused_sgd_q=consumed(b, SHORT_STEPS)),
+          wire_dtype="fp8")
+    guard("agree", phase_agree, dev)
+    unfused_counts = guard(
+        "unfused", run_path, "unfused", short, dev, fused=False,
+        steps=SHORT_STEPS,
+        expect=lambda b: none(gossip_mix=SHORT_STEPS * b.layout.num_buckets))
+    if failures:
+        log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
+            f"{failures}")
+        return 1
 
     src = "src/repro_torch/kernels/csrc/"
-    kernels = [
-        dict(name="fused_sgd", route="cuda", source=src + "fused_sgd.cu",
-             replaces="src/repro/kernels/fused_update.py:233",
-             path="fused (main)", launches=main_counts["fused_sgd"],
-             max_abs_err=err["fused_sgd"], **timing["fused_sgd"]),
-        dict(name="gossip_mix", route="cuda", source=src + "gossip_mix.cu",
-             replaces="src/repro/kernels/gossip_mix.py:83",
-             path="unfused (--no-fused-update)",
-             launches=unfused_counts["gossip_mix"],
-             max_abs_err=err["gossip_mix"], **timing["gossip_mix"]),
+    rows = [
+        ("fused_sgd", "fused_sgd.cu", "src/repro/kernels/fused_update.py:233",
+         "main (sync fused)", main_counts),
+        ("fused_sgd_q", "fused_sgd.cu",
+         "src/repro/kernels/fused_update.py:233",
+         "async_wire (gossip_async int8 sub 0.5, fused; partner_scales)",
+         async_counts),
+        ("gossip_mix", "gossip_mix.cu", "src/repro/kernels/gossip_mix.py:83",
+         "unfused (sync --no-fused-update)", unfused_counts),
+        ("gossip_mix_q", "gossip_mix.cu",
+         "src/repro/kernels/gossip_mix.py:142",
+         "async_unfused (gossip_async int8 sub 0.5, unfused)", q_counts),
     ]
+    kernels = [dict(name=name, route="cuda", source=src + f,
+                    replaces=rep, path=path, launches=counts[name],
+                    max_abs_err=err[name], **timing[name])
+               for name, f, rep, path, counts in rows]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

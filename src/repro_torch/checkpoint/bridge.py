@@ -3,8 +3,8 @@
 No single reference counterpart: ``torch.Generator`` cannot replay
 ``jax.random``, so parity runs take the reference's ``lm_init`` tree as
 numpy arrays (nested dicts and lists keyed by the same paths) and load it
-here. Needs no JAX: bf16 arrays (``ml_dtypes.bfloat16``) cross as their raw
-16-bit patterns. The npz+manifest checkpoint format of ``repro/checkpoint``
+here. Needs no JAX: bf16 and float8_e4m3fn arrays (``ml_dtypes``) cross as
+their raw bit patterns. The npz+manifest checkpoint format of ``repro/checkpoint``
 waits for ROADMAP A.8.
 """
 from __future__ import annotations
@@ -27,6 +27,9 @@ def array_to_torch(a, device) -> torch.Tensor:
     a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(a).to(device)
 
 

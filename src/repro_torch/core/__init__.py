@@ -1,16 +1,24 @@
 """GossipGraD core of the port: topologies, buckets, stacked-replica gossip
-engines and protocols (port of ``repro/core``)."""
+engines, the async ring and protocols (port of ``repro/core``)."""
+from .async_gossip import (exchange_ok, init_inbox_ring, init_wire_inbox_ring,
+                           make_packed_async_gossip_mix,
+                           make_packed_fused_async_update)
 from .buckets import (LANE, BucketLayout, LeafSlot, PackedParams,
                       build_layout)
 from .gossip import (exchange, make_packed_fused_update,
-                     make_packed_gossip_mix, packed_fused_local_update)
+                     make_packed_gossip_mix, packed_fused_local_update,
+                     wire_period, wire_subset_of)
 from .protocols import PROTOCOLS, Protocol, make_protocol, make_ring_shuffle
-from .topology import (GossipSchedule, build_schedule, dissemination_partner,
+from .topology import (BucketSubsetSchedule, GossipSchedule, build_schedule,
+                       build_subset_schedule, dissemination_partner,
                        hypercube_partner, log2_steps)
 
 __all__ = ["LANE", "BucketLayout", "LeafSlot", "PackedParams", "build_layout",
            "exchange", "make_packed_fused_update", "make_packed_gossip_mix",
-           "packed_fused_local_update", "PROTOCOLS", "Protocol",
-           "make_protocol", "make_ring_shuffle", "GossipSchedule",
-           "build_schedule", "dissemination_partner", "hypercube_partner",
-           "log2_steps"]
+           "packed_fused_local_update", "wire_period", "wire_subset_of",
+           "exchange_ok", "init_inbox_ring", "init_wire_inbox_ring",
+           "make_packed_async_gossip_mix", "make_packed_fused_async_update",
+           "PROTOCOLS", "Protocol", "make_protocol", "make_ring_shuffle",
+           "BucketSubsetSchedule", "GossipSchedule", "build_schedule",
+           "build_subset_schedule", "dissemination_partner",
+           "hypercube_partner", "log2_steps"]

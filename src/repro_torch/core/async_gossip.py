@@ -1,0 +1,209 @@
+"""Bounded-delay asynchronous gossip: the staleness-k inbox ring
+(GossipGraD §4.2/§5).
+
+Port of ``repro/core/async_gossip.py`` (``exchange_ok``,
+``init_inbox_ring``, ``init_wire_inbox_ring``, ``_ring_advance``,
+``make_packed_async_gossip_mix``, ``make_packed_fused_async_update``) on
+replicas stacked on one device. The ring entering step t (k = staleness):
+
+    slots[0..k-1]   payloads dispatched at steps t-k .. t-1, oldest first,
+                    each a list over buckets (a (dp, n) tensor, a wire
+                    payload dict, or None for a bucket the subset did not
+                    send, which is never consumed)
+    valid (dp, k)   landed flags, numpy float32 on the host
+    t               dispatch counter, a host int
+
+One step: the masked alpha ``a_eff = alpha * valid[:, 0]`` is one value per
+replica row (the reference has one scalar per device), uploaded as a (dp,)
+tensor that the kernels read on the device; the oldest slot is mixed in
+(skip-on-timeout: a dropped exchange mixes at alpha 0); the step's payload
+is exchanged with schedule row ``phase`` and appended with its landed flags
+``exchange_ok(t, j)`` for each receiving row j. ``valid`` and ``t`` are
+integer logic, computed on the host exactly as the reference computes them,
+so a step never reads the device back.
+
+Both engines run one path for every ``WireFormat``: ring slots hold wire
+payloads, encoded with noise keyed on the ring counter ``t`` (the sync
+engines key on the folded phase); buckets are consumed under
+``selected(phase - k)`` and sent under ``selected(phase)`` (every bucket
+under full participation). The unfused engine encodes the MIXED bucket; the
+fused engine encodes the RAW pre-update bucket, just before that bucket's
+in-place sweep, as the sync fused engine's exchange does.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ops import gossip_mix_bucket
+from repro_torch.kernels.quantize import (WireFormat, _mix32_np, _u32,
+                                          zero_payload_like)
+
+from .buckets import BucketLayout, PackedParams
+from .gossip import (_check_dp, _RecvTables, encode_bucket, exchange,
+                     packed_fused_local_update, send_masks, wire_period,
+                     wire_subset_of)
+from .topology import GossipSchedule
+
+__all__ = ["exchange_ok", "init_inbox_ring", "init_wire_inbox_ring",
+           "ring_advance", "masked_alpha", "make_packed_async_gossip_mix",
+           "make_packed_fused_async_update"]
+
+
+def exchange_ok(t, rank, seed: int = 0, rate: float = 0.0) -> np.ndarray:
+    """Emulated-wire drop injection: 1.0 where the exchange dispatched at
+    step ``t`` lands at receiver ``rank`` in time, 0.0 where it is dropped.
+    The reference's splitmix32 hash in numpy uint32, bit for bit."""
+    if rate <= 0.0:
+        return np.ones(np.shape(rank), np.float32)
+    t, rank = np.broadcast_arrays(np.asarray(t), np.asarray(rank))
+    x = (_u32(t) * np.uint32(0x9E3779B9)
+         ^ _u32(rank) * np.uint32(0x85EBCA6B)
+         ^ np.uint32(seed & 0xFFFFFFFF))
+    thresh = np.uint32(min(int(rate * (1 << 32)), (1 << 32) - 1))
+    return (_mix32_np(x) >= thresh).astype(np.float32).reshape(rank.shape)
+
+
+def _ring(slots: List[List], dp: int) -> Dict:
+    if len(slots) < 1:
+        raise ValueError(f"inbox ring needs staleness >= 1, got {len(slots)}")
+    return {"slots": tuple(slots),
+            "valid": np.zeros((max(dp, 1), len(slots)), np.float32), "t": 0}
+
+
+def init_inbox_ring(params: PackedParams, staleness: int, dp: int) -> Dict:
+    """Fresh-run ring: k slots of bucket copies (copies: the engines update
+    the live buckets in place), all invalid, counter 0."""
+    return _ring([[b.detach().clone() for b in params.buckets]
+                  for _ in range(int(staleness))], dp)
+
+
+def init_wire_inbox_ring(params: PackedParams, staleness: int, dp: int,
+                         wire: WireFormat) -> Dict:
+    """Fresh-run ring of a compressed wire: every slot holds all-zero wire
+    payloads (consumed only at alpha = 0). Payloads are read-only, so the k
+    bootstrap slots share one set of zeros."""
+    zeros = [zero_payload_like(b.detach(), wire.dtype) for b in params.buckets]
+    return _ring([list(zeros) for _ in range(int(staleness))], dp)
+
+
+def ring_advance(ring: Dict, payload: List, ok: np.ndarray) -> Dict:
+    """FIFO advance: drop the consumed slot, append the fresh dispatch with
+    its landed flags, count the dispatch."""
+    return {"slots": tuple(ring["slots"][1:]) + (payload,),
+            "valid": np.concatenate([ring["valid"][:, 1:],
+                                     np.asarray(ok, np.float32)[:, None]],
+                                    axis=1),
+            "t": ring["t"] + 1}
+
+
+def masked_alpha(alpha: float, valid: np.ndarray,
+                 device: torch.device) -> torch.Tensor:
+    """``alpha * valid[:, 0]`` in fp32, one per replica row, on ``device``
+    (one small asynchronous host-to-device copy; nothing is read back)."""
+    a = np.float32(alpha) * np.asarray(valid[:, 0], np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device,
+                                                        non_blocking=True)
+
+
+class _Ring:
+    """What both async engines share: the wire's subset and period, the
+    receive tables and the drop injection."""
+
+    def __init__(self, schedule, layout, *, staleness, drop_rate, drop_seed,
+                 wire):
+        if staleness < 1:
+            raise ValueError(f"gossip_async needs staleness >= 1, "
+                             f"got {staleness}")
+        self.schedule, self.layout, self.k = schedule, layout, int(staleness)
+        self.drop_rate, self.drop_seed = drop_rate, drop_seed
+        self.wire = wire
+        self.subset = wire_subset_of(self.wire, layout.num_buckets)
+        self.period = wire_period(schedule, self.subset)
+        self.recv = _RecvTables(schedule)
+
+    def masks(self, phase: int):
+        """(consumed, sent) bucket masks at ``phase``: the slot consumed now
+        was dispatched k steps ago."""
+        nb = self.layout.num_buckets
+        return (send_masks(self.subset, nb, phase - self.k),
+                send_masks(self.subset, nb, phase))
+
+    def dispatch(self, bucket, i, sent, t, rf):
+        """Bucket i's exchanged wire payload; None when the subset does not
+        send it."""
+        if not sent[i]:
+            return None
+        return exchange(encode_bucket(self.wire, bucket, t, i), rf)
+
+    def ok(self, t, dp) -> np.ndarray:
+        return exchange_ok(t, np.arange(dp), self.drop_seed, self.drop_rate)
+
+
+def make_packed_async_gossip_mix(schedule: GossipSchedule,
+                                 layout: BucketLayout, *, alpha: float = 0.5,
+                                 staleness: int = 1, drop_rate: float = 0.0,
+                                 drop_seed: int = 0,
+                                 wire: WireFormat = WireFormat()) -> Callable:
+    """``mix(params, ring, phase) -> (params, ring)``, in place on the
+    buckets: mix the oldest slot in (masked alpha, consumed buckets only),
+    then dispatch the mixed buckets, encoded for the wire, with schedule row
+    ``phase``."""
+    st = _Ring(schedule, layout, staleness=staleness, drop_rate=drop_rate,
+               drop_seed=drop_seed, wire=wire)
+
+    def mix(params: PackedParams, ring: Dict, phase: int):
+        _check_dp(schedule, params)
+        dev = params.buckets[0].device
+        ph = int(phase) % st.period
+        rf = st.recv(ph, dev)
+        a = masked_alpha(alpha, ring["valid"], dev)
+        cons, sent = st.masks(ph)
+        payload = []
+        for i, x in enumerate(params.buckets):
+            if cons[i]:
+                gossip_mix_bucket(x, ring["slots"][0][i], a)
+            payload.append(st.dispatch(x, i, sent, ring["t"], rf))
+        dp = params.buckets[0].shape[0]
+        return params, ring_advance(ring, payload, st.ok(ring["t"], dp))
+
+    return mix
+
+
+def make_packed_fused_async_update(schedule: GossipSchedule,
+                                   layout: BucketLayout, optimizer, *,
+                                   alpha: float = 0.5, staleness: int = 1,
+                                   drop_rate: float = 0.0, drop_seed: int = 0,
+                                   wire: WireFormat = WireFormat()) -> Callable:
+    """``update(params, grads, ring, opt_state, phase) -> (params,
+    opt_state, ring)``: per bucket, dispatch the RAW pre-update bucket
+    encoded for the wire, then one fused mix+SGD sweep against the oldest
+    slot's payload at the masked alpha (the pure local update for a bucket
+    outside the consumed subset)."""
+    st = _Ring(schedule, layout, staleness=staleness, drop_rate=drop_rate,
+               drop_seed=drop_seed, wire=wire)
+    local = packed_fused_local_update(layout, optimizer, alpha=alpha)
+
+    def update(params, grads, ring, opt_state, phase):
+        _check_dp(schedule, params)
+        dev = params.buckets[0].device
+        ph = int(phase) % st.period
+        rf = st.recv(ph, dev)
+        a = masked_alpha(alpha, ring["valid"], dev)
+        cons, sent = st.masks(ph)
+        outbox = []
+
+        def partner_of(i):
+            # called right before bucket i's in-place sweep: the outbox
+            # takes the bucket before the update overwrites it
+            outbox.append(st.dispatch(params.buckets[i], i, sent, ring["t"],
+                                      rf))
+            return ring["slots"][0][i] if cons[i] else None
+
+        params, opt = local(params, grads, opt_state, partner_of, alpha_eff=a)
+        dp = params.buckets[0].shape[0]
+        return params, opt, ring_advance(ring, outbox, st.ok(ring["t"], dp))
+
+    return update

@@ -1,16 +1,25 @@
 """Communication protocols around the local update (GossipGraD Table 6).
 
 Port of ``repro/core/protocols.py`` (``Protocol``, ``make_protocol``) for
-``gossip`` and ``none``, plus ``make_ring_shuffle`` from
+``gossip``, ``gossip_async`` and ``none``, plus ``make_ring_shuffle`` from
 ``repro/core/shuffle.py`` on the stacked replica axis. The other protocols
 raise ``NotImplementedError`` naming their ROADMAP item.
 
-    gossip   local update, then average params with the step's partner
-             (the paper's algorithm, §4);
-    none     no communication (the ensemble extreme, §4.1).
+    gossip        local update, then average params with the step's partner
+                  (the paper's algorithm, §4);
+    gossip_async  bounded-delay inbox ring (§4.2/§5, core.async_gossip): the
+                  arrival mix of the oldest of k in-flight exchanges (a
+                  dropped one is skipped) and the re-dispatch run BEFORE the
+                  forward pass;
+    none          no communication (the ensemble extreme, §4.1).
 
-The train step calls ``comm_grads`` before the optimizer and
-``comm_params`` after it, whatever the protocol.
+The train step calls ``comm_grads`` before the optimizer and, for the
+synchronous protocols, ``comm_params(params, phase)`` after it;
+``gossip_async`` (``staleness > 0``) calls ``comm_params(params, phase,
+inbox=ring) -> (params, ring)`` before the forward pass. A compressed or
+partition-sampled wire (``wire_dtype``, ``gossip_subset``, ``wire_seed``)
+applies to both gossip protocols; ``period`` is then the lcm of the partner
+schedule and the subset rotation, and the trainer folds its step by it.
 """
 from __future__ import annotations
 
@@ -19,17 +28,18 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.kernels.quantize import WireFormat
 from repro_torch.tree import tree_map
 
+from .async_gossip import make_packed_async_gossip_mix
 from .buckets import BucketLayout
-from .gossip import make_packed_gossip_mix
+from .gossip import make_packed_gossip_mix, wire_period, wire_subset_of
 from .topology import GossipSchedule, build_schedule
 
 __all__ = ["PROTOCOLS", "Protocol", "make_protocol", "make_ring_shuffle"]
 
 PROTOCOLS = ("gossip", "gossip_async", "agd", "every_logp", "none")
-_LATER = {"gossip_async": "ROADMAP A.9 (async ring)",
-          "agd": "ROADMAP A.7 (sync engines + protocols)",
+_LATER = {"agd": "ROADMAP A.7 (sync engines + protocols)",
           "every_logp": "ROADMAP A.7 (sync engines + protocols)"}
 
 
@@ -39,15 +49,30 @@ class Protocol:
     dp: int
     schedule: Optional[GossipSchedule]
     _mix: Optional[Callable]
+    # inbox-ring depth k of gossip_async at dp > 1; 0 for sync protocols
+    staleness: int = 0
+    # the gossip wire (the default one for a protocol that does not gossip)
+    wire: WireFormat = dataclasses.field(default_factory=WireFormat)
+    # lcm(schedule period, subset rotation); the trainer folds its step by it
+    period: int = 1
 
     @property
-    def period(self) -> int:
-        return self.schedule.period if self.schedule is not None else 1
+    def carries_inbox(self) -> bool:
+        """True when the train state carries the inbox ring."""
+        return self.staleness > 0
 
     def comm_grads(self, grads, phase):
         return grads
 
-    def comm_params(self, params, phase):
+    def comm_params(self, params, phase, inbox=None):
+        """Sync gossip: ``params`` after the update, mixed. gossip_async
+        (dp > 1): ``(params, ring)`` before the forward pass."""
+        if self.staleness > 0:
+            if inbox is None:
+                raise ValueError(
+                    "gossip_async needs the inbox ring: comm_params(params, "
+                    "phase, inbox): the train state must carry it")
+            return self._mix(params, inbox, phase)
         if self.dp > 1 and self.name == "gossip":
             return self._mix(params, phase)
         return params
@@ -55,25 +80,45 @@ class Protocol:
 
 def make_protocol(name: str, dp: int, *, topology: str = "dissemination",
                   num_rotations: int = 2, alpha: float = 0.5,
+                  staleness: int = 1, drop_rate: float = 0.0,
+                  drop_seed: int = 0,
                   packed_layout: BucketLayout | None = None,
-                  seed: int = 0) -> Protocol:
-    """Protocol over ``dp`` stacked replicas. ``gossip`` at dp > 1 builds
-    the schedule and the packed bucket mix (``packed_layout`` required)."""
+                  seed: int = 0, wire_dtype: str = "fp32",
+                  gossip_subset: float = 1.0, wire_seed: int = 0) -> Protocol:
+    """Protocol over ``dp`` stacked replicas. The gossip protocols at dp > 1
+    build the schedule and the packed bucket engine (``packed_layout``
+    required). ``staleness`` is gossip_async's ring depth k; ``drop_rate``
+    and ``drop_seed`` drive its ``exchange_ok`` drop injection."""
     if name not in PROTOCOLS:
         raise ValueError(f"unknown protocol {name!r}; options {PROTOCOLS}")
     if name in _LATER:
         raise NotImplementedError(
             f"protocol {name!r} is not ported yet: {_LATER[name]}")
-    schedule, mix = None, None
-    if dp > 1 and name == "gossip":
-        if packed_layout is None:
-            raise NotImplementedError(
-                "the per-leaf gossip engine is not ported yet (ROADMAP A.7); "
-                "pass packed_layout")
-        schedule = build_schedule(dp, topology=topology,
-                                  num_rotations=num_rotations, seed=seed)
-        mix = make_packed_gossip_mix(schedule, alpha=alpha)
-    return Protocol(name=name, dp=dp, schedule=schedule, _mix=mix)
+    if name == "gossip_async" and staleness < 1:
+        raise ValueError(f"gossip_async staleness must be >= 1, "
+                         f"got {staleness}")
+    wire = WireFormat(dtype=wire_dtype, subset=gossip_subset, seed=wire_seed)
+    gossiping = dp > 1 and name in ("gossip", "gossip_async")
+    if not gossiping:
+        return Protocol(name=name, dp=dp, schedule=None, _mix=None)
+    if packed_layout is None:
+        raise NotImplementedError(
+            "the per-leaf gossip engine is not ported yet (ROADMAP A.7); "
+            "pass packed_layout")
+    schedule = build_schedule(dp, topology=topology,
+                              num_rotations=num_rotations, seed=seed)
+    if name == "gossip":
+        mix = make_packed_gossip_mix(schedule, packed_layout, alpha=alpha,
+                                     wire=wire)
+    else:
+        mix = make_packed_async_gossip_mix(
+            schedule, packed_layout, alpha=alpha, staleness=staleness,
+            drop_rate=drop_rate, drop_seed=drop_seed, wire=wire)
+    period = wire_period(schedule,
+                         wire_subset_of(wire, packed_layout.num_buckets))
+    return Protocol(name=name, dp=dp, schedule=schedule, _mix=mix,
+                    staleness=int(staleness) if name == "gossip_async" else 0,
+                    wire=wire, period=period)
 
 
 def make_ring_shuffle() -> Callable:

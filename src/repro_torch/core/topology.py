@@ -11,7 +11,8 @@ seeded rotations (``np.random.default_rng(seed).permutation``), the same
   relabelled by a pre-computed random permutation sigma_r, giving the map
   ``i -> sigma_r^{-1}((sigma_r(i) + 2^k) % p)``.
 
-``BucketSubsetSchedule`` (partition-sampled wire) waits for the wire slice.
+``BucketSubsetSchedule`` and ``build_subset_schedule`` (the
+partition-sampled wire's rotating bucket subset) are bit-exact ports too.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import math
 import numpy as np
 
 __all__ = ["GossipSchedule", "build_schedule", "dissemination_partner",
-           "hypercube_partner", "log2_steps"]
+           "hypercube_partner", "log2_steps", "BucketSubsetSchedule",
+           "build_subset_schedule"]
 
 
 def _check_p(p: int) -> None:
@@ -110,3 +112,49 @@ def build_schedule(p: int, topology: str = "dissemination",
             raise AssertionError(f"schedule row {t} is not a permutation")
     return GossipSchedule(p=p, topology=topology, num_rotations=num_rotations,
                           substeps=substeps, perms=perms)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSubsetSchedule:
+    """Rotating bucket subset of the partition-sampled wire: at exchange
+    ``t`` the ``n_send`` buckets of the window starting at ``(t % period) *
+    n_send`` (mod ``num_buckets``) are sent, so every bucket goes out at
+    least once per ``period`` exchanges. ``t`` may be negative (floor-mod,
+    as the reference's ``selected`` and ``mask``)."""
+
+    num_buckets: int
+    n_send: int
+
+    def __post_init__(self):
+        if not (1 <= self.n_send < self.num_buckets):
+            raise ValueError(
+                f"subset schedule needs 1 <= n_send < num_buckets, got "
+                f"n_send={self.n_send}, num_buckets={self.num_buckets} "
+                "(full participation needs no schedule: pass None)")
+
+    @property
+    def period(self) -> int:
+        return -(-self.num_buckets // self.n_send)
+
+    @property
+    def fraction(self) -> float:
+        return self.n_send / self.num_buckets
+
+    def selected(self, t: int) -> np.ndarray:
+        """Bool mask (num_buckets,) of the buckets sent at exchange t."""
+        start = (int(t) % self.period) * self.n_send
+        idx = (np.arange(self.num_buckets) - start) % self.num_buckets
+        return idx < self.n_send
+
+
+def build_subset_schedule(num_buckets: int, fraction: float
+                          ) -> BucketSubsetSchedule | None:
+    """Subset schedule sending ``ceil(fraction * num_buckets)`` buckets per
+    exchange; None (full participation) when that is every bucket."""
+    if not (0.0 < fraction <= 1.0):
+        raise ValueError(f"gossip subset fraction must be in (0, 1], "
+                         f"got {fraction}")
+    n_send = max(1, math.ceil(fraction * num_buckets - 1e-9))
+    if n_send >= num_buckets:
+        return None
+    return BucketSubsetSchedule(num_buckets=num_buckets, n_send=n_send)

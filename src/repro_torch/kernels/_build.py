@@ -35,15 +35,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# kernel name -> (source file, C symbol, ctypes argtypes)
+# kernel entry point -> (source file, C symbol, ctypes argtypes); entry
+# points that share a source share its library
 SOURCES = {
     "gossip_mix": ("gossip_mix.cu", "gossip_mix_launch",
-                   [_I, _P, _P, _LL, _F, _F, _P]),
+                   [_I, _I, _P, _P, _LL, _F, _F, _P, _LL, _P]),
+    "gossip_mix_q": ("gossip_mix.cu", "gossip_mix_q_launch",
+                     [_I, _I, _P, _P, _P, _LL, _F, _F, _P, _LL, _P]),
     "fused_sgd": ("fused_sgd.cu", "fused_sgd_launch",
-                  [_I, _P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _P]),
+                  [_I, _I, _P, _P, _P, _P, _P, _LL, _F, _F, _P, _LL, _F, _F,
+                   _F, _P]),
 }
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+                torch.float8_e4m3fn: 3}
+BUCKET_DTYPES = (torch.float32, torch.bfloat16)
+CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
 
 
 class Launches:
@@ -57,9 +64,11 @@ class Launches:
         self.count = 0
 
 
-def dtype_code(dtype: torch.dtype) -> int:
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+def dtype_code(dtype: torch.dtype, allowed=BUCKET_DTYPES) -> int:
+    """The kernels' code of ``dtype``; raises unless it is ``allowed``."""
+    if dtype not in allowed:
+        raise TypeError(f"kernel takes {[str(d) for d in allowed]}, "
+                        f"got {dtype}")
     return _DTYPE_CODES[dtype]
 
 
@@ -74,41 +83,40 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def lib_path(name: str) -> Path:
-    """Where kernel ``name``'s library is built (its nvcc output, ptxas
-    report included, sits beside it with the suffix ``.log``)."""
+def lib_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` is built (its nvcc output,
+    ptxas report included, sits beside it with the suffix ``.log``)."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name][0]]:
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
-    """Build every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns the seconds each build took (0.0
-    for a library that was already there); raises on a failed build, with
-    the compiler's output."""
+    """Build the sources of the named entry points that are not built yet,
+    one ``nvcc`` per source, all started together. Returns the seconds each
+    source took (0.0 for a library that was already there); raises on a
+    failed build, with the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     seconds = {}
-    for name in names:
-        out = lib_path(name)
+    for src in dict.fromkeys(SOURCES[n][0] for n in names):
+        out = lib_path(src)
         if out.exists():
-            seconds[name] = 0.0
+            seconds[src] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / SOURCES[name][0])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for src, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[src] = time.perf_counter() - t0
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{src}:\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -118,10 +126,10 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
 
 @functools.lru_cache(maxsize=None)
 def kernel(name: str):
-    """The bound C entry point of kernel ``name``, built on first use."""
+    """The bound C entry point ``name``, its source built on first use."""
     build_all([name])
-    _, symbol, argtypes = SOURCES[name]
-    fn = getattr(ctypes.CDLL(str(lib_path(name))), symbol)
+    src, symbol, argtypes = SOURCES[name]
+    fn = getattr(ctypes.CDLL(str(lib_path(src))), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -1,18 +1,24 @@
 """Bucket-level wrappers the engines call.
 
-Port of ``repro/kernels/ops.py`` (``gossip_mix_bucket``,
-``fused_sgd_bucket``). The dispatch rule is the tensor's device and nothing
-else: a CPU tensor gets the plain PyTorch version, a CUDA tensor gets the
-hand-written kernel or an exception. There is no ``impl`` override, no
-capability check and no fallback. Each kernel keeps its launch count on its
-module (``gossip_mix.launches``, ``fused_update.launches``).
+Port of ``repro/kernels/ops.py`` (``gossip_mix_bucket`` with the reference's
+``gossip_mix_wire_bucket`` folded in, ``fused_sgd_bucket``). The dispatch
+rule is the tensor's device and nothing else: a CPU tensor gets the plain
+PyTorch version, a CUDA tensor gets the hand-written kernel or an
+exception. There is no ``impl`` override, no capability check and no
+fallback. Each kernel keeps its launch count on its module
+(``gossip_mix.launches``, ``gossip_mix.q_launches``,
+``fused_update.launches``).
+
+Both wrappers take the partner as a wire payload: a raw tensor (fp32 or
+bf16 wire) or a quantized ``{"q": codes, "s": tile scales}`` dict
+(``kernels.quantize``), whose decode runs inside the mix or fused sweep.
 """
 from __future__ import annotations
 
 import torch
 
 from .fused_update import fused_sgd_1d
-from .gossip_mix import LANE, gossip_mix_1d
+from .gossip_mix import LANE, gossip_mix_1d, gossip_mix_q2d
 
 __all__ = ["gossip_mix_bucket", "fused_sgd_bucket"]
 
@@ -22,20 +28,30 @@ def _check_bucket(x: torch.Tensor) -> None:
         raise ValueError(f"bucket {tuple(x.shape)} is not LANE-aligned")
 
 
-def gossip_mix_bucket(a: torch.Tensor, b: torch.Tensor,
-                      alpha=0.5) -> torch.Tensor:
-    """Mix one persistent gossip bucket in place (any leading axes, e.g. the
-    replica axis, over the LANE-aligned flat dim): one kernel launch for the
-    whole replica-stacked bucket. Returns ``a``."""
+def gossip_mix_bucket(a: torch.Tensor, payload, alpha=0.5) -> torch.Tensor:
+    """Mix one persistent gossip bucket in place against an arrived wire
+    payload (any leading axes, e.g. the replica axis, over the LANE-aligned
+    flat dim): one ``gossip_mix`` launch for a raw tensor, one
+    ``gossip_mix_q`` launch for a quantized dict, over the whole
+    replica-stacked bucket. Returns ``a``."""
     _check_bucket(a)
-    return gossip_mix_1d(a, b, alpha)
+    if not isinstance(payload, dict):
+        return gossip_mix_1d(a, payload, alpha)
+    n = a.shape[-1]
+    gossip_mix_q2d(a.view(-1, n), payload["q"].view(-1, n),
+                   payload["s"].view(-1, n // LANE), alpha)
+    return a
 
 
 def fused_sgd_bucket(p, g, partner, mom, *, lr, alpha=0.5, momentum=0.9,
                      weight_decay=0.0):
     """Single-sweep fused mix+SGD over one bucket, in place over ``p`` and
-    ``mom`` (one launch for the replica-stacked bucket). Returns
-    ``(p, mom)``."""
+    ``mom`` (one launch for the replica-stacked bucket). ``partner`` is a
+    wire payload or None. Returns ``(p, mom)``."""
     _check_bucket(p)
+    scales = None
+    if isinstance(partner, dict):
+        partner, scales = partner["q"], partner["s"]
     return fused_sgd_1d(p, g, partner, mom, lr=lr, alpha=alpha,
-                        momentum=momentum, weight_decay=weight_decay)
+                        momentum=momentum, weight_decay=weight_decay,
+                        partner_scales=scales)

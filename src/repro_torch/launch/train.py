@@ -1,14 +1,18 @@
 """Training launcher CLI (port of ``repro/launch/train.py``).
 
 Takes the reference's flags plus ``--device {cuda,cpu}`` (default cuda).
-In this slice the replicas live stacked on one device: ``--smoke-mesh
-1,DP,1`` runs DP replicas there, and ``POD > 1`` or ``MODEL > 1`` raise.
-Flags of parts not ported yet (the async ring, the compressed wire,
-checkpoints, multi-pod meshes, the per-leaf engine) raise
+The replicas live stacked on one device: ``--smoke-mesh 1,DP,1`` runs DP
+replicas there, and ``POD > 1`` or ``MODEL > 1`` raise. ``--protocol
+gossip_async`` takes ``--staleness``, ``--drop-timeout`` and
+``--drop-seed``; both gossip protocols take ``--wire-dtype``,
+``--gossip-subset`` and ``--wire-seed``. Flags of parts not ported yet
+(checkpoints, multi-pod meshes, the per-leaf engine) raise
 ``NotImplementedError`` naming their ROADMAP item.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --smoke --packed --smoke-mesh 1,4,1 --steps 8 --device cpu
+        --smoke --packed --smoke-mesh 1,4,1 --steps 8 --device cpu \\
+        --protocol gossip_async --staleness 2 --drop-timeout 0.2 \\
+        --wire-dtype int8 --gossip-subset 0.5
 """
 from __future__ import annotations
 
@@ -25,9 +29,6 @@ from repro_torch.train import Trainer, init_train_state, make_train_step_bundle
 
 def _unported(args) -> None:
     checks = [
-        (args.wire_dtype != "fp32" or args.gossip_subset != 1.0,
-         "the compressed / partition-sampled wire (ROADMAP A.10)"),
-        (args.drop_timeout != 0.0, "drop injection of the async ring (ROADMAP A.9)"),
         (args.checkpoint is not None or args.resume,
          "checkpoints (ROADMAP A.8)"),
         (args.multi_pod, "multi-pod meshes (ROADMAP A.12)"),
@@ -52,7 +53,7 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--num-rotations", type=int, default=2)
     ap.add_argument("--staleness", type=int, default=1,
-                    help="gossip_async inbox-ring depth (not ported yet)")
+                    help="gossip_async inbox-ring depth k (bounded delay)")
     ap.add_argument("--drop-timeout", type=float, default=0.0, metavar="RATE")
     ap.add_argument("--drop-seed", type=int, default=0)
     ap.add_argument("--wire-dtype", default="fp32",
@@ -93,14 +94,22 @@ def main(argv=None) -> None:
     bundle = make_train_step_bundle(
         cfg, opt, dp=dp, protocol=args.protocol, topology=args.topology,
         num_rotations=args.num_rotations, gossip_packed=args.packed,
+        staleness=args.staleness, drop_rate=args.drop_timeout,
+        drop_seed=args.drop_seed, wire_dtype=args.wire_dtype,
+        gossip_subset=args.gossip_subset, wire_seed=args.wire_seed,
         fused_update=args.fused_update, device=args.device)
     state = init_train_state(cfg, opt, dp=dp, packed=args.packed,
-                             layout=bundle.layout, seed=0, device=args.device)
+                             layout=bundle.layout, seed=0, device=args.device,
+                             inbox=bundle.protocol.staleness,
+                             wire=bundle.wire)
     ds = ShardedTokenDataset(cfg.vocab, args.seq_len, n_shards=dp,
                              batch_per_shard=args.global_batch // dp)
     hist = Trainer(bundle, state, ds, log_every=args.log_every).run(args.steps)
     print(json.dumps({"arch": cfg.name, "protocol": args.protocol,
                       "fused": bundle.fused, "dp": dp,
+                      "staleness": bundle.protocol.staleness,
+                      "wire_dtype": args.wire_dtype,
+                      "gossip_subset": args.gossip_subset,
                       "final_loss": hist[-1]["loss"],
                       "first_loss": hist[0]["loss"], "start_step": 0}))
 

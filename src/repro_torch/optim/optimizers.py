@@ -13,7 +13,9 @@ the old ones):
   bf16 bucket) and the param step in fp32;
 * ``fused_update`` is one single-sweep kernel per bucket
   (``kernels.ops.fused_sgd_bucket``), all arithmetic in fp32 before the
-  stores. The two do not agree in bf16, as in the reference.
+  stores. The two do not agree in bf16, as in the reference. Its partner
+  is a bucket-shaped tensor or a quantized ``{"q", "s"}`` wire payload,
+  and ``alpha`` a float or a tensor of one value per replica row.
 
 adamw and lars wait for their kernels (ROADMAP A.11).
 """
@@ -40,7 +42,8 @@ class Optimizer:
     # order fused_update takes and returns them
     fused_moments: Tuple[str, ...] = ()
     # fused_update(bucket_idx, p, g, partner, moments, *, step, alpha,
-    #              layout=None) -> (p, moments), in place
+    #              layout=None) -> (p, moments), in place; partner is a
+    #              wire payload or None, alpha a float or a (dp,) tensor
     fused_update: Callable | None = None
 
 

@@ -20,8 +20,16 @@ bucket (``core.gossip.make_packed_fused_update``), the reference's
 GoSGD-style combined update; dp == 1 and ``none`` run it with alpha = 0.
 ``fused_update=False`` keeps the mix-then-apply composition.
 
-The per-leaf engine, the async ring and the compressed wire wait for later
-slices (ROADMAP A.7, A.9, A.10).
+**gossip_async** (``core.async_gossip``): the state carries the staleness-k
+inbox ring (``state["inbox"]``). Unfused, the masked arrival mix of the
+oldest slot and the re-dispatch run BEFORE the forward pass, in place under
+``no_grad`` on the buckets (which are autograd leaves); fused, the ring's
+oldest slot is the fused sweep's partner and each bucket is dispatched just
+before its sweep. Both gossip protocols take the compressed /
+partition-sampled wire (``wire_dtype``, ``gossip_subset``, ``wire_seed``)
+and rotate the batch shards.
+
+The per-leaf engine waits for a later slice (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -31,8 +39,12 @@ import torch
 
 from repro_torch.core import (PackedParams, build_layout, make_protocol,
                               make_ring_shuffle)
+from repro_torch.core.async_gossip import (init_inbox_ring,
+                                           init_wire_inbox_ring,
+                                           make_packed_fused_async_update)
 from repro_torch.core.gossip import make_packed_fused_update
 from repro_torch.device import resolve_device
+from repro_torch.kernels.quantize import WireFormat
 from repro_torch.models import lm_init, lm_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer
@@ -44,7 +56,7 @@ __all__ = ["TrainStepBundle", "make_train_step_bundle", "init_train_state"]
 
 class TrainStepBundle:
     def __init__(self, *, step_fn, protocol, cfg, optimizer, dp, layout,
-                 fused, device):
+                 fused, device, wire):
         self.step_fn = step_fn      # (state, batch, phase) -> (state, next_batch, metrics)
         self.protocol = protocol
         self.cfg = cfg
@@ -53,6 +65,7 @@ class TrainStepBundle:
         self.layout = layout        # BucketLayout of the packed engine
         self.fused = fused          # single-sweep fused mix+apply engine
         self.device = device
+        self.wire = wire            # the protocol's WireFormat
 
     def step(self, state, batch, phase: int):
         return self.step_fn(state, batch, phase % self.protocol.period)
@@ -67,11 +80,17 @@ def _packed_only(gossip_packed: bool) -> None:
 
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *, dp: int,
                      packed: bool = False, layout=None, seed: int = 0,
-                     params=None, device="cuda"):
+                     params=None, device="cuda", inbox: int = 0,
+                     wire: WireFormat = WireFormat()):
     """``{"params", "opt"}`` with every bucket ``(dp, stride)`` holding the
     same initial replica (the reference replicates one init). ``params`` may
     give that replica's tree (or a ready ``PackedParams``, e.g. from
-    ``checkpoint.bridge``) instead of drawing it with ``seed``."""
+    ``checkpoint.bridge``) instead of drawing it with ``seed``.
+
+    ``inbox`` is the ring depth (pass the bundle's ``protocol.staleness``;
+    0 = no ring) and ``wire`` the bundle's ``wire``: gossip_async carries a
+    ring bootstrapped all-invalid, its slots bucket copies or, under a
+    compressed wire, zero payloads."""
     _packed_only(packed)
     dev = resolve_device(device)
     layout = layout if layout is not None else build_layout(lm_specs(cfg))
@@ -81,7 +100,12 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *, dp: int,
         params = PackedParams.pack(tree, layout, lead=(dp,), device=dev)
     for b in params.buckets:
         b.requires_grad_(True)
-    return {"params": params, "opt": optimizer.init(params)}
+    state = {"params": params, "opt": optimizer.init(params)}
+    if inbox:
+        state["inbox"] = (init_inbox_ring(params, inbox, dp)
+                          if wire.is_default
+                          else init_wire_inbox_ring(params, inbox, dp, wire))
+    return state
 
 
 def make_train_step_bundle(
@@ -94,13 +118,21 @@ def make_train_step_bundle(
     num_rotations: int = 2,
     gossip_packed: bool = False,
     gossip_alpha: float = 0.5,
+    staleness: int = 1,
+    drop_rate: float = 0.0,
+    drop_seed: int = 0,
+    wire_dtype: str = "fp32",
+    gossip_subset: float = 1.0,
+    wire_seed: int = 0,
     fused_update: Optional[bool] = None,
     seed: int = 0,
     device="cuda",
 ) -> TrainStepBundle:
     """Build the train step for ``dp`` stacked replicas under ``protocol``.
     ``fused_update=None`` turns the fused engine on whenever the params are
-    packed and the optimizer has a fused backend."""
+    packed and the optimizer has a fused backend. ``staleness``,
+    ``drop_rate`` and ``drop_seed`` configure gossip_async's ring;
+    ``wire_dtype``, ``gossip_subset`` and ``wire_seed`` the gossip wire."""
     _packed_only(gossip_packed)
     dev = resolve_device(device)
     layout = build_layout(lm_specs(cfg))
@@ -111,35 +143,59 @@ def make_train_step_bundle(
                          "backend; use sgd or fused_update=False")
     proto = make_protocol(protocol, dp, topology=topology,
                           num_rotations=num_rotations, alpha=gossip_alpha,
-                          packed_layout=layout, seed=seed)
+                          staleness=staleness, drop_rate=drop_rate,
+                          drop_seed=drop_seed, packed_layout=layout,
+                          seed=seed, wire_dtype=wire_dtype,
+                          gossip_subset=gossip_subset, wire_seed=wire_seed)
+    ring = proto.staleness > 0
     fused_eng = None
     if fused_update:
-        gossiping = protocol == "gossip" and dp > 1
-        fused_eng = make_packed_fused_update(
-            proto.schedule if gossiping else None, layout, optimizer,
-            alpha=gossip_alpha if gossiping else 0.0)
+        if ring:
+            fused_eng = make_packed_fused_async_update(
+                proto.schedule, layout, optimizer, alpha=gossip_alpha,
+                staleness=proto.staleness, drop_rate=drop_rate,
+                drop_seed=drop_seed, wire=proto.wire)
+        else:
+            gossiping = protocol == "gossip" and dp > 1
+            fused_eng = make_packed_fused_update(
+                proto.schedule if gossiping else None, layout, optimizer,
+                alpha=gossip_alpha if gossiping else 0.0, wire=proto.wire)
     loss_fn = make_loss_fn(cfg)
     # gossip rotates the sample shards around the replica ring (§4.5.2)
-    shuffle = make_ring_shuffle() if (protocol == "gossip" and dp > 1) else None
+    shuffle = (make_ring_shuffle()
+               if protocol in ("gossip", "gossip_async") and dp > 1 else None)
 
     def train_step(state, batch, phase: int):
-        params = state["params"]
+        params, inbox = state["params"], state.get("inbox")
+        if ring and fused_eng is None:
+            # bounded-delay arrival: mix the oldest slot in and re-dispatch,
+            # in place on the leaf buckets, before the forward pass
+            with torch.no_grad():
+                params, inbox = proto.comm_params(params, phase, inbox=inbox)
         loss, metrics = loss_fn(params.unpack(), batch)
         loss.sum().backward()  # replica r's grad is d loss_r / d params_r
         grads = PackedParams([b.grad for b in params.buckets], layout)
         with torch.no_grad():
             grads = proto.comm_grads(grads, phase)
-            if fused_eng is not None:
+            if fused_eng is not None and ring:
+                params, opt, inbox = fused_eng(params, grads, inbox,
+                                               state["opt"], phase)
+            elif fused_eng is not None:
                 params, opt = fused_eng(params, grads, state["opt"], phase)
             else:
                 params, opt = optimizer.update(params, grads, state["opt"])
-                params = proto.comm_params(params, phase)
+                if not ring:
+                    params = proto.comm_params(params, phase)
         for b in params.buckets:
             b.grad = None
         next_batch = shuffle(batch) if shuffle is not None else batch
         metrics = {k: v.detach().mean() for k, v in metrics.items()}
-        return {"params": params, "opt": opt}, next_batch, metrics
+        new_state = {"params": params, "opt": opt}
+        if ring:
+            new_state["inbox"] = inbox
+        return new_state, next_batch, metrics
 
     return TrainStepBundle(step_fn=train_step, protocol=proto, cfg=cfg,
                            optimizer=optimizer, dp=dp, layout=layout,
-                           fused=bool(fused_update), device=dev)
+                           fused=bool(fused_update), device=dev,
+                           wire=proto.wire)

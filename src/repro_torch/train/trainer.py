@@ -2,11 +2,18 @@
 
 Port of ``repro/train/trainer.py`` (``Trainer.run``). Runs the train step
 over the synthetic sharded pipeline, cycling the gossip phase through the
-schedule. PyTorch launches work asynchronously on the card, so the loop
-keeps each step's metrics on the device and reads them back only on log
-boundaries and at the end of ``run`` (the only host syncs). The caching
-allocator and in-place bucket updates take the place of the reference's
-buffer donation.
+protocol's ``period`` (the lcm of the partner schedule and the wire's
+subset rotation; ``TrainStepBundle.step`` folds the step by it). PyTorch
+launches work asynchronously on the card, so the loop keeps each step's
+metrics on the device and reads them back only on log boundaries and at the
+end of ``run`` (the only host syncs). The caching allocator and in-place
+bucket updates take the place of the reference's buffer donation.
+
+The reference bounds JAX's asynchronous dispatch with an in-flight window
+of ``2 + 2 * staleness`` steps. It has no counterpart here: the async ring
+keeps its payloads in the train state, the step's host logic never waits
+on the device, and PyTorch's own launch queue bounds how far the host runs
+ahead.
 """
 from __future__ import annotations
 

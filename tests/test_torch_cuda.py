@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 bit for bit, including lengths that exercise the masked scalar edge and
-misaligned views that exercise the scalar path.
+misaligned views that exercise the scalar path: the raw mix, the quantized
+mix ``gossip_mix_q`` and the fused SGD sweep with raw, bf16 (on fp32) and
+int8 / fp8 wire partners, under a static alpha, a () tensor alpha and one
+alpha per replica row.
 
 Marked ``cuda``; they skip on a machine without a card. This file imports
 neither JAX nor the reference, so on a machine with a card and no JAX it
@@ -14,7 +17,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (fused_sgd_1d, fused_sgd_plain,  # noqa: E402
                                  fused_update, gossip_mix, gossip_mix_1d,
-                                 gossip_mix_plain)
+                                 gossip_mix_plain, gossip_mix_q2d,
+                                 gossip_mix_q_plain)
+from repro_torch.kernels.quantize import encode_wire, wire_key  # noqa: E402
 
 
 @pytest.fixture
@@ -24,8 +29,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _alphas():
-    return (0.5, 0.0, torch.tensor(0.25))
+def _alphas(dev):
+    return (0.5, 0.0, torch.tensor(0.25, device=dev))
 
 
 @pytest.mark.cuda
@@ -40,7 +45,7 @@ def test_kernels_match_plain_bitwise(cuda_device, dtype, n, offset):
         return t.to(dtype)[offset:]
 
     p, g, b, m = mk(), mk(), mk(), mk()
-    for alpha in _alphas():
+    for alpha in _alphas(cuda_device):
         for mom in (m, None):
             before = fused_update.launches.count
             wp, wm = fused_sgd_plain(p, g, b, mom, lr=0.01, alpha=alpha,
@@ -68,3 +73,83 @@ def test_kernel_rejects_mismatched_buffers(cuda_device):
                                     dtype=torch.bfloat16), None, None, lr=0.1)
     with pytest.raises(ValueError, match="aliases"):
         fused_sgd_1d(p, p.clone(), p, None, lr=0.1)
+
+
+def _wire_alphas(dev, rows):
+    return (0.5, 0.0, torch.tensor(0.25, device=dev),
+            torch.tensor([0.5, 0.0, 0.25, 0.125][:rows], device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+@pytest.mark.parametrize("rows,n", [(4, 128 * 37), (2, 128 * 3)])
+def test_wire_kernels_match_plain_bitwise(cuda_device, dtype, code, rows, n):
+    """q-mix and the scaled fused sweep, every alpha form. (2, 384) bf16
+    rows are 768 bytes, (4, 4736) fp32 rows 18,944: both 16-byte multiples;
+    the unaligned views of the next test take the scalar path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + rows)
+    mk = lambda: torch.randn(rows, n, generator=gen,  # noqa: E731
+                             device=cuda_device).to(dtype)
+    p, g, m = mk(), mk(), mk()
+    enc = encode_wire(mk(), code, keys=wire_key(3, range(rows), 1))
+    q, s = enc["q"], enc["s"]
+    for alpha in _wire_alphas(cuda_device, rows):
+        before = gossip_mix.q_launches.count
+        got = gossip_mix_q2d(p.clone(), q, s, alpha)
+        torch.cuda.synchronize()
+        assert gossip_mix.q_launches.count == before + 1
+        assert torch.equal(got, gossip_mix_q_plain(p, q, s, alpha))
+        for mom in (m, None):
+            before = fused_update.scaled_launches.count
+            wp, wm = fused_sgd_plain(p, g, q, mom, lr=0.01, alpha=alpha,
+                                     weight_decay=1e-4, partner_scales=s)
+            gp = p.clone()
+            gm = mom.clone() if mom is not None else None
+            fused_sgd_1d(gp, g, q, gm, lr=0.01, alpha=alpha,
+                         weight_decay=1e-4, partner_scales=s)
+            torch.cuda.synchronize()
+            dropped = not isinstance(alpha, torch.Tensor) and alpha == 0.0
+            assert fused_update.scaled_launches.count == before + (not dropped)
+            assert torch.equal(gp, wp)
+            if mom is not None:
+                assert torch.equal(gm, wm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(128 * 8, 0), (128 * 8, 1),
+                                      (128 * 9 + 5, 0)])
+def test_mixed_dtype_partner_and_row_alpha_match_plain(cuda_device, n, offset):
+    """A bf16 partner on an fp32 bucket, per-row and () tensor alphas;
+    offset 1 makes views that are not 16-byte aligned (scalar path)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + offset)
+
+    def mk(dtype):
+        t = torch.randn(2 * n + offset, generator=gen, device=cuda_device)
+        return t.to(dtype)[offset:].view(2, n)
+
+    p, g, m = mk(torch.float32), mk(torch.float32), mk(torch.float32)
+    b = mk(torch.bfloat16)
+    for alpha in _wire_alphas(cuda_device, 2):
+        got = gossip_mix_1d(p.clone(), b, alpha)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gossip_mix_plain(p, b, alpha))
+        wp, wm = fused_sgd_plain(p, g, b, m, lr=0.01, alpha=alpha)
+        gp, gm = p.clone(), m.clone()
+        fused_sgd_1d(gp, g, b, gm, lr=0.01, alpha=alpha)
+        torch.cuda.synchronize()
+        assert torch.equal(gp, wp) and torch.equal(gm, wm)
+
+
+@pytest.mark.cuda
+def test_wire_kernels_reject_bad_streams(cuda_device):
+    p = torch.zeros(2, 256, device=cuda_device)
+    q = torch.zeros(2, 256, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="alpha"):
+        gossip_mix_q2d(p, q, torch.ones(2, 2, device=cuda_device),
+                       torch.tensor(0.5))  # alpha left on the host
+    with pytest.raises(ValueError, match="partner_scales"):
+        fused_sgd_1d(p, p.clone(), q, None, lr=0.1,
+                     partner_scales=torch.ones(3, device=cuda_device))
+    with pytest.raises(TypeError):  # codes without scales
+        fused_sgd_1d(p, p.clone(), q, None, lr=0.1)
