@@ -179,9 +179,9 @@ def make_packed_fused_async_update(schedule: GossipSchedule,
                                    wire: WireFormat = WireFormat()) -> Callable:
     """``update(params, grads, ring, opt_state, phase) -> (params,
     opt_state, ring)``: per bucket, dispatch the RAW pre-update bucket
-    encoded for the wire, then one fused mix+SGD sweep against the oldest
-    slot's payload at the masked alpha (the pure local update for a bucket
-    outside the consumed subset)."""
+    encoded for the wire, then one fused mix+update sweep (the optimizer's
+    ``fused_update``) against the oldest slot's payload at the masked alpha
+    (the pure local update for a bucket outside the consumed subset)."""
     st = _Ring(schedule, layout, staleness=staleness, drop_rate=drop_rate,
                drop_seed=drop_seed, wire=wire)
     local = packed_fused_local_update(layout, optimizer, alpha=alpha)

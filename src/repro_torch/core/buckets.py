@@ -131,6 +131,29 @@ class BucketLayout:
             out.append(tuple(segs))
         return tuple(out)
 
+    @functools.cached_property
+    def _row_slot_tables(self) -> dict:
+        return {}
+
+    def row_slots(self, bucket: int, device) -> Tuple[torch.Tensor, int]:
+        """``(table, count)`` of bucket ``bucket``: for each LANE row of one
+        replica, the position of its slot among the bucket's ``count``
+        slots in offset order, or ``count`` for a padding row, as an int64
+        tensor on ``device`` (made on first use). Slots start at LANE
+        multiples and gaps are zero, so a row never holds two slots."""
+        key = (bucket, str(device))
+        if key not in self._row_slot_tables:
+            slots = sorted((s for s in self.slots if s.bucket == bucket),
+                           key=lambda s: s.offset)
+            table = np.full(self.bucket_sizes[bucket] // LANE, len(slots),
+                            np.int64)
+            for k, s in enumerate(slots):
+                table[s.offset // LANE:-(-(s.offset + s.size) // LANE)] = k
+            self._row_slot_tables[key] = (torch.as_tensor(table,
+                                                          device=device),
+                                          len(slots))
+        return self._row_slot_tables[key]
+
     def unpack(self, buckets: Sequence[torch.Tensor]):
         """Leaf tree of views into the buckets (split + view, no copy). One
         ``split`` per bucket, so backward assembles each bucket's gradient

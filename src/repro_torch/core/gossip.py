@@ -13,10 +13,11 @@ j receives ``x[recv_from[j]]`` (``exchange``). Multi-process
 * ``make_packed_gossip_mix`` (unfused engine): per sent bucket, one
   exchange and one in-place mix kernel (``kernels.ops.gossip_mix_bucket``).
 * ``make_packed_fused_update`` (fused engine): per bucket, the exchange of
-  the partner's PRE-update params and then one single-sweep fused mix+SGD
-  kernel (the GoSGD-style combined update of the reference). With every
-  replica in one tensor the updates run in place, so a bucket's exchange is
-  taken right before that bucket's update, never after it.
+  the partner's PRE-update params and then one single-sweep fused
+  mix+update kernel of the optimizer (sgd, adamw or lars), the GoSGD-style
+  combined update of the reference. With every replica in one tensor the
+  updates run in place, so a bucket's exchange is taken right before that
+  bucket's update, never after it.
 
 Both engines run one path for every ``wire`` (``kernels.quantize.
 WireFormat``): each bucket of the step's rotating subset is encoded on the
@@ -146,8 +147,8 @@ def packed_fused_local_update(layout: BucketLayout, optimizer, *,
     ``alpha_eff`` overrides the closure alpha (the async engine's
     per-replica masked alpha tensor)."""
     if optimizer.fused_update is None:
-        raise ValueError("optimizer has no fused_update backend; use sgd or "
-                         "the unfused mix-then-apply path")
+        raise ValueError("optimizer has no fused_update backend; use sgd, "
+                         "adamw or lars, or the unfused mix-then-apply path")
     moment_keys = tuple(optimizer.fused_moments)
 
     def body(params, grads, opt_state, partner_of: Optional[Callable] = None,

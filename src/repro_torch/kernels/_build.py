@@ -45,6 +45,12 @@ SOURCES = {
     "fused_sgd": ("fused_sgd.cu", "fused_sgd_launch",
                   [_I, _I, _P, _P, _P, _P, _P, _LL, _F, _F, _P, _LL, _F, _F,
                    _F, _P]),
+    "fused_adamw": ("fused_adamw.cu", "fused_adamw_launch",
+                    [_I, _I, _P, _P, _P, _P, _P, _P, _LL, _F, _F, _P, _LL]
+                    + [_F] * 9 + [_P]),
+    "fused_lars": ("fused_lars.cu", "fused_lars_launch",
+                   [_I, _I, _P, _P, _P, _P, _P, _LL, _F, _F, _P, _LL, _F, _F,
+                    _F, _P]),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,

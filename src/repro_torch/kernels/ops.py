@@ -1,31 +1,45 @@
 """Bucket-level wrappers the engines call.
 
 Port of ``repro/kernels/ops.py`` (``gossip_mix_bucket`` with the reference's
-``gossip_mix_wire_bucket`` folded in, ``fused_sgd_bucket``). The dispatch
+``gossip_mix_wire_bucket`` folded in, ``fused_sgd_bucket``,
+``fused_adamw_bucket``, ``fused_lars_bucket``). The dispatch
 rule is the tensor's device and nothing else: a CPU tensor gets the plain
 PyTorch version, a CUDA tensor gets the hand-written kernel or an
 exception. There is no ``impl`` override, no capability check and no
 fallback. Each kernel keeps its launch count on its module
 (``gossip_mix.launches``, ``gossip_mix.q_launches``,
-``fused_update.launches``).
+``fused_update.launches``, ``fused_update.adamw_launches``,
+``fused_update.lars_launches``).
 
-Both wrappers take the partner as a wire payload: a raw tensor (fp32 or
+Every wrapper takes the partner as a wire payload: a raw tensor (fp32 or
 bf16 wire) or a quantized ``{"q": codes, "s": tile scales}`` dict
-(``kernels.quantize``), whose decode runs inside the mix or fused sweep.
+(``kernels.quantize``), whose decode runs inside the mix, SGD or AdamW
+sweep. The LARS sweep takes a raw partner, so ``fused_lars_bucket`` decodes
+a dict first with ``dequant_flat`` (lars's optimizer hands it the decoded
+partner its norm prepass read, as the reference does).
 """
 from __future__ import annotations
 
 import torch
 
-from .fused_update import fused_sgd_1d
+from .fused_update import fused_adamw_1d, fused_lars_1d, fused_sgd_1d
 from .gossip_mix import LANE, gossip_mix_1d, gossip_mix_q2d
+from .quantize import dequant_flat
 
-__all__ = ["gossip_mix_bucket", "fused_sgd_bucket"]
+__all__ = ["gossip_mix_bucket", "fused_sgd_bucket", "fused_adamw_bucket",
+           "fused_lars_bucket"]
 
 
 def _check_bucket(x: torch.Tensor) -> None:
     if x.shape[-1] % LANE:
         raise ValueError(f"bucket {tuple(x.shape)} is not LANE-aligned")
+
+
+def _codes(payload):
+    """``(partner, scales)`` of a wire payload (scales None when raw)."""
+    if isinstance(payload, dict):
+        return payload["q"], payload["s"]
+    return payload, None
 
 
 def gossip_mix_bucket(a: torch.Tensor, payload, alpha=0.5) -> torch.Tensor:
@@ -49,9 +63,33 @@ def fused_sgd_bucket(p, g, partner, mom, *, lr, alpha=0.5, momentum=0.9,
     ``mom`` (one launch for the replica-stacked bucket). ``partner`` is a
     wire payload or None. Returns ``(p, mom)``."""
     _check_bucket(p)
-    scales = None
-    if isinstance(partner, dict):
-        partner, scales = partner["q"], partner["s"]
+    partner, scales = _codes(partner)
     return fused_sgd_1d(p, g, partner, mom, lr=lr, alpha=alpha,
                         momentum=momentum, weight_decay=weight_decay,
                         partner_scales=scales)
+
+
+def fused_adamw_bucket(p, g, partner, m, v, *, lr, c1, c2, alpha=0.5, b1=0.9,
+                       b2=0.95, eps=1e-8, weight_decay=0.0):
+    """Single-sweep fused mix+AdamW over one bucket, in place over ``p`` and
+    the fp32 ``m``, ``v`` (one launch for the replica-stacked bucket).
+    ``partner`` is a wire payload or None. Returns ``(p, m, v)``."""
+    _check_bucket(p)
+    partner, scales = _codes(partner)
+    return fused_adamw_1d(p, g, partner, m, v, lr=lr, c1=c1, c2=c2,
+                          alpha=alpha, b1=b1, b2=b2, eps=eps,
+                          weight_decay=weight_decay, partner_scales=scales)
+
+
+def fused_lars_bucket(p, g, partner, mom, row_scale, *, lr, alpha=0.5,
+                      momentum=0.9, weight_decay=0.0):
+    """Single-sweep fused mix+LARS over one bucket with the per-row trust
+    scale of the norm prepass, in place over ``p`` and the fp32 ``mom``
+    (one launch for the replica-stacked bucket). ``partner`` is a wire
+    payload or None; codes are decoded to fp32 before the sweep. Returns
+    ``(p, mom)``."""
+    _check_bucket(p)
+    if isinstance(partner, dict):
+        partner = dequant_flat(partner["q"], partner["s"])
+    return fused_lars_1d(p, g, partner, mom, row_scale, lr=lr, alpha=alpha,
+                         momentum=momentum, weight_decay=weight_decay)

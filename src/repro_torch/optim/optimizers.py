@@ -1,37 +1,54 @@
-"""SGD with momentum: the tree-level update and the fused bucket backend.
+"""SGD-momentum, AdamW and LARS: the tree-level updates and the fused bucket
+backends.
 
-Port of ``repro/optim/optimizers.py`` (``Optimizer``, ``sgd``). States mirror
-the param layout: for packed params the momentum is a ``PackedParams`` of
-zero buckets in the params' dtype (as ``zeros_like`` gives it in the
-reference), so a bf16 bucket keeps a bf16 momentum.
+Port of ``repro/optim/optimizers.py`` (``Optimizer``, ``sgd``, ``adamw``,
+``lars``, ``_lars_row_scale``). States mirror the param layout: for packed
+params every moment is a ``PackedParams`` of zero buckets. sgd's momentum
+keeps the params' dtype (as ``zeros_like`` gives it in the reference), so a
+bf16 bucket keeps a bf16 momentum; adamw's ``m``, ``v`` and lars's ``mom``
+are fp32 whatever the bucket dtype.
 
 Both paths update in place (the reference returns new arrays and donates
 the old ones):
 
-* ``update`` is the tree-level rule, bucket by bucket in the reference's
-  dtypes: the momentum arithmetic runs in the momentum's dtype (bf16 for a
-  bf16 bucket) and the param step in fp32;
+* ``update`` is the tree-level rule in the reference's dtypes and op order:
+  sgd and adamw bucket by bucket (they are elementwise), lars leaf by leaf
+  through the ``PackedParams.unpack()`` views;
 * ``fused_update`` is one single-sweep kernel per bucket
-  (``kernels.ops.fused_sgd_bucket``), all arithmetic in fp32 before the
-  stores. The two do not agree in bf16, as in the reference. Its partner
-  is a bucket-shaped tensor or a quantized ``{"q", "s"}`` wire payload,
-  and ``alpha`` a float or a tensor of one value per replica row.
+  (``kernels.ops.fused_{sgd,adamw,lars}_bucket``), all arithmetic in fp32
+  before the stores. Its partner is a bucket-shaped tensor or a quantized
+  ``{"q", "s"}`` wire payload, and ``alpha`` a float or a tensor of one
+  value per replica row. sgd's two paths do not agree in bf16 (its
+  tree-level momentum runs in bf16), as in the reference.
 
-adamw and lars wait for their kernels (ROADMAP A.11).
+Step-dependent scalars (the learning rate, adamw's bias corrections
+``1 - beta^(step+1)``) are numpy float32 on the host, in the reference's op
+order; XLA's float32 ``pow`` may differ from numpy's by an ulp or two
+(ROADMAP C).
+
+The port runs only flat (not shard-local) packed layouts, so ``Optimizer``
+carries no ``elementwise`` / ``packed_aware`` / ``fused_shard_local``
+fields yet (ROADMAP A.12).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.buckets import PackedParams
-from repro_torch.kernels.ops import fused_sgd_bucket
+from repro_torch.core.buckets import LANE, PackedParams
+from repro_torch.kernels.fused_update import (_adamw_math, _mix_f32,
+                                              _sqrt_rn, device_scalar)
+from repro_torch.kernels.ops import (fused_adamw_bucket, fused_lars_bucket,
+                                     fused_sgd_bucket)
+from repro_torch.kernels.quantize import dequant_flat
+from repro_torch.tree import tree_flatten
 
 from .schedules import Schedule, constant
 
-__all__ = ["Optimizer", "sgd"]
+__all__ = ["Optimizer", "sgd", "adamw", "lars"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,11 +72,21 @@ def _buckets(x):
     return x.buckets
 
 
+def _schedule(schedule: Schedule | float) -> Schedule:
+    return constant(schedule) if isinstance(schedule, (int, float)) else schedule
+
+
+def _zeros_f32(params) -> PackedParams:
+    return PackedParams([torch.zeros_like(b, dtype=torch.float32,
+                                          requires_grad=False)
+                         for b in _buckets(params)], params.layout)
+
+
 def sgd(schedule: Schedule | float, momentum: float = 0.9,
         weight_decay: float = 0.0) -> Optimizer:
     """SGD + momentum — the paper's optimizer (Caffe default momentum 0.9).
     ``schedule`` maps the host step counter to a float32 learning rate."""
-    sched = constant(schedule) if isinstance(schedule, (int, float)) else schedule
+    sched = _schedule(schedule)
 
     def init(params):
         mom = None
@@ -87,6 +114,156 @@ def sgd(schedule: Schedule | float, momentum: float = 0.9,
         (mom,) = moments
         new_p, new_m = fused_sgd_bucket(
             p, g, partner, mom, lr=sched(step), alpha=alpha,
+            momentum=momentum, weight_decay=weight_decay)
+        return new_p, (new_m,)
+
+    return Optimizer(init, update, fused_moments=("mom",),
+                     fused_update=fused_update)
+
+
+def bias_correction(beta: float, t: int) -> float:
+    """``1 - beta^t`` as the reference computes it on the int32 step cast
+    to float32, here in numpy float32: a Python float that is exactly that
+    float32."""
+    return float(np.float32(1) - np.power(np.float32(beta), np.float32(t)))
+
+
+def adamw(schedule: Schedule | float, b1: float = 0.9, b2: float = 0.95,
+          eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """AdamW with decoupled weight decay, ``u + wd * p`` added to the Adam
+    direction (the reference's form); fp32 moments ``m``, ``v``."""
+    sched = _schedule(schedule)
+    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+    def init(params):
+        return {"step": 0, "m": _zeros_f32(params), "v": _zeros_f32(params)}
+
+    @torch.no_grad()
+    def update(params, grads, state):
+        lr, t = sched(state["step"]), state["step"] + 1
+        for i, (p, g) in enumerate(zip(_buckets(params), _buckets(grads))):
+            m, v = state["m"].buckets[i], state["v"].buckets[i]
+            new_p, new_m, new_v = _adamw_math(
+                p.float(), g.float(), m, v, lr,
+                device_scalar(bias_correction(b1, t), p),
+                device_scalar(bias_correction(b2, t), p), **hyper)
+            m.copy_(new_m)
+            v.copy_(new_v)
+            p.copy_(new_p.to(p.dtype))
+        return params, {"step": t, "m": state["m"], "v": state["v"]}
+
+    def fused_update(bucket_idx, p, g, partner, moments, *, step, alpha,
+                     layout=None):
+        m, v = moments
+        new_p, new_m, new_v = fused_adamw_bucket(
+            p, g, partner, m, v, lr=sched(step),
+            c1=bias_correction(b1, step + 1), c2=bias_correction(b2, step + 1),
+            alpha=alpha, **hyper)
+        return new_p, (new_m, new_v)
+
+    return Optimizer(init, update, fused_moments=("m", "v"),
+                     fused_update=fused_update)
+
+
+def _trust(wn, gn, *, trust_coef: float, weight_decay: float, eps: float):
+    """``trust_coef * |w| / (|g| + wd * |w| + eps)`` where both norms are
+    positive, else 1."""
+    return torch.where((wn > 0) & (gn > 0),
+                       trust_coef * wn / (gn + weight_decay * wn + eps), 1.0)
+
+
+def _lars_row_scale(layout, bucket_idx: int, p, g, partner, *, alpha,
+                    weight_decay: float, trust_coef: float, eps: float):
+    """LARS norm prepass for one bucket: per-layer trust ratios, PER REPLICA
+    ROW (each rank owns a distinct model), expanded to one fp32 scale per
+    (row, 128) tile, shape ``p.shape[:-1] + (n // 128,)``.
+
+    Reads the mixed params (``_mix_f32``, the same op and the same alpha,
+    static, () or per row, as the fused kernel, so the mixed values are the
+    kernel's bit for bit) and ``g + wd * p``, and takes each slot's norm as
+    a few ops over the whole bucket: sums of squares per 128-element row,
+    added into the row's slot with ``index_add_`` (the layout's
+    ``row_slots`` table), square roots, the trust table with padding at
+    1.0, gathered back per row. Slot offsets are LANE multiples and gaps
+    zero, so the row sums see exactly each slot's values; the summation
+    order differs from the reference's ``jnp.linalg.norm`` (and is not
+    fixed on CUDA, where ``index_add_`` adds atomically), so the ratios
+    match the reference's to fp32 rounding, not bit for bit."""
+    n = int(p.shape[-1])
+    rows = n // LANE
+    row_map, nslots = layout.row_slots(bucket_idx, p.device)
+    p2 = p.reshape(-1, n)
+    dp = p2.shape[0]
+    pf = _mix_f32(p2.float(), partner.reshape(-1, n)
+                  if partner is not None else None, alpha, p.dtype)
+    gf = g.reshape(-1, n).float()
+    if weight_decay:
+        gf = gf + weight_decay * pf
+
+    def slot_norms(x):
+        sq = (x * x).view(dp, rows, LANE).sum(-1)
+        acc = torch.zeros((dp, nslots + 1), dtype=torch.float32,
+                          device=p.device)
+        return _sqrt_rn(acc.index_add_(1, row_map, sq))
+
+    trust = _trust(slot_norms(pf), slot_norms(gf), trust_coef=trust_coef,
+                   weight_decay=weight_decay, eps=eps)
+    trust[:, nslots] = 1.0
+    return trust.index_select(1, row_map).reshape(tuple(p.shape[:-1])
+                                                  + (rows,))
+
+
+def lars(schedule: Schedule | float, momentum: float = 0.9,
+         trust_coef: float = 1e-3, weight_decay: float = 0.0,
+         eps: float = 1e-9) -> Optimizer:
+    """Layer-wise Adaptive Rate Scaling [You et al., the paper's §8 pointer
+    for large-batch hyperparameter scaling]: per-layer LR is scaled by
+    trust_coef * ||w|| / (||g|| + wd*||w||); fp32 momentum."""
+    sched = _schedule(schedule)
+    hyper = dict(trust_coef=trust_coef, weight_decay=weight_decay, eps=eps)
+
+    def init(params):
+        return {"step": 0, "mom": _zeros_f32(params)}
+
+    def leaves(x):
+        _buckets(x)
+        return tree_flatten(x.unpack())[0]
+
+    @torch.no_grad()
+    def update(params, grads, state):
+        """In place on the ``unpack()`` views, leaf by leaf. Each norm spans
+        the leaf AS GIVEN, i.e. across the stacked replica axis, exactly as
+        the reference's unfused trainer computes it on its global arrays
+        (ROADMAP C); the fused backend's prepass is per replica row."""
+        lr = sched(state["step"])
+        for p, g, m in zip(leaves(params), leaves(grads),
+                           leaves(state["mom"])):
+            pf, gf = p.float(), g.float()
+            if weight_decay:
+                gf = gf + weight_decay * pf
+            trust = _trust(_sqrt_rn((pf * pf).sum()),
+                           _sqrt_rn((gf * gf).sum()), **hyper)
+            m.copy_(momentum * m + gf * trust)
+            p.copy_((pf - lr * m).to(p.dtype))
+        return params, {"step": state["step"] + 1, "mom": state["mom"]}
+
+    def fused_update(bucket_idx, p, g, partner, moments, *, step, alpha,
+                     layout=None):
+        """Two phases: the norm prepass (``_lars_row_scale``, plain PyTorch
+        as the reference's is jnp) and the single-sweep kernel. A quantized
+        partner is decoded once before both, as the reference does: the
+        prepass reads the mixed params, so the decode cannot stay in the
+        sweep."""
+        if layout is None:
+            raise ValueError("lars.fused_update needs the BucketLayout for "
+                             "its per-layer norm prepass")
+        if isinstance(partner, dict):
+            partner = dequant_flat(partner["q"], partner["s"])
+        (mom,) = moments
+        scale = _lars_row_scale(layout, bucket_idx, p, g, partner,
+                                alpha=alpha, **hyper)
+        new_p, new_m = fused_lars_bucket(
+            p, g, partner, mom, scale, lr=sched(step), alpha=alpha,
             momentum=momentum, weight_decay=weight_decay)
         return new_p, (new_m,)
 

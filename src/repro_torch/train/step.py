@@ -11,11 +11,11 @@ Step layout (GossipGraD Fig. 8/9):
     1. per-replica grads from the local batch shard
     2. protocol.comm_grads
     3. local optimizer update             } fused: one sweep per bucket
-    4. protocol.comm_params (gossip mix)  } (mix + SGD, in place)
+    4. protocol.comm_params (gossip mix)  } (mix + update, in place)
     5. ring-rotate the batch shards (§4.5.2)
 
-**Fused mix+apply** (default for packed sgd): steps 3-4 are one
-single-sweep kernel per bucket that mixes with the partner's PRE-update
+**Fused mix+apply** (default for packed sgd, adamw and lars): steps 3-4
+are one single-sweep kernel per bucket that mixes with the partner's PRE-update
 bucket (``core.gossip.make_packed_fused_update``), the reference's
 GoSGD-style combined update; dp == 1 and ``none`` run it with alpha = 0.
 ``fused_update=False`` keeps the mix-then-apply composition.
@@ -140,7 +140,8 @@ def make_train_step_bundle(
         fused_update = optimizer.fused_update is not None
     if fused_update and optimizer.fused_update is None:
         raise ValueError("fused_update=True but this optimizer has no fused "
-                         "backend; use sgd or fused_update=False")
+                         "backend; use sgd, adamw or lars, or "
+                         "fused_update=False")
     proto = make_protocol(protocol, dp, topology=topology,
                           num_rotations=num_rotations, alpha=gossip_alpha,
                           staleness=staleness, drop_rate=drop_rate,

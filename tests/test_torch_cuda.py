@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 bit for bit, including lengths that exercise the masked scalar edge and
 misaligned views that exercise the scalar path: the raw mix, the quantized
-mix ``gossip_mix_q`` and the fused SGD sweep with raw, bf16 (on fp32) and
-int8 / fp8 wire partners, under a static alpha, a () tensor alpha and one
-alpha per replica row.
+mix ``gossip_mix_q``, the fused SGD and AdamW sweeps with raw, bf16 (on
+fp32) and int8 / fp8 wire partners, and the fused LARS sweep with raw
+partners of either width and a per-row trust scale, under a static alpha,
+a () tensor alpha and one alpha per replica row.
 
 Marked ``cuda``; they skip on a machine without a card. This file imports
 neither JAX nor the reference, so on a machine with a card and no JAX it
@@ -15,10 +16,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (fused_sgd_1d, fused_sgd_plain,  # noqa: E402
-                                 fused_update, gossip_mix, gossip_mix_1d,
-                                 gossip_mix_plain, gossip_mix_q2d,
-                                 gossip_mix_q_plain)
+from repro_torch.kernels import (fused_adamw_1d,  # noqa: E402
+                                 fused_adamw_plain, fused_lars_1d,
+                                 fused_lars_plain, fused_sgd_1d,
+                                 fused_sgd_plain, fused_update, gossip_mix,
+                                 gossip_mix_1d, gossip_mix_plain,
+                                 gossip_mix_q2d, gossip_mix_q_plain)
 from repro_torch.kernels.quantize import encode_wire, wire_key  # noqa: E402
 
 
@@ -153,3 +156,115 @@ def test_wire_kernels_reject_bad_streams(cuda_device):
                      partner_scales=torch.ones(3, device=cuda_device))
     with pytest.raises(TypeError):  # codes without scales
         fused_sgd_1d(p, p.clone(), q, None, lr=0.1)
+
+
+# ---------------------------------------------------------- adamw and lars
+
+def _adamw_args(t):
+    from repro_torch.optim.optimizers import bias_correction
+    return dict(lr=0.01, c1=bias_correction(0.9, t), c2=bias_correction(0.95, t),
+                weight_decay=0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(1, 0), (7, 0), (128 * 1000 + 3, 0),
+                                      (4096, 1)])
+def test_adamw_kernel_matches_plain_bitwise(cuda_device, dtype, n, offset):
+    """Raw partners (the bucket's dtype, and bf16 on fp32) and no partner,
+    every alpha form, ragged lengths and unaligned views (scalar path)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 7)
+
+    def mk(dt, scale=1.0):
+        t = torch.randn(2 * n + offset, generator=gen, device=cuda_device)
+        return (t * scale).to(dt)[offset:].view(2, n)
+
+    p, g, b = mk(dtype), mk(dtype, 0.1), mk(dtype)
+    m, v = mk(torch.float32, 0.01), mk(torch.float32, 1e-3).abs()
+    partners = [b, None] + ([b.to(torch.bfloat16)]
+                            if dtype == torch.float32 else [])
+    for step in (1, 7):
+        for partner in partners:
+            for alpha in _wire_alphas(cuda_device, 2):
+                before = fused_update.adamw_launches.count
+                want = fused_adamw_plain(p, g, partner, m, v, alpha=alpha,
+                                         **_adamw_args(step))
+                got = (p.clone(), m.clone(), v.clone())
+                fused_adamw_1d(got[0], g, partner, got[1], got[2],
+                               alpha=alpha, **_adamw_args(step))
+                torch.cuda.synchronize()
+                assert fused_update.adamw_launches.count == before + 1
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+def test_adamw_wire_kernel_matches_plain_bitwise(cuda_device, dtype, code):
+    rows, n = 4, 128 * 37
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    mk = lambda s: (torch.randn(rows, n, generator=gen,  # noqa: E731
+                                device=cuda_device) * s)
+    p, g = mk(1.0).to(dtype), mk(0.1).to(dtype)
+    m, v = mk(0.01), mk(1e-3).abs()
+    enc = encode_wire(mk(1.0).to(dtype), code, keys=wire_key(3, range(rows), 1))
+    for alpha in _wire_alphas(cuda_device, rows):
+        before = fused_update.adamw_scaled_launches.count
+        want = fused_adamw_plain(p, g, enc["q"], m, v, alpha=alpha,
+                                 partner_scales=enc["s"], **_adamw_args(3))
+        got = (p.clone(), m.clone(), v.clone())
+        fused_adamw_1d(got[0], g, enc["q"], got[1], got[2], alpha=alpha,
+                       partner_scales=enc["s"], **_adamw_args(3))
+        torch.cuda.synchronize()
+        dropped = not isinstance(alpha, torch.Tensor) and alpha == 0.0
+        assert fused_update.adamw_scaled_launches.count == before + (not dropped)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n,offset", [(4, 128 * 37, 0), (2, 128 * 3, 0),
+                                           (2, 128 * 5, 1)])
+def test_lars_kernel_matches_plain_bitwise(cuda_device, dtype, rows, n,
+                                           offset):
+    """Partners of the bucket's dtype, the other width (fp32 on bf16 and
+    bf16 on fp32) and none, a row scale per 128 elements, every alpha form;
+    offset 1 makes views that are not 16-byte aligned (scalar path)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + rows + offset)
+
+    def mk(dt, scale=1.0):
+        t = torch.randn(rows * n + offset, generator=gen, device=cuda_device)
+        return (t * scale).to(dt)[offset:].view(rows, n)
+
+    p, g, b = mk(dtype), mk(dtype, 0.1), mk(dtype)
+    m = mk(torch.float32, 0.01)
+    scale = torch.rand(rows * n // 128, generator=gen,
+                       device=cuda_device) * 1e-2
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    for partner in (b, b.to(other), None):
+        for alpha in _wire_alphas(cuda_device, rows):
+            before = fused_update.lars_launches.count
+            want = fused_lars_plain(p, g, partner, m, scale, lr=0.1,
+                                    alpha=alpha, weight_decay=1e-4)
+            gp, gm = p.clone(), m.clone()
+            fused_lars_1d(gp, g, partner, gm, scale, lr=0.1, alpha=alpha,
+                          weight_decay=1e-4)
+            torch.cuda.synchronize()
+            assert fused_update.lars_launches.count == before + 1
+            assert torch.equal(gp, want[0]) and torch.equal(gm, want[1])
+
+
+@pytest.mark.cuda
+def test_adamw_lars_kernels_reject_bad_streams(cuda_device):
+    p = torch.zeros(2, 256, device=cuda_device, dtype=torch.bfloat16)
+    m = torch.zeros(2, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="m:"):  # moments must be fp32
+        fused_adamw_1d(p, p.clone(), None, p.clone(), m.clone(),
+                       **_adamw_args(1))
+    with pytest.raises(ValueError, match="row_scale"):
+        fused_lars_1d(p, p.clone(), None, m, torch.ones(3, device=cuda_device),
+                      lr=0.1)
+    with pytest.raises(ValueError, match="row_scale"):  # scales on the host
+        fused_lars_1d(p, p.clone(), None, m, torch.ones(4), lr=0.1)
