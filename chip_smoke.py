@@ -52,6 +52,29 @@ package ``repro``. Phases, each of which fails the run on any error:
    rounding level), at most 0.1% of them.
 9. ``[unfused]`` sync ``fused_update=False`` with sgd at full width and 2
    layers, so the raw mix kernel runs on its path.
+10. The forward-only kernels. ``[check_ssm]`` holds ``ssm_scan`` against its
+    plain loop bit for bit at (2, 4096, 8192, 16) (falcon-mamba's scan at 2 x
+    4096 tokens), a ragged (3, 1000, 100, 5) and S = 1. ``[check_attn]``
+    holds ``flash_attention`` against dense ``attention_ref`` at qwen3-0.6b's
+    attention (16 heads after repeating the 8 KV heads, d 128): S = T =
+    4096 causal, the same with window 1024, a non-causal S 1024 x T 4096, and
+    d 64 at S 512, each in fp32 (rtol = atol = 2e-5, the reference's) and
+    bf16 (one bf16 ulp of the plain output plus 2e-5); a block that does not
+    divide S raises. ``[time_ssm]`` and ``[time_attn]`` time both against
+    their plain versions, their bounds and, for attention, PyTorch's
+    ``scaled_dot_product_attention`` (a yardstick the port never calls), at
+    S = 4096 and 32768.
+11. ``[flash_path]`` one ``flash_mha`` call on q, k, v projected by a
+    full-width bf16 qwen3-0.6b attention layer (RoPE, qk-norm, GQA
+    repeated), S 4096: one launch, which the kernels line's flash entry
+    times (the bf16 ``[time_attn]`` times ride beside as ``*_bf16`` keys). ``[mamba_eval]`` scores falcon-mamba-7b at
+    full width and depth (64 layers, random bf16 weights from seed 0) on 2 x
+    4096 tokens through ``make_loss_fn(cfg, ssm_scan_impl=ssm_scan)`` under
+    ``no_grad``: 64 scan launches per forward, loss within 1 of ln(vocab),
+    then profiled (``[profile mamba_eval]``). ``[mamba_agree]``: the same
+    model at 2 layers gives bit-identical logits with the kernel and with
+    the plain loop; a reduced fp32 falcon-mamba's logits on the card agree
+    with the CPU's within rtol = atol = 2e-4.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 the line ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
@@ -75,8 +98,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet: device memory
-FP32_FLOPS_PER_S = 67e12       # and fp32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet: device memory,
+FP32_FLOPS_PER_S = 67e12       # fp32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12   # and bf16 on the tensor cores (dense)
 DP, SEQ, PER_REPLICA = 4, 256, 2
 MAIN_STEPS, SHORT_STEPS, SHORT_LAYERS = 8, 4, 2
 LR, MOMENTUM, WD = 0.01, 0.9, 1e-4   # kernel checks
@@ -85,7 +109,10 @@ ASYNC_WIRE = dict(protocol="gossip_async", staleness=2, drop_rate=0.2,
 AGREE_BUCKET_BYTES = 96 << 10        # 5 buckets for the small model
 OPT_KERNELS = ("fused_adamw", "fused_adamw_q", "fused_lars")
 KERNELS = ("gossip_mix", "gossip_mix_q", "fused_sgd", "fused_sgd_q") \
-    + OPT_KERNELS
+    + OPT_KERNELS + ("ssm_scan", "flash_attention")
+SSM_SHAPE = (2, 4096, 8192, 16)   # falcon-mamba's scan at 2 x 4096 tokens
+EVAL_B, EVAL_S, EVAL_FORWARDS = 2, 4096, 3   # train_4k's length
+ATTN_S, ATTN_S_LONG = 4096, 32768            # and prefill_32k's
 # learning rates on step_decay: the full-width paths, and the small agree
 # runs (AdamW's as the CPU tests: tests/test_torch_optim.py)
 FULL_LR = {"sgd": 0.1, "adamw": 0.01, "lars": 0.1}
@@ -112,11 +139,12 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, ops_ms: float = None) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the fp32 operations over the fp32 rate."""
+    memory rate and the operations over their peak rate, which is the fp32
+    rate unless ``ops_ms`` gives their time at the rates of their types."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS_PER_S * 1e3 if ops_ms is None else ops_ms
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -520,6 +548,364 @@ def phase_time_opt(layout, dev):
     return t
 
 
+def phase_check_ssm(dev, shapes=(SSM_SHAPE, (3, 1000, 100, 5),
+                                  (2, 1, 8192, 16))):
+    """ssm_scan against its plain loop, bit for bit."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.ref import ssm_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = 0.0
+    for shape in shapes:
+        dA = torch.rand(shape, generator=gen, device=dev) * 0.8 + 0.2
+        dBx = torch.randn(shape, generator=gen, device=dev)
+        got = ssm_scan(dA, dBx)
+        want = ssm_scan_ref(dA, dBx)
+        torch.cuda.synchronize()
+        eq, e = torch.equal(got, want), _diff(got, want)
+        err = max(err, e)
+        log(f"[check_ssm] {shape}: equal={eq} max_abs_err={e}")
+        assert eq, "ssm_scan disagrees with its plain version"
+        del dA, dBx, got, want
+        torch.cuda.empty_cache()
+    return {"ssm_scan": err}
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _attn_qkv(gen, dev, B, S, T, d, dtype, heads, kv_heads):
+    """q (B, heads, S, d); k and v drawn for kv_heads and repeated to
+    heads, as GQA attention repeats them."""
+    rep = heads // kv_heads
+    mk = lambda h, n, sc: (torch.randn((B, h, n, d), generator=gen,
+                                       device=dev) * sc).to(dtype)
+    return (mk(heads, S, 0.3), mk(kv_heads, T, 0.3).repeat_interleave(rep, 1),
+            mk(kv_heads, T, 1.0).repeat_interleave(rep, 1))
+
+
+def _attn_agree(got, want) -> tuple:
+    """(max |got - want|, within tolerance): fp32 rtol = atol = 2e-5;
+    bf16 one bf16 ulp of the plain output plus 2e-5."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    lim = (2e-5 + 2e-5 * w.abs() if got.dtype == torch.float32
+           else _bf16_ulp(w) + 2e-5)
+    return err.max().item(), bool((err <= lim).all())
+
+
+def phase_check_attn(dev, S=ATTN_S, heads=16, kv_heads=8, d=128):
+    """flash_attention against dense attention_ref at qwen3-0.6b's
+    attention shapes."""
+    from repro_torch.kernels import flash_mha
+    from repro_torch.kernels.ref import attention_ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = [(S, S, True, None, d), (S, S, True, S // 4, d),
+             (S // 4, S, False, None, d), (S // 8, S // 8, True, None, d // 2)]
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for s_, t_, causal, window, dd in cases:
+            q, k, v = _attn_qkv(gen, dev, 1, s_, t_, dd, dtype, heads,
+                                kv_heads)
+            got = flash_mha(q, k, v, causal=causal, window=window)
+            want = attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            e, ok = _attn_agree(got, want)
+            err[dtype] = max(err[dtype], e)
+            log(f"[check_attn] {str(dtype)[6:]} H {heads} S {s_} T {t_} d {dd} "
+                f"causal={causal} window={window}: within_tolerance={ok} "
+                f"max_abs_err={e}")
+            assert ok, "flash_attention disagrees with its plain version"
+            del q, k, v, got, want
+            torch.cuda.empty_cache()
+    q = torch.zeros((1, heads, S - 1, d), device=dev)
+    try:
+        flash_mha(q, q, q, block_q=64)
+    except ValueError as exc:
+        log(f"[check_attn] S % block_q != 0 raises: {exc}")
+    else:
+        raise AssertionError("S % block_q != 0 did not raise")
+    return {"flash_attention": err[torch.float32],
+            "flash_attention_bf16": err[torch.bfloat16]}
+
+
+def phase_time_ssm(dev, shape=SSM_SHAPE):
+    """ssm_scan and its plain loop at falcon-mamba's scan shape. Bound:
+    bytes, dA and dBx read and h written once (12 per element); no single
+    PyTorch call computes a linear recurrence."""
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.ref import ssm_scan_ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dA = torch.rand(shape, generator=gen, device=dev) * 0.8 + 0.2
+    dBx = torch.randn(shape, generator=gen, device=dev)
+    n = dA.numel()
+    t = dict(ms=time_ms(lambda: ssm_scan(dA, dBx), reps=10, warmup=2),
+             plain_ms=time_ms(lambda: ssm_scan_ref(dA, dBx), reps=1,
+                              warmup=1),
+             library_ms=None, bytes=12 * n, **bound(12 * n, 2 * n))
+    log(f"[time_ssm] {shape} fp32: " + json.dumps(t))
+    del dA, dBx
+    torch.cuda.empty_cache()
+    return {"ssm_scan": t}
+
+
+def _attn_flops(B, H, S, T, d, causal) -> float:
+    """Multiply-adds of q.k and p.v over the live (query, key) pairs, 2
+    flops each."""
+    pairs = S * (S + 1) // 2 if causal and S == T else S * T
+    return 4.0 * B * H * pairs * d
+
+
+def _attn_bound(q, k, v, causal) -> dict:
+    """Bound of one attention call on these tensors. Bytes: q, k, v read
+    once and o (q's dtype) written once. Operations: each product at the
+    peak rate of its inputs' type, q.k at 989 TFLOP/s when q and k are both
+    16-bit (their products are exact in fp32 on the tensor cores) and at the
+    fp32 67 otherwise, p.v at the rate of v's type (the fp32 p splits
+    exactly into bf16 passes, so this floor is low, never flattering). Also
+    every product at the fp32 CUDA-core rate, the ceiling of this kernel's
+    own arithmetic."""
+    B, H, S, d = q.shape
+    flops = _attn_flops(B, H, S, k.shape[2], d, causal)
+    rate = lambda *ts: (BF16_TC_FLOPS_PER_S if all(t.element_size() == 2
+                                                   for t in ts)
+                        else FP32_FLOPS_PER_S)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    ops_ms = (flops / 2 / rate(q, k) + flops / 2 / rate(v)) * 1e3
+    return dict(bytes=nbytes, flops=flops, **bound(nbytes, flops, ops_ms),
+                bound_ms_fp32_cuda_cores=flops / FP32_FLOPS_PER_S * 1e3)
+
+
+def phase_time_attn(dev, lengths=(ATTN_S, ATTN_S_LONG), heads=16, d=128):
+    """flash_mha, causal bf16, B 1 at qwen3-0.6b's heads: the kernel, the
+    plain dense version (at the first length only: at 32k its fp32 score
+    matrix is 4 GB per head) and scaled_dot_product_attention on the same
+    tensors. The bound is bf16's, on the tensor cores; the fp32 CUDA-core
+    figure rides beside it. The kernels line's flash entry takes its times
+    from ``[flash_path]``'s own call; these enter it as ``*_bf16`` keys."""
+    from repro_torch.kernels import flash_mha
+    from repro_torch.kernels.ref import attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for i, S in enumerate(lengths):
+        q, k, v = _attn_qkv(gen, dev, 1, S, S, d, torch.bfloat16, heads,
+                            heads // 2)
+        reps = 10 if i == 0 else 2
+        t = dict(S=S, ms=time_ms(lambda: flash_mha(q, k, v), reps=reps,
+                                 warmup=1),
+                 plain_ms=(time_ms(lambda: attention_ref(q, k, v), reps=3,
+                                   warmup=1) if i == 0 else None),
+                 library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True),
+                                    reps=reps, warmup=1),
+                 **_attn_bound(q, k, v, True))
+        log(f"[time_attn] causal bf16 B 1 H {heads} S {S} d {d}: "
+            + json.dumps(t))
+        out[S] = t
+        del q, k, v
+        torch.cuda.empty_cache()
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_ms_fp32_cuda_cores")
+    return {"flash_attention_bf16": {
+        f"{k}_bf16" + ("" if S == lengths[0] else f"_{S}"): t[k]
+        for S, t in out.items() for k in keys if t[k] is not None}}
+
+
+def phase_flash_path(dev, S=ATTN_S, cfg=None):
+    """One flash_mha call on q, k, v that a full-width qwen3-0.6b attention
+    layer projects in bf16 (qk-norm, RoPE, which leaves q and k in fp32 as
+    in the reference; the 8 KV heads repeated to 16), with the launch counts
+    reset just before and read just after; then that call timed against its
+    plain version and scaled_dot_product_attention (which takes one dtype:
+    it gets v in fp32, made before the timing, the same values)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_mha
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models.attention import _project_qkv, attn_init
+    from repro_torch.models.layers import draw
+    from repro_torch.tree import tree_map
+    cfg = cfg or get_config("qwen3-0.6b")
+    spec = cfg.blocks[0].attn
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p = tree_map(lambda s: draw(s, gen, dev)[None],
+                 attn_init(cfg.d_model, spec, torch.bfloat16))
+    x = torch.randn((1, 1, S, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    q, k, v = _project_qkv(p, spec, x, torch.arange(S, device=dev)[None])
+    rep = spec.n_heads // spec.n_kv_heads
+    q = q[0].transpose(1, 2).contiguous()                  # (1, H, S, hd)
+    k, v = (t[0].repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+            for t in (k, v))
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = flash_mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = 1
+    e, ok = _attn_agree(out, attention_ref(q, k, v))
+    res = {"shape": list(q.shape), "dtypes": [str(t.dtype)[6:] for t in
+                                               (q, k, v)], "launches": counts,
+           "max_abs_err_vs_plain": e, "within_tolerance": ok}
+    log("[flash_path] " + json.dumps(res))
+    assert counts == want, (counts, want)
+    assert ok and bool(torch.isfinite(out.float()).all())
+    v32 = v.float()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res["timing"] = dict(
+        ms=time_ms(lambda: flash_mha(q, k, v, causal=True), reps=10,
+                   warmup=1),
+        plain_ms=time_ms(lambda: attention_ref(q, k, v), reps=3, warmup=1),
+        library_ms=time_ms(lambda: sdpa(q, k, v32, is_causal=True), reps=10,
+                           warmup=1),
+        **_attn_bound(q, k, v, True))
+    # the same values in one dtype, to tell the inputs' dtypes from their
+    # values
+    for dt in (torch.float32, torch.bfloat16):
+        qq, kk, vv = (t.to(dt) for t in (q, k, v))
+        res["timing"][f"ms_same_values_{str(dt)[6:]}"] = time_ms(
+            lambda: flash_mha(qq, kk, vv, causal=True), reps=10, warmup=1)
+    log("[flash_path] the path's call timed: " + json.dumps(res["timing"]))
+    return res
+
+
+def _eval_batch(cfg, dev, b=EVAL_B, seq=EVAL_S):
+    from repro_torch.data import ShardedTokenDataset, make_replica_batches
+    ds = ShardedTokenDataset(cfg.vocab, seq, n_shards=1, batch_per_shard=b)
+    return {"tokens": torch.from_numpy(
+        make_replica_batches(ds, 0, 1)["tokens"]).to(dev)}
+
+
+def _replica_params(cfg, dev):
+    """One replica's random params from seed 0, with the replica axis."""
+    from repro_torch.models import lm_init
+    from repro_torch.tree import tree_map
+    return tree_map(lambda w: w[None], lm_init(cfg, seed=0, device=dev))
+
+
+def phase_mamba_eval(dev, cfg=None, forwards=EVAL_FORWARDS, profile=True):
+    """Score falcon-mamba-7b at full width and depth through make_loss_fn
+    with the ssm_scan kernel as its scan, under no_grad: the first forward
+    and the steady ones, peak memory, launches (64 per forward), loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.train import make_loss_fn
+    from repro_torch.tree import tree_flatten
+    cfg = cfg or get_config("falcon-mamba-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _replica_params(cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves, _ = tree_flatten(params)
+    n_params = sum(w.numel() for w in leaves)
+    batch = _eval_batch(cfg, dev)
+    loss_fn = make_loss_fn(cfg, ssm_scan_impl=ssm_scan)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        for _ in range(forwards):
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(params, batch)
+            losses.append(float(loss[0]))   # reads the loss back: a sync
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = _counts()
+    tokens = batch["tokens"].shape[1] * (batch["tokens"].shape[2] - 1)
+    steady = sum(times[1:]) / len(times[1:])
+    want = dict.fromkeys(KERNELS, 0)
+    want["ssm_scan"] = forwards * cfg.n_layers
+    res = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "params": n_params,
+           "param_gb": sum(w.numel() * w.element_size() for w in leaves) / 1e9,
+           "tokens_per_forward": tokens, "forwards": forwards,
+           "init_s": init_s, "first_forward_ms": times[0],
+           "ms_per_forward": steady, "tokens_per_s": tokens / steady * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_extra_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "losses": losses, "launches": counts,
+           "ssm_scan_launches_per_forward": counts["ssm_scan"] / forwards}
+    log("[mamba_eval] " + json.dumps(res))
+    assert counts == want, (counts, want)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(cfg.vocab)) <= 1.0, losses[0]
+    if profile:
+        profile_forward("mamba_eval", lambda: loss_fn(params, batch), steady)
+    del params, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_forward(name, fn, step_ms) -> None:
+    """One forward under torch.profiler (no_grad), device-side events only:
+    busy time, the idle share against the unprofiled forward, the scan's
+    share, and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    groups = {g: sum(ms for k, ms, _ in rows if g in k.lower())
+              for g in ("ssm_scan_kernel", "gemm", "nvjet", "elementwise",
+                        "reduce", "cat")}
+    log(f"[profile {name}] " + json.dumps({
+        "device_busy_ms": busy, "forward_ms_unprofiled": step_ms,
+        "idle_share": 1.0 - busy / step_ms, "profiled_wall_ms": wall_ms,
+        "scan_share_of_busy": groups["ssm_scan_kernel"] / busy,
+        "device_ops": sum(r[2] for r in rows),
+        "device_ms_by_kernel_name": groups}))
+    _log_top(name, rows)
+
+
+def phase_mamba_agree(dev, cfg=None, b=EVAL_B, seq=EVAL_S):
+    """falcon-mamba at full width and 2 layers: logits with the kernel equal
+    those with the plain loop bit for bit (the ops around the scan are the
+    same); a reduced fp32 falcon-mamba's logits on the card against the
+    CPU's (plain loop) within rtol = atol = 2e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.kernels.ref import ssm_scan_ref
+    from repro_torch.models import lm_apply, reduced
+    from repro_torch.tree import tree_map
+    cfg = cfg or get_config("falcon-mamba-7b")
+    short = dataclasses.replace(cfg, blocks=cfg.blocks[:SHORT_LAYERS])
+    params = _replica_params(short, dev)
+    tok = _eval_batch(short, dev, b, seq)["tokens"][..., :-1]
+    with torch.no_grad():
+        got = lm_apply(params, short, tok, ssm_scan_impl=ssm_scan)
+        want = lm_apply(params, short, tok, ssm_scan_impl=ssm_scan_ref)
+    torch.cuda.synchronize()
+    eq = torch.equal(got, want)
+    log(f"[mamba_agree] {SHORT_LAYERS} layers full width, logits "
+        f"{tuple(got.shape)} {str(got.dtype)[6:]}: kernel equals plain={eq} "
+        f"max_abs_err={_diff(got, want)}")
+    assert eq, "logits through the kernel differ from the plain loop's"
+    del params, got, want
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(reduced(cfg), param_dtype="float32",
+                                compute_dtype="float32")
+    cpu_params = _replica_params(small, "cpu")
+    tok = _eval_batch(small, "cpu", 2, 64)["tokens"][..., :-1]
+    with torch.no_grad():
+        want = lm_apply(cpu_params, small, tok, ssm_scan_impl=ssm_scan)
+        got = lm_apply(tree_map(lambda w: w.to(dev), cpu_params), small,
+                       tok.to(dev), ssm_scan_impl=ssm_scan).cpu()
+    ok = bool(torch.allclose(got, want, rtol=2e-4, atol=2e-4))
+    log(f"[mamba_agree] reduced fp32 ({small.n_layers} layers, d "
+        f"{small.d_model}): card vs cpu within 2e-4={ok} "
+        f"max_abs_err={_diff(got, want)}")
+    assert ok, "card and CPU logits disagree"
+
+
 def make_optimizer(name: str, steps: int, lr: float):
     """sgd, adamw or lars on a step_decay over ``steps``, as a user builds
     them through the library API (the launcher builds only sgd)."""
@@ -553,14 +939,17 @@ def _train(cfg, *, fused, steps, dev, params=None, dp=DP, seq=SEQ,
 
 
 def _counters():
-    from repro_torch.kernels import fused_update, gossip_mix
+    from repro_torch.kernels import (flash_attention, fused_update, gossip_mix,
+                                     ssm_scan_kernel)
     return {"gossip_mix": gossip_mix.launches,
             "gossip_mix_q": gossip_mix.q_launches,
             "fused_sgd": fused_update.launches,
             "fused_sgd_q": fused_update.scaled_launches,
             "fused_adamw": fused_update.adamw_launches,
             "fused_adamw_q": fused_update.adamw_scaled_launches,
-            "fused_lars": fused_update.lars_launches}
+            "fused_lars": fused_update.lars_launches,
+            "ssm_scan": ssm_scan_kernel.launches,
+            "flash_attention": flash_attention.launches}
 
 
 def _reset_counts():
@@ -642,7 +1031,6 @@ def profile_step(name, tr) -> None:
     an operator's row repeats its kernels' time), per step; the idle share
     is taken against the unprofiled window's step time, since the profiler
     slows the host. Also times the host's synthetic batch for one step."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import make_replica_batches
@@ -662,10 +1050,7 @@ def profile_step(name, tr) -> None:
         tr.run(n, start_step=step + n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
+    rows = _device_rows(prof, n)
     busy_ms = sum(r[1] for r in rows)
     # index: the exchange's index_select and, under lars, the prepass's
     # index_add_ (indexFunc*) and gather; reduce: the prepass's row sums
@@ -679,7 +1064,20 @@ def profile_step(name, tr) -> None:
         "profiled_wall_ms": wall_ms,
         "device_ops_per_step": sum(r[2] for r in rows),
         "host_batch_ms": batch_ms, "device_ms_by_kernel_name": groups}))
-    for key, ms, count in rows[:16]:
+    _log_top(name, rows)
+
+
+def _device_rows(prof, per: int = 1):
+    """(kernel, device ms, launches) per ``per`` runs, largest first, from
+    device-side events only (an operator's row repeats its kernels' time)."""
+    from torch.autograd import DeviceType
+    return sorted(((e.key, e.self_device_time_total / 1e3 / per,
+                    e.count / per) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+
+
+def _log_top(name, rows, k: int = 16) -> None:
+    for key, ms, count in rows[:k]:
         log(f"[profile {name}] {ms:9.3f} ms  x{count:<7g} {key[:90]}")
 
 
@@ -801,6 +1199,10 @@ def main() -> int:
     err.update(guard("check_opt", phase_kernels_opt, layout, dev) or {})
     timing = guard("time", phase_time, layout, dev) or {}
     timing.update(guard("time_opt", phase_time_opt, layout, dev) or {})
+    err.update(guard("check_ssm", phase_check_ssm, dev) or {})
+    err.update(guard("check_attn", phase_check_attn, dev) or {})
+    timing.update(guard("time_ssm", phase_time_ssm, dev) or {})
+    timing.update(guard("time_attn", phase_time_attn, dev) or {})
 
     def none(**kw):
         return dict(dict.fromkeys(KERNELS, 0), **kw)
@@ -870,6 +1272,9 @@ def main() -> int:
         "unfused", run_path, "unfused", short, dev, fused=False,
         steps=SHORT_STEPS,
         expect=lambda b: none(gossip_mix=SHORT_STEPS * b.layout.num_buckets))
+    flash_res = guard("flash_path", phase_flash_path, dev)
+    mamba_res = guard("mamba_eval", phase_mamba_eval, dev)
+    guard("mamba_agree", phase_mamba_agree, dev)
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}")
@@ -894,20 +1299,34 @@ def main() -> int:
         ("fused_lars", "fused_lars.cu",
          "src/repro/kernels/fused_update.py:366",
          "lars_main (lars, sync gossip, fused)", lars_res),
+        ("ssm_scan", "ssm_scan.cu", "src/repro/kernels/ssm_scan.py:58",
+         f"mamba_eval (falcon-mamba-7b scoring, 64 layers, {EVAL_B} x "
+         f"{EVAL_S} tokens, {EVAL_FORWARDS} forwards)", mamba_res),
+        ("flash_attention", "flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:97",
+         f"flash_path (flash_mha on a bf16 qwen3-0.6b attention layer, "
+         f"S {ATTN_S}, causal, fp32 q and k, bf16 v)", flash_res),
     ]
+    timing["flash_attention"] = flash_res["timing"]
     kernels = [dict(name=name, route="cuda", source=src + f,
                     replaces=rep, path=path, launches=res["launches"][name],
                     max_abs_err=err[name], **timing[name])
                for name, f, rep, path, res in rows]
     # the scaled AdamW launches (wire codes decoded in the sweep) ride in
     # fused_adamw's entry: their count, error and times
+    by_name = {k["name"]: k for k in kernels}
     q = timing["fused_adamw_q"]
-    kernels[-2].update(
+    by_name["fused_adamw"].update(
         launches_q=adamw_res["launches"]["fused_adamw_q"],
         max_abs_err=max(err["fused_adamw"], err["fused_adamw_q"]),
         max_abs_err_q=err["fused_adamw_q"], ms_q=q["ms"],
         ms_q_row_alpha=q["ms_row_alpha"], plain_ms_q=q["plain_ms"],
         bound_ms_q=q["bound_ms"])
+    by_name["ssm_scan"]["launches_per_forward"] = \
+        mamba_res["ssm_scan_launches_per_forward"]
+    by_name["flash_attention"].update(
+        max_abs_err_bf16=err["flash_attention_bf16"],
+        **timing["flash_attention_bf16"])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,8 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
-Only the main path's architecture is ported so far; the other nine configs
-wait for their model families (ROADMAP A.13).
+qwen3-0.6b (the train path's) and falcon-mamba-7b (the Mamba forward's) are
+ported; the other eight configs wait for their model families (ROADMAP
+A.13).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["get_config", "list_archs"]
 
 _ARCH_MODULES = {
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "qwen3-0.6b": "qwen3_0_6b",
 }
 

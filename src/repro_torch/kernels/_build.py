@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 import torch
 
 __all__ = ["SOURCES", "Launches", "build_all", "kernel", "check_launch",
-           "dtype_code", "lib_path", "BUILD_DIR"]
+           "forward_only", "dtype_code", "lib_path", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -51,6 +51,11 @@ SOURCES = {
     "fused_lars": ("fused_lars.cu", "fused_lars_launch",
                    [_I, _I, _P, _P, _P, _P, _P, _LL, _F, _F, _P, _LL, _F, _F,
                     _F, _P]),
+    "ssm_scan": ("ssm_scan.cu", "ssm_scan_launch",
+                 [_P, _P, _P, _LL, _LL, _LL, _P]),
+    "flash_attention": ("flash_attention.cu", "flash_attention_launch",
+                        [_I, _I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _F,
+                         _I, _I, _LL, _P]),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -139,6 +144,17 @@ def kernel(name: str):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse a call that autograd would record: the kernel has no backward
+    (nor has the reference's), and its output would carry no ``grad_fn``,
+    so gradients upstream of it would silently be zero. Checked on every
+    device, so the CPU path refuses what the card's would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: call it under torch.no_grad() or on "
+            f"tensors that do not require grad")
 
 
 def check_launch(name: str, rc: int) -> None:

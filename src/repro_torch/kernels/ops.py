@@ -1,15 +1,18 @@
-"""Bucket-level wrappers the engines call.
+"""Bucket-level wrappers the engines call, and the model-level entry points
+of the forward-only kernels.
 
 Port of ``repro/kernels/ops.py`` (``gossip_mix_bucket`` with the reference's
 ``gossip_mix_wire_bucket`` folded in, ``fused_sgd_bucket``,
-``fused_adamw_bucket``, ``fused_lars_bucket``). The dispatch
+``fused_adamw_bucket``, ``fused_lars_bucket``, ``ssm_scan``,
+``flash_mha``). The dispatch
 rule is the tensor's device and nothing else: a CPU tensor gets the plain
 PyTorch version, a CUDA tensor gets the hand-written kernel or an
 exception. There is no ``impl`` override, no capability check and no
 fallback. Each kernel keeps its launch count on its module
 (``gossip_mix.launches``, ``gossip_mix.q_launches``,
 ``fused_update.launches``, ``fused_update.adamw_launches``,
-``fused_update.lars_launches``).
+``fused_update.lars_launches``, ``ssm_scan_kernel.launches``,
+``flash_attention.launches``).
 
 Every wrapper takes the partner as a wire payload: a raw tensor (fp32 or
 bf16 wire) or a quantized ``{"q": codes, "s": tile scales}`` dict
@@ -22,12 +25,14 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention
 from .fused_update import fused_adamw_1d, fused_lars_1d, fused_sgd_1d
 from .gossip_mix import LANE, gossip_mix_1d, gossip_mix_q2d
 from .quantize import dequant_flat
+from .ssm_scan_kernel import ssm_scan_chunked
 
 __all__ = ["gossip_mix_bucket", "fused_sgd_bucket", "fused_adamw_bucket",
-           "fused_lars_bucket"]
+           "fused_lars_bucket", "ssm_scan", "flash_mha"]
 
 
 def _check_bucket(x: torch.Tensor) -> None:
@@ -93,3 +98,25 @@ def fused_lars_bucket(p, g, partner, mom, row_scale, *, lr, alpha=0.5,
         partner = dequant_flat(partner["q"], partner["s"])
     return fused_lars_1d(p, g, partner, mom, row_scale, lr=lr, alpha=alpha,
                          momentum=momentum, weight_decay=weight_decay)
+
+
+def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor, chunk: int = 128,
+             block_d: int = 256) -> torch.Tensor:
+    """(B,S,D,N) fp32 selective scan through the ``ssm_scan`` kernel, the
+    Mamba mixer's ``scan_impl`` hook. The reference pads S to a ``chunk``
+    multiple and D to a ``block_d`` multiple for its TPU tiling and crops
+    after; the Hopper kernel walks all of S in each thread and takes any D,
+    so nothing is padded or cropped here: the whole of S and D goes to
+    ``ssm_scan_chunked`` as one chunk and one block, and the two tile sizes
+    (kept so that callers of the reference's signature run unchanged) are
+    unused."""
+    del chunk, block_d
+    return ssm_scan_chunked(dA, dBx, chunk=None, block_d=None)
+
+
+def flash_mha(q, k, v, *, causal=True, window=None, block_q=128,
+              block_k=128):
+    """(B,H,S,d) x (B,H,T,d) flash attention (full heads): one
+    ``flash_attention`` launch per call on the card."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           block_q=block_q, block_k=block_k)

@@ -1,0 +1,56 @@
+"""Plain PyTorch versions of the forward-only kernels: dense attention and
+the sequential selective scan.
+
+Port of ``repro/kernels/ref.py`` (``attention_ref``, ``ssm_scan_ref``; the
+mix's twin lives in ``kernels/gossip_mix.py``). They are the plain versions
+of ``kernels/flash_attention.py`` and ``kernels/ssm_scan_kernel.py``: the
+wrappers
+run them on CPU tensors, and ``chip_smoke.py`` holds the CUDA kernels
+against them on the card. Both stay differentiable.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+__all__ = ["attention_ref", "ssm_scan_ref", "NEG_INF"]
+
+NEG_INF = -1e30   # the reference's finite mask value, never -inf
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,H,S,d), k/v (B,H,T,d) — dense softmax attention in fp32, cast
+    back to ``q.dtype``. Query i sees key j when j <= i (causal) and
+    i - j < window (a window)."""
+    S, d = q.shape[2], q.shape[3]
+    T = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    kj = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= (qi - kj) < window
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", w, v.float()).to(q.dtype)
+
+
+def ssm_scan_ref(dA: torch.Tensor, dBx: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequential scan ``h_t = dA_t * h_{t-1} + dBx_t`` over axis 1 of
+    (B, S, D, N), from ``h0`` (zeros by default): one multiply and one add
+    per step, each rounded, as the CUDA kernel computes them."""
+    h = torch.zeros_like(dA[:, 0]) if h0 is None else h0
+    out = torch.empty_like(dA)
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        out[:, t] = h
+    return out

@@ -1,9 +1,11 @@
 """Residual blocks and the depth stacker.
 
 Port of ``repro/models/blocks.py`` (``segments_of``, ``block_init``,
-``block_apply``, ``stack_init``, ``stack_apply``) for attention blocks. A
-block is pre-norm residual: ``h += attn(norm1(h))`` then
-``h += mlp(norm2(h))``.
+``block_apply``, ``stack_init``, ``stack_apply``) for attention and Mamba-1
+blocks. A block is pre-norm residual: ``h += mixer(norm1(h))`` (attention
+or the Mamba mixer) then, if ``d_ff``, ``h += mlp(norm2(h))``.
+``ssm_scan_impl`` reaches every Mamba mixer's ``scan_impl``. MLA, MoE and
+cross-attention blocks wait for their families (ROADMAP A.13).
 
 The param tree keeps the reference's leaf paths and shapes: a list over
 segments, each a list over pattern positions of block params stacked on a
@@ -20,6 +22,7 @@ import torch
 from repro_torch.tree import tree_flatten, tree_map
 
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from .config import BlockSpec, ModelConfig
 from .layers import mlp_apply, mlp_init, norm_apply, norm_init
 
@@ -44,22 +47,34 @@ def segments_of(blocks: Sequence[BlockSpec]) -> List[Tuple[Tuple[BlockSpec, ...]
     return segs
 
 
-def block_init(cfg: ModelConfig, spec: BlockSpec, dtype) -> Dict:
-    if spec.kind != "attn":
+def _check_kind(spec: BlockSpec) -> None:
+    if spec.kind not in ("attn", "mamba"):
         raise NotImplementedError(
             f"block kind {spec.kind!r} is not ported yet (ROADMAP A.13)")
-    p: Dict = {"norm1": norm_init(cfg.norm, cfg.d_model, dtype),
-               "mixer": attn_mod.attn_init(cfg.d_model, spec.attn, dtype)}
+
+
+def block_init(cfg: ModelConfig, spec: BlockSpec, dtype) -> Dict:
+    _check_kind(spec)
+    p: Dict = {"norm1": norm_init(cfg.norm, cfg.d_model, dtype)}
+    if spec.kind == "attn":
+        p["mixer"] = attn_mod.attn_init(cfg.d_model, spec.attn, dtype)
+    else:
+        p["mixer"] = mamba_mod.mamba_init(cfg.d_model, spec.ssm, dtype)
     if spec.d_ff:
         p["norm2"] = norm_init(cfg.norm, cfg.d_model, dtype)
         p["ff"] = mlp_init(cfg.d_model, spec.d_ff, spec.mlp_act, dtype)
     return p
 
 
-def block_apply(p, cfg: ModelConfig, spec: BlockSpec,
-                h: torch.Tensor) -> torch.Tensor:
+def block_apply(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
+                ssm_scan_impl=None) -> torch.Tensor:
+    _check_kind(spec)
     x = norm_apply(cfg.norm, p["norm1"], h)
-    h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x)
+    if spec.kind == "attn":
+        h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x)
+    else:
+        h = h + mamba_mod.mamba_apply(p["mixer"], spec.ssm, cfg.d_model, x,
+                                      scan_impl=ssm_scan_impl)
     if spec.d_ff:
         x2 = norm_apply(cfg.norm, p["norm2"], h)
         h = h + mlp_apply(p["ff"], x2, spec.mlp_act)
@@ -75,7 +90,8 @@ def stack_init(cfg: ModelConfig, blocks: Sequence[BlockSpec], dtype):
     return params, segs
 
 
-def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor) -> torch.Tensor:
+def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor,
+                ssm_scan_impl=None) -> torch.Tensor:
     """Run every layer; stacked leaves are (dp, R, ...) and layer r of a
     segment reads the r-th view of ``leaf.unbind(1)``. One unbind per leaf,
     not one index per layer: backward then stacks the R layer gradients in
@@ -88,5 +104,6 @@ def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor) -> torch.Tensor
         for r in range(R):
             for spec, (treedef, layers) in zip(pattern, per_pos):
                 bp_r = treedef.unflatten([ws[r] for ws in layers])
-                h = block_apply(bp_r, cfg, spec, h)
+                h = block_apply(bp_r, cfg, spec, h,
+                                ssm_scan_impl=ssm_scan_impl)
     return h

@@ -1,16 +1,17 @@
-"""Model configuration schema, the attention-only part.
+"""Model configuration schema for the dense attention and Mamba-1 families.
 
-Port of ``repro/models/config.py`` (``AttnSpec``, ``BlockSpec``,
-``ModelConfig``, ``reduced``) for the dense attention family the main path
-runs. The MLA, SSM, MoE, encoder and vision fields wait for the other model
-families (ROADMAP A.13); a config that needs them cannot be expressed here.
+Port of ``repro/models/config.py`` (``AttnSpec``, ``SSMSpec``,
+``BlockSpec``, ``ModelConfig``, ``reduced``). The MLA, MoE, encoder and
+vision fields wait for the other model families (ROADMAP A.13); a config
+that needs them cannot be expressed here.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
-__all__ = ["AttnSpec", "BlockSpec", "ModelConfig", "reduced"]
+__all__ = ["AttnSpec", "SSMSpec", "BlockSpec", "ModelConfig", "reduced"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,10 +29,26 @@ class AttnSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    """Mamba-1 selective SSM [arXiv:2312.00752 / falcon-mamba 2410.05355]."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None   # default ceil(d_model/16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return (self.dt_rank if self.dt_rank is not None
+                else max(1, math.ceil(d_model / 16)))
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    """One residual layer: attention, then a dense (Swi)GLU MLP if d_ff."""
+    """One residual layer: ``kind`` "attn" (attention, then a dense (Swi)GLU
+    MLP if d_ff) or "mamba" (the Mamba-1 mixer alone: falcon-mamba has
+    d_ff = 0)."""
     kind: str
     attn: Optional[AttnSpec] = None
+    ssm: Optional[SSMSpec] = None
     d_ff: int = 0
     mlp_act: str = "swiglu"         # only "swiglu" is ported
 
@@ -67,12 +84,17 @@ def _shrink_attn(a: Optional[AttnSpec], heads: int,
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
             vocab: int = 512) -> ModelConfig:
     """Smoke-test variant of the same family, as the reference's
-    ``reduced``: <= 2 layers, 4 heads, d_ff = 2 * d_model, tiny vocab."""
+    ``reduced``: <= 2 layers, 4 heads, d_ff = 2 * d_model, d_state 8 and
+    dt_rank d_model // 16, tiny vocab."""
     heads = 4
     head_dim = d_model // heads
-    blocks = [dataclasses.replace(b, attn=_shrink_attn(b.attn, heads, head_dim),
-                                  d_ff=(2 * d_model if b.d_ff else 0))
-              for b in cfg.blocks[:n_layers]]
+    blocks = [dataclasses.replace(
+        b, attn=_shrink_attn(b.attn, heads, head_dim),
+        ssm=(dataclasses.replace(b.ssm, d_state=8,
+                                 dt_rank=max(1, d_model // 16))
+             if b.ssm is not None else None),
+        d_ff=(2 * d_model if b.d_ff else 0))
+        for b in cfg.blocks[:n_layers]]
     while len(blocks) < n_layers:
         blocks.append(blocks[-1])
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", d_model=d_model,

@@ -2,11 +2,12 @@
 
 Port of ``repro/models/layers.py`` (``Param``/``dense_param`` init rules,
 ``norm_init``/``norm_apply``, ``mlp_init``/``mlp_apply``, ``embed_init``,
-``silu``, ``dtype_of``) for the kinds the dense attention family uses: the
-layer norm, the parameter-free norm and the GELU MLP wait for the families
-that need them (ROADMAP A.13). Init is split in two: ``*_init`` functions return
-``ParamSpec`` trees (shape, dtype and the reference's distribution), and
-``models.transformer.lm_init`` draws them from a ``torch.Generator``. The
+``silu``, ``dtype_of``) for the kinds the dense attention and Mamba-1
+families use: the layer norm, the parameter-free norm and the GELU MLP wait
+for the families that need them (ROADMAP A.13). Init is split in two:
+``*_init`` functions return ``ParamSpec`` trees (shape, dtype and the
+reference's distribution), and ``draw`` makes a tensor of one from a
+``torch.Generator`` (``models.transformer.lm_init`` draws the tree). The
 draws cannot reproduce ``jax.random``'s bits; parity tests bridge the
 reference's weights in (``checkpoint/bridge.py``).
 
@@ -22,7 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamSpec", "Param", "dense_param", "dtype_of", "silu",
+__all__ = ["ParamSpec", "Param", "draw", "dense_param", "dtype_of", "silu",
            "norm_init", "norm_apply", "mlp_init", "mlp_apply", "embed_init",
            "per_replica", "replica_matmul"]
 
@@ -34,11 +35,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """One parameter leaf before it is drawn: ``normal`` draws
-    ``N(0, 1) * scale`` in fp32 and casts to ``dtype``."""
+    """One parameter leaf before it is drawn (see ``draw`` for the kinds)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    init: str = "normal"            # "normal" | "ones"
+    init: str = "normal"  # "normal" | "ones" | "zeros" | "dt_bias" | "A_log"
     scale: float = 1.0
 
     def stacked(self, repeats: int) -> "ParamSpec":
@@ -53,6 +53,33 @@ def Param(shape, *, scale: Optional[float] = None, dtype=torch.float32,
         scale = 1.0 / math.sqrt(max(shape[0], 1))
     return ParamSpec(tuple(shape), dtype, init,
                      1.0 if scale is None else float(scale))
+
+
+def draw(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
+    """A tensor of ``spec``, every draw in fp32 and then cast to its dtype:
+    ``normal`` is ``N(0, 1) * scale``; ``dt_bias`` is Mamba-1's dt bias
+    (``mamba.py:41-44`` of the reference: ``dt = exp(u * (ln 0.1 - ln 1e-3)
+    + ln 1e-3)`` for ``u ~ U[0, 1)``, then ``dt + log(-expm1(-dt))``, the
+    inverse softplus); ``A_log`` is ``log(1..N)`` along the last axis,
+    deterministic; ``ones`` and ``zeros`` draw nothing."""
+    if spec.init in ("ones", "zeros"):
+        fill = torch.ones if spec.init == "ones" else torch.zeros
+        return fill(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "A_log":
+        n = spec.shape[-1]
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        return torch.log(a.expand(spec.shape)).to(spec.dtype)
+    if spec.init == "dt_bias":
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt = torch.exp(u * (hi - lo) + lo)
+        return (dt + torch.log(-torch.expm1(-dt))).to(spec.dtype)
+    if spec.init != "normal":
+        raise ValueError(f"unknown init {spec.init!r}")
+    # scaled in place: falcon-mamba's stacked in_proj draws 17 GB of fp32
+    return torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(spec.scale).to(spec.dtype)
 
 
 def dense_param(d_in: int, out_shape, *, dtype=torch.float32, scale=None):

@@ -1,11 +1,13 @@
 """Decoder-only language model with tied or untied unembedding.
 
 Port of ``repro/models/transformer.py`` (``lm_init``, ``lm_apply``,
-``_embed_lookup``, ``_unembed``) for the dense attention family.
+``_embed_lookup``, ``_unembed``) for the dense attention and Mamba-1
+families.
 ``lm_specs`` gives the param tree as ``ParamSpec``s (the reference's leaf
 paths and shapes, nothing allocated); ``lm_init`` draws it from a
-``torch.Generator`` with the reference's distributions (normal x fan-in
-scale, embedding scale 0.02, norm scales of one). ``lm_apply`` takes params
+``torch.Generator`` with the reference's distributions (``layers.draw``:
+normal x fan-in scale, embedding scale 0.02, norm scales of one, Mamba's
+dt bias and A_log). ``lm_apply`` takes params
 with a leading replica axis and tokens ``(dp, b, S)``.
 
 The encoder, vision, MTP, decode and prefill paths wait for their model
@@ -22,7 +24,8 @@ from repro_torch.tree import tree_flatten
 
 from . import blocks as B
 from .config import ModelConfig
-from .layers import Param, dtype_of, embed_init, norm_apply, norm_init, replica_matmul
+from .layers import (Param, draw, dtype_of, embed_init, norm_apply, norm_init,
+                     replica_matmul)
 
 __all__ = ["lm_specs", "lm_init", "lm_apply"]
 
@@ -46,15 +49,7 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     specs, treedef = tree_flatten(lm_specs(cfg))
-    leaves = []
-    for s in specs:
-        if s.init == "ones":
-            w = torch.ones(s.shape, dtype=s.dtype, device=dev)
-        else:
-            w = (torch.randn(s.shape, generator=gen, dtype=torch.float32,
-                             device=dev) * s.scale).to(s.dtype)
-        leaves.append(w)
-    return treedef.unflatten(leaves)
+    return treedef.unflatten([draw(s, gen, dev) for s in specs])
 
 
 def _embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
@@ -71,9 +66,13 @@ def _unembed(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return replica_matmul(h, p["lm_head"])
 
 
-def lm_apply(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits (dp, b, S, V) for tokens (dp, b, S)."""
+def lm_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
+             ssm_scan_impl=None) -> torch.Tensor:
+    """Logits (dp, b, S, V) for tokens (dp, b, S). ``ssm_scan_impl``
+    replaces every Mamba layer's scan (e.g. ``repro_torch.kernels.ssm_scan``,
+    the CUDA kernel, for scoring)."""
     h = _embed_lookup(p, tokens)
-    h = B.stack_apply(p["layers"], cfg, B.segments_of(cfg.blocks), h)
+    h = B.stack_apply(p["layers"], cfg, B.segments_of(cfg.blocks), h,
+                      ssm_scan_impl=ssm_scan_impl)
     h = norm_apply(cfg.norm, p["final_norm"], h)
     return _unembed(p, cfg, h)

@@ -27,13 +27,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - gold).flatten(1).mean(1)
 
 
-def make_loss_fn(cfg: ModelConfig):
+def make_loss_fn(cfg: ModelConfig, ssm_scan_impl=None):
     """``loss_fn(params, batch) -> (loss (dp,), metrics)`` for params with a
-    leading replica axis and ``batch["tokens"]`` of shape (dp, b, S+1)."""
+    leading replica axis and ``batch["tokens"]`` of shape (dp, b, S+1).
+    ``ssm_scan_impl`` replaces the Mamba layers' scan (``lm_apply``)."""
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
-        logits = lm_apply(params, cfg, tokens[..., :-1])
+        logits = lm_apply(params, cfg, tokens[..., :-1],
+                          ssm_scan_impl=ssm_scan_impl)
         ce = cross_entropy(logits, tokens[..., 1:])
         return ce, {"ce": ce, "loss": ce}
 

@@ -4,7 +4,12 @@ misaligned views that exercise the scalar path: the raw mix, the quantized
 mix ``gossip_mix_q``, the fused SGD and AdamW sweeps with raw, bf16 (on
 fp32) and int8 / fp8 wire partners, and the fused LARS sweep with raw
 partners of either width and a per-row trust scale, under a static alpha,
-a () tensor alpha and one alpha per replica row.
+a () tensor alpha and one alpha per replica row. The forward-only kernels:
+``ssm_scan`` bit for bit against its plain sequential loop (ragged S and D
+included), ``flash_attention`` against dense ``attention_ref`` within the
+reference's fp32 tolerance (2e-5) and, in bf16, within one bf16 ulp of the
+plain output plus 2e-5 (the final cast splits an fp32 gap below 2e-5);
+refused launches raise, and so does a call that autograd would record.
 
 Marked ``cuda``; they skip on a machine without a card. This file imports
 neither JAX nor the reference, so on a machine with a card and no JAX it
@@ -22,7 +27,11 @@ from repro_torch.kernels import (fused_adamw_1d,  # noqa: E402
                                  fused_sgd_plain, fused_update, gossip_mix,
                                  gossip_mix_1d, gossip_mix_plain,
                                  gossip_mix_q2d, gossip_mix_q_plain)
+from repro_torch.kernels import _build, flash_mha, ssm_scan  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.quantize import encode_wire, wire_key  # noqa: E402
+from repro_torch.kernels.ref import attention_ref, ssm_scan_ref  # noqa: E402
+from repro_torch.kernels.ssm_scan_kernel import launches as ssm_launches  # noqa: E402
 
 
 @pytest.fixture
@@ -268,3 +277,127 @@ def test_adamw_lars_kernels_reject_bad_streams(cuda_device):
                       lr=0.1)
     with pytest.raises(ValueError, match="row_scale"):  # scales on the host
         fused_lars_1d(p, p.clone(), None, m, torch.ones(4), lr=0.1)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 values at |x| (x fp32): 2^(e - 8) for |x| = m 2^e,
+    m in [0.5, 1); 0 at 0."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def assert_attention_close(got: torch.Tensor, want: torch.Tensor) -> float:
+    """fp32: rtol = atol = 2e-5 (tests/test_kernels.py:86); bf16: one bf16
+    ulp of the plain output, plus 2e-5 where that ulp is smaller."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.float32:
+        assert (err <= 2e-5 + 2e-5 * w.abs()).all(), err.max().item()
+    else:
+        assert (err <= bf16_ulp(w) + 2e-5).all(), err.max().item()
+    return err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 32, 16), (3, 100, 10, 5),
+                                   (1, 1, 7, 3), (2, 9, 3, 1)])
+def test_ssm_scan_kernel_matches_plain_bitwise(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    dA = torch.rand(shape, generator=gen, device=cuda_device) * 0.8 + 0.2
+    dBx = torch.randn(shape, generator=gen, device=cuda_device)
+    before = ssm_launches.count
+    got = ssm_scan(dA, dBx)
+    torch.cuda.synchronize()
+    assert ssm_launches.count == before + 1
+    assert torch.equal(got, ssm_scan_ref(dA, dBx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,T,d,causal,window", [
+    (1, 2, 128, 128, 32, True, None), (1, 2, 128, 128, 32, True, 32),
+    (1, 1, 96, 96, 16, False, None), (1, 2, 64, 128, 64, False, None),
+    (2, 2, 256, 256, 128, True, None), (1, 1, 128, 128, 256, True, 64),
+    (1, 1, 64, 64, 80, True, None)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, B, H, S, T, d, causal,
+                                    window):
+    gen = torch.Generator(device=cuda_device).manual_seed(S + T + d)
+
+    def mk(n, sc):
+        return (torch.randn((B, H, n, d), generator=gen, device=cuda_device)
+                * sc).to(dtype)
+
+    q, k, v = mk(S, 0.3), mk(T, 0.3), mk(T, 1.0)
+    before = flash_mod.launches.count
+    got = flash_mha(q, k, v, causal=causal, window=window, block_q=32,
+                    block_k=32)
+    torch.cuda.synchronize()
+    assert flash_mod.launches.count == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_attention_close(got, attention_ref(q, k, v, causal=causal,
+                                              window=window))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_mixed_dtypes(cuda_device):
+    """fp32 q and k (as RoPE leaves them) with bf16 v: the kernel reads
+    each in its own dtype and casts it to fp32 as the reference's kernel
+    does, in one launch; the output has q's dtype."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k = (torch.randn((1, 2, 128, 64), generator=gen, device=cuda_device)
+            * 0.3 for _ in range(2))
+    v = torch.randn((1, 2, 128, 64), generator=gen,
+                    device=cuda_device).bfloat16()
+    before = flash_mod.launches.count
+    got = flash_mha(q, k, v)
+    assert got.dtype == torch.float32
+    assert_attention_close(got, attention_ref(q, k, v))
+    got = flash_mha(v, k, v.half())
+    assert got.dtype == torch.bfloat16
+    assert_attention_close(got, attention_ref(v, k, v.half()))
+    assert flash_mod.launches.count == before + 2
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_bad_calls(cuda_device):
+    q = torch.randn((1, 1, 64, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        flash_mha(q, q, q, block_q=48)          # 48 does not divide 64
+    with pytest.raises(ValueError):
+        flash_mha(torch.zeros((1, 1, 64, 300), device=cuda_device),
+                  torch.zeros((1, 1, 64, 300), device=cuda_device),
+                  torch.zeros((1, 1, 64, 300), device=cuda_device))
+    with pytest.raises(TypeError):
+        flash_mha(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        ssm_scan(q.double(), q.double())
+    # launches the C entry points refuse: an unknown dtype code, a grid
+    # past 2^31 blocks; the wrappers' check raises on their error codes
+    s = torch.cuda.current_stream(cuda_device).cuda_stream
+    for codes in ((7, 0, 0), (0, 0, 2)):
+        rc = _build.kernel("flash_attention")(*codes, None, None, None, None,
+                                              1, 64, 64, 16, 1.0, 1, 0, 0, s)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            _build.check_launch("flash_attention", rc)
+    rc = _build.kernel("ssm_scan")(None, None, None, 1 << 20, 4, 1 << 22, s)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _build.check_launch("ssm_scan", rc)
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_grad(cuda_device):
+    q = torch.randn((1, 1, 64, 16), device=cuda_device, requires_grad=True)
+    dA = torch.rand((1, 8, 4, 2), device=cuda_device, requires_grad=True)
+    before = (flash_mod.launches.count, ssm_launches.count)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_mha(q, q, q)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ssm_scan(dA, dA)
+    assert (flash_mod.launches.count, ssm_launches.count) == before
+    with torch.no_grad():
+        flash_mha(q, q, q)
+        ssm_scan(dA, dA)
+    torch.cuda.synchronize()
+    assert (flash_mod.launches.count, ssm_launches.count) == (before[0] + 1,
+                                                              before[1] + 1)
