@@ -7,7 +7,11 @@ Needs one CUDA card and nvcc. Imports nothing of JAX or of the reference
 package ``repro``. Phases, each of which fails the run on any error:
 
 1. ``[build]`` builds the hand-written kernels (one nvcc per source, in
-   parallel).
+   parallel), and proves that ``flash_attention``'s products run on the
+   tensor cores: for each of its instantiations the registers and spill
+   bytes ptxas reports and the count of HGMMA (``wgmma``) instructions in
+   ``cuobjdump -sass`` of the library; a spill or a count of 0 fails the
+   run, and so does a missing ``cuobjdump``.
 2. ``[check]`` holds each kernel against its plain PyTorch version on the
    card at the smallest and the largest bucket of full-width qwen3-0.6b at
    dp=4, fp32 and bf16: the raw mix and fused SGD sweep (alpha 0.5 and 0
@@ -59,11 +63,15 @@ package ``repro``. Phases, each of which fails the run on any error:
     attention (16 heads after repeating the 8 KV heads, d 128): S = T =
     4096 causal, the same with window 1024, a non-causal S 1024 x T 4096, and
     d 64 at S 512, each in fp32 (rtol = atol = 2e-5, the reference's) and
-    bf16 (one bf16 ulp of the plain output plus 2e-5); a block that does not
+    bf16 (one bf16 ulp of the plain output plus 2e-5), with
+    ``torch.backends.cuda.matmul.allow_tf32`` logged and required False (the
+    plain version's fp32 einsum would round to TF32); a block that does not
     divide S raises. ``[time_ssm]`` and ``[time_attn]`` time both against
     their plain versions, their bounds and, for attention, PyTorch's
     ``scaled_dot_product_attention`` (a yardstick the port never calls), at
-    S = 4096 and 32768.
+    S = 4096 and 32768. Attention's bound prices each product at the
+    split-pass rate of its operands on the tensor cores (``_attn_bound``);
+    the kernels line's flash entry adds ``share_of_bound`` = bound / time.
 11. ``[flash_path]`` one ``flash_mha`` call on q, k, v projected by a
     full-width bf16 qwen3-0.6b attention layer (RoPE, qk-norm, GQA
     repeated), S 4096: one launch, which the kernels line's flash entry
@@ -86,6 +94,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -150,6 +159,10 @@ def bound(nbytes: float, flops: float, ops_ms: float = None) -> dict:
 
 
 def phase_build():
+    """Builds every kernel; then proves that flash_attention's products run
+    on the tensor cores: per instantiation, ptxas's registers and spill
+    bytes and the count of HGMMA (wgmma) instructions in its SASS. Raises
+    on a spill or an instantiation without HGMMA."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     secs = _build.build_all()
@@ -158,8 +171,24 @@ def phase_build():
     for src in secs:
         for line in _build.lib_path(src).with_suffix(".log").read_text(
                 ).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line and "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
+    src = "flash_attention.cu"
+    report = _build.ptxas_report(src)
+    hgmma = _build.sass_count(src, "HGMMA")
+    bad = []
+    for fn, rep in report.items():
+        m = re.search(r"flash_kernelILi(\d+)ELb([01])E", fn)
+        name = (f"flash_kernel<{m.group(1)}, "
+                f"{'fp32' if m.group(2) == '1' else '16-bit'} output>"
+                if m else fn)
+        row = dict(registers=rep["registers"],
+                   spill_bytes=rep["spill_bytes"], hgmma=hgmma.get(fn, 0))
+        log(f"[build] {src} {name}: {json.dumps(row)}")
+        if row["spill_bytes"] or not row["hgmma"]:
+            bad.append(name)
+    if not report or bad:
+        raise AssertionError(f"{src}: spills or no HGMMA in {bad or 'any'}")
 
 
 def _inputs(n, dtype, gen, dev):
@@ -601,6 +630,10 @@ def phase_check_attn(dev, S=ATTN_S, heads=16, kv_heads=8, d=128):
     attention shapes."""
     from repro_torch.kernels import flash_mha
     from repro_torch.kernels.ref import attention_ref
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    log(f"[check_attn] torch.backends.cuda.matmul.allow_tf32={tf32} (the "
+        f"plain version's fp32 einsum must not round to TF32)")
+    assert not tf32
     gen = torch.Generator(device=dev).manual_seed(6)
     cases = [(S, S, True, None, d), (S, S, True, S // 4, d),
              (S // 4, S, False, None, d), (S // 8, S // 8, True, None, d // 2)]
@@ -661,19 +694,19 @@ def _attn_flops(B, H, S, T, d, causal) -> float:
 def _attn_bound(q, k, v, causal) -> dict:
     """Bound of one attention call on these tensors. Bytes: q, k, v read
     once and o (q's dtype) written once. Operations: each product at the
-    peak rate of its inputs' type, q.k at 989 TFLOP/s when q and k are both
-    16-bit (their products are exact in fp32 on the tensor cores) and at the
-    fp32 67 otherwise, p.v at the rate of v's type (the fp32 p splits
-    exactly into bf16 passes, so this floor is low, never flattering). Also
-    every product at the fp32 CUDA-core rate, the ceiling of this kernel's
-    own arithmetic."""
+    split-pass rate of its operands on the tensor cores: 989 TFLOP/s for two
+    16-bit operands (their products are exact in fp32), 989/3 with one fp32
+    operand (split into three bf16 pieces) and 989/6 with two; q.k at the
+    rate of q and k, p.v at the rate of v with v (the fp32 p splits exactly
+    into bf16 passes too, so this floor is low, never flattering). Also
+    every product at the fp32 CUDA-core 67 TFLOP/s, the ceiling of fp32
+    FMAs outside the tensor cores, as ``bound_ms_fp32_cuda_cores``."""
     B, H, S, d = q.shape
     flops = _attn_flops(B, H, S, k.shape[2], d, causal)
-    rate = lambda *ts: (BF16_TC_FLOPS_PER_S if all(t.element_size() == 2
-                                                   for t in ts)
-                        else FP32_FLOPS_PER_S)
+    rate = lambda a, b: BF16_TC_FLOPS_PER_S / (1, 3, 6)[
+        (a.dtype == torch.float32) + (b.dtype == torch.float32)]
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    ops_ms = (flops / 2 / rate(q, k) + flops / 2 / rate(v)) * 1e3
+    ops_ms = (flops / 2 / rate(q, k) + flops / 2 / rate(v, v)) * 1e3
     return dict(bytes=nbytes, flops=flops, **bound(nbytes, flops, ops_ms),
                 bound_ms_fp32_cuda_cores=flops / FP32_FLOPS_PER_S * 1e3)
 
@@ -745,10 +778,23 @@ def phase_flash_path(dev, S=ATTN_S, cfg=None):
     counts = _counts()
     want = dict.fromkeys(KERNELS, 0)
     want["flash_attention"] = 1
-    e, ok = _attn_agree(out, attention_ref(q, k, v))
+    plain = attention_ref(q, k, v)
+    e, ok = _attn_agree(out, plain)
+    # both against causal attention in float64, to tell the kernel's error
+    # from the plain version's own fp32 rounding
+    s64 = torch.einsum("bhsd,bhtd->bhst", q.double(), k.double()) \
+        / math.sqrt(q.shape[-1])
+    s64.masked_fill_(torch.ones(S, S, dtype=torch.bool, device=dev).triu(1),
+                     float("-inf"))
+    o64 = torch.einsum("bhst,bhtd->bhsd", torch.softmax(s64, -1), v.double())
+    del s64
     res = {"shape": list(q.shape), "dtypes": [str(t.dtype)[6:] for t in
                                                (q, k, v)], "launches": counts,
-           "max_abs_err_vs_plain": e, "within_tolerance": ok}
+           "max_abs_err_vs_plain": e, "within_tolerance": ok,
+           "max_abs_err_vs_float64": (out.double() - o64).abs().max().item(),
+           "plain_max_abs_err_vs_float64":
+               (plain.double() - o64).abs().max().item()}
+    del o64, plain
     log("[flash_path] " + json.dumps(res))
     assert counts == want, (counts, want)
     assert ok and bool(torch.isfinite(out.float()).all())
@@ -1324,9 +1370,13 @@ def main() -> int:
         bound_ms_q=q["bound_ms"])
     by_name["ssm_scan"]["launches_per_forward"] = \
         mamba_res["ssm_scan_launches_per_forward"]
-    by_name["flash_attention"].update(
-        max_abs_err_bf16=err["flash_attention_bf16"],
-        **timing["flash_attention_bf16"])
+    flash = by_name["flash_attention"]
+    flash.update(max_abs_err_bf16=err["flash_attention_bf16"],
+                 **timing["flash_attention_bf16"])
+    flash["share_of_bound"] = flash["bound_ms"] / flash["ms"]
+    for suffix in ("_bf16", f"_bf16_{ATTN_S_LONG}"):
+        flash["share_of_bound" + suffix] = (flash["bound_ms" + suffix]
+                                            / flash["ms" + suffix])
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -17,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +27,8 @@ from typing import Dict, Iterable
 import torch
 
 __all__ = ["SOURCES", "Launches", "build_all", "kernel", "check_launch",
-           "forward_only", "dtype_code", "lib_path", "BUILD_DIR"]
+           "forward_only", "dtype_code", "lib_path", "BUILD_DIR",
+           "ptxas_report", "sass_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -83,15 +85,15 @@ def dtype_code(dtype: torch.dtype, allowed=BUCKET_DTYPES) -> int:
     return _DTYPE_CODES[dtype]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
+    cand = Path("/usr/local/cuda/bin") / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
-                       "the CUDA toolkit is installed")
+    raise RuntimeError(f"{name} not found: the CUDA kernels build only where "
+                       f"the CUDA toolkit is installed")
 
 
 def lib_path(source: str) -> Path:
@@ -117,7 +119,7 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
             seconds[src] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out, time.perf_counter())
@@ -163,3 +165,51 @@ def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError_t {rc})")
+
+
+def ptxas_report(source: str) -> Dict[str, dict]:
+    """Per kernel of the built ``csrc/<source>``, from its ``-Xptxas -v``
+    log: registers and spill bytes (stores and loads), and the warnings
+    ptxas gave for it."""
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in lib_path(source).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$.]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": None,
+                                              "spill_bytes": 0,
+                                              "warnings": []})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        if "warning" in line.lower():
+            cur["warnings"].append(line.strip())
+    return out
+
+
+def sass_count(source: str, opcode: str) -> Dict[str, int]:
+    """Per kernel of the built ``csrc/<source>``, how many instructions of
+    its SASS (``cuobjdump -sass``) start with ``opcode`` (``HGMMA`` for
+    Hopper's warpgroup products). Raises where ``cuobjdump`` is missing."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass",
+                           str(lib_path(source))], capture_output=True,
+                          text=True, check=True).stdout
+    out: Dict[str, int] = {}
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+        elif cur is not None and re.search(rf"\*/\s+(@!?U?P\w+\s+)?"
+                                           rf"{opcode}\b", line):
+            out[cur] += 1
+    return out

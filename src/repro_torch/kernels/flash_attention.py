@@ -2,15 +2,15 @@
 
 Port of ``repro/kernels/flash_attention.py`` (``flash_attention``). On CUDA
 tensors the wrapper launches the hand-written kernel of
-``csrc/flash_attention.cu`` (each input read in its own dtype and cast to
-fp32 as it is loaded, as the reference casts inside its kernel; fp32
-products on the CUDA cores, online softmax over 64-key tiles, whole tiles
-skipped by the reference's liveness rule); on CPU tensors it runs the plain version ``kernels.ref.
-attention_ref`` (dense scores). There is no fallback between the two. The
-kernel's sums run in another order than the dense plain version's, so the
-two agree to a tolerance, not bit for bit. Like the reference's kernel it is
-forward-only: a call that autograd would record raises. Launches count on
-``launches``.
+``csrc/flash_attention.cu``: each input read in its own dtype, the
+reference's fp32 products computed exactly on Hopper's tensor cores
+(``wgmma``) by splitting fp32 operands into bf16 pieces, an online softmax
+over 64-key tiles, whole tiles skipped by the reference's liveness rule. On
+CPU tensors it runs the plain version ``kernels.ref.attention_ref`` (dense
+scores). There is no fallback between the two. The kernel's sums run in
+another order than the dense plain version's, so the two agree to a
+tolerance, not bit for bit. Like the reference's kernel it is forward-only:
+a call that autograd would record raises. Launches count on ``launches``.
 """
 from __future__ import annotations
 

@@ -359,6 +359,74 @@ def test_flash_kernel_takes_mixed_dtypes(cuda_device):
     assert flash_mod.launches.count == before + 2
 
 
+def _flash_case(dev, dtypes, B, H, S, T, d, causal, window, block):
+    """One flash_mha launch on q, k, v of the given dtypes against dense
+    attention_ref on the same tensors."""
+    gen = torch.Generator(device=dev).manual_seed(S + T + d + B * H)
+    q, k, v = ((torch.randn((B, H, n, d), generator=gen, device=dev) * sc)
+               .to(dt) for n, sc, dt in zip((S, T, T), (0.3, 0.3, 1.0),
+                                            dtypes))
+    before = flash_mod.launches.count
+    got = flash_mha(q, k, v, causal=causal, window=window, block_q=block,
+                    block_k=block)
+    torch.cuda.synchronize()
+    assert flash_mod.launches.count == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert_attention_close(got, attention_ref(q, k, v, causal=causal,
+                                              window=window))
+
+
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 96])
+@pytest.mark.parametrize("dtypes", [(F32, F32, BF16), (BF16, BF16, BF16),
+                                    (F32, F32, F32), (F16, F16, F16)])
+def test_flash_kernel_split_passes_per_dtype_mix(cuda_device, dtypes, window):
+    """The split-bf16 pass plans at d 128: fp32 q and k in 3 pieces each
+    beside bf16 v (the path's mix), one bf16 pass, fp32 everywhere, and
+    the f16 product of fp16 q and k."""
+    _flash_case(cuda_device, dtypes, 1, 2, 256, 256, 128, True, window, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [24, 72])
+def test_flash_kernel_pads_head_dim_in_shared_memory(cuda_device, d, dtype):
+    """d that is not a multiple of 16: zero columns in shared memory."""
+    _flash_case(cuda_device, (dtype,) * 3, 1, 2, 128, 128, d, True, None, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes,d", [((F32, F32, BF16), 256),
+                                      ((BF16,) * 3, 20), ((F32,) * 3, 20),
+                                      ((F16, F32, F16), 128)])
+def test_flash_kernel_load_modes(cuda_device, dtypes, d):
+    """The loads beside the staged one: d 256 with fp32 q and k (direct,
+    K split through registers), d % 8 != 0 (direct, scalar loads), and
+    fp16 pieces beside fp32 ones (staged, fp16 tiles split in shared
+    memory)."""
+    _flash_case(cuda_device, dtypes, 1, 2, 192, 192, d, True, 80, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 50)])
+def test_flash_kernel_ragged_query_tile(cuda_device, dtype, causal, window):
+    """S = T = 200: the last query and key tiles are partial."""
+    _flash_case(cuda_device, (dtype,) * 3, 1, 2, 200, 200, 64, causal,
+                window, 40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [(F32, F32, BF16), (BF16, BF16, BF16)])
+def test_flash_kernel_fully_masked_first_live_tile(cuda_device, dtypes):
+    """Window 16: for rows 80-127 the first live key tile (keys 0-63) is
+    fully masked, so m stays -1e30 until a real key wipes the tile."""
+    _flash_case(cuda_device, dtypes, 1, 2, 256, 256, 64, True, 16, 64)
+
+
 @pytest.mark.cuda
 def test_forward_only_kernels_refuse_bad_calls(cuda_device):
     q = torch.randn((1, 1, 64, 16), device=cuda_device)

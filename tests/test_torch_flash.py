@@ -3,11 +3,24 @@
 (Pallas, interpret mode) and ``attention_ref``, on the cases of
 tests/test_kernels.py:78-116, from the same seeded numpy inputs.
 
+Beside it, ``emulate_kernel``: a plain-torch model of the CUDA kernel's
+arithmetic (csrc/flash_attention.cu), held against the same references on
+the same cases. Each fp32 operand splits into three round-to-nearest bf16
+pieces (fp16 into two where it meets another type), the products run the
+cross terms of pieces whose orders sum to at most 2 with fp32 sums, keys
+come in 64-key tiles skipped by the reference's liveness rule, the online
+softmax keeps -1e30 for masked scores and -inf for keys past T, and p goes
+into p.v in three bf16 pieces for an fp32 output and two for a 16-bit
+one. The card's sums round in other places, so this shows the precision
+plan, not the card's bits.
+
 Tolerances are the reference's own: 2e-5 (fp32) and 3e-2 (bf16) for the
 windowed cases, 3e-5 for the sweep and the cross-shaped case. The CUDA
 kernel is held against the plain version on the card by
 tests/test_torch_cuda.py and ``chip_smoke.py``.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -20,7 +33,7 @@ from repro.kernels.ref import attention_ref as ref_attention  # noqa: E402
 from repro_torch.checkpoint import array_to_torch  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import flash_mha  # noqa: E402
-from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ref import NEG_INF, attention_ref  # noqa: E402
 
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
@@ -42,16 +55,100 @@ def _f32(x):
     return np.asarray(x, np.float32)
 
 
+def bf16_pieces(x: torch.Tensor, n: int) -> list:
+    """x as n bf16 pieces (fp32 tensors of bf16 values), as the kernel
+    splits: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid),
+    round to nearest even, each difference exact in fp32."""
+    out, r = [], x.float()
+    for _ in range(n):
+        piece = r.to(torch.bfloat16).float()
+        out.append(piece)
+        r = r - piece
+    return out
+
+
+def _pieces_of(t: torch.Tensor, f16_product: bool) -> list:
+    """The kernel's pieces of an operand: a bf16 one (or an fp16 one in an
+    f16 product) as it is, else 2 (fp16) or 3 (fp32) bf16 pieces."""
+    if t.dtype == torch.bfloat16 or (t.dtype == torch.float16
+                                     and f16_product):
+        return [t.float()]
+    return bf16_pieces(t.float(), 2 if t.dtype == torch.float16 else 3)
+
+
+def _cross(a: list, b: list, eq: str) -> torch.Tensor:
+    """sum over pieces i of a and j of b with i + j <= 2, smallest terms
+    first, of einsum(eq, a_i, b_j), in fp32."""
+    acc = None
+    for order in (2, 1, 0):
+        for i in range(order + 1):
+            j = order - i
+            if i < len(a) and j < len(b):
+                term = torch.einsum(eq, a[i], b[j])
+                acc = term if acc is None else acc + term
+    return acc
+
+
+def emulate_kernel(q, k, v, *, causal=True, window=None, scale=None,
+                   tile=64):
+    """The CUDA kernel's arithmetic in plain torch: q (B,H,S,d), k and v
+    (B,H,T,d) of any of fp32, bf16, fp16 -> (B,H,S,d) of q's dtype."""
+    B, H, S, d = q.shape
+    T = k.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    f16 = q.dtype == k.dtype == torch.float16
+    qp, kp = _pieces_of(q, f16), _pieces_of(k, f16)
+    vp = _pieces_of(v, False)
+    n_p = 3 if q.dtype == torch.float32 else 2
+    out = torch.empty((B, H, S, d))
+    for q0 in range(0, S, tile):
+        rows = torch.arange(q0, min(q0 + tile, S))
+        m = torch.full((B, H, len(rows), 1), NEG_INF)
+        l = torch.zeros((B, H, len(rows), 1))
+        acc = torch.zeros((B, H, len(rows), d))
+        for k0 in range(0, T, tile):
+            if causal and k0 > q0 + tile - 1:
+                continue
+            if window is not None and k0 + tile - 1 < q0 - window + 1:
+                continue
+            keys = torch.arange(k0, k0 + tile)
+            inside = keys < T
+            kk = keys.clamp(max=T - 1)
+            s = _cross([x[:, :, rows] for x in qp],
+                       [x[:, :, kk] * inside[:, None] for x in kp],
+                       "bhsd,bhtd->bhst") * scale
+            mask = torch.ones((len(rows), tile), dtype=torch.bool)
+            if causal:
+                mask &= keys[None, :] <= rows[:, None]
+            if window is not None:
+                mask &= (rows[:, None] - keys[None, :]) < window
+            s = torch.where(mask, s, torch.tensor(NEG_INF))
+            s = torch.where(inside, s, torch.tensor(-math.inf))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + _cross(
+                bf16_pieces(p, n_p), [x[:, :, kk] * inside[:, None]
+                                      for x in vp], "bhst,bhtd->bhsd")
+            m = m_new
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)
+    return out.to(q.dtype)
+
+
 def _check(seed, B, H, S, T, d, *, causal, window=None, bq, bk, dtype, tol):
     (qj, qt), (kj, kt), (vj, vt) = _qkv(seed, B, H, S, T, d, dtype,
                                         qk_scale=0.3 if window else 0.2)
     got = flash_mha(qt, kt, vt, causal=causal, window=window, block_q=bq,
                     block_k=bk)
     assert got.dtype == qt.dtype and got.shape == qt.shape
+    emulated = emulate_kernel(qt, kt, vt, causal=causal, window=window)
     for want in (ref_flash_mha(qj, kj, vj, causal=causal, window=window,
                                block_q=bq, block_k=bk),
                  ref_attention(qj, kj, vj, causal=causal, window=window)):
-        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+        for port in (got, emulated):
+            np.testing.assert_allclose(_f32(port), _f32(want), rtol=tol,
+                                       atol=tol)
 
 
 @pytest.mark.parametrize("window", [None, 32])
@@ -106,3 +203,102 @@ def test_cpu_path_is_the_plain_version_and_launches_nothing():
     got = flash_mha(qt, kt, vt, window=8, block_q=32, block_k=32)
     assert flash_mod.launches.count == before
     assert torch.equal(got, attention_ref(qt, kt, vt, window=8))
+
+
+def test_bf16_pieces_sum_to_fp32_exactly():
+    """hi + mid + lo == x bit for bit for fp32 normals across the exponent
+    range, at the extremes the kernel meets (+-1e-30, +-3e38) and at bf16
+    rounding midpoints (ties to even, both ways); each piece a bf16
+    value."""
+    rng = np.random.default_rng(0)
+    mant = rng.uniform(1.0, 2.0, 1 << 16)
+    expo = rng.integers(-100, 127, 1 << 16).astype(np.float64)
+    sign = rng.choice([-1.0, 1.0], 1 << 16)
+    ties = np.array([1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, 1 + 2.0 ** -8
+                     + 2.0 ** -23, 1.5 + 2.0 ** -8])
+    x = np.concatenate([sign * mant * 2.0 ** expo, [1e-30, -1e-30, 3e38,
+                                                     -3e38], ties, -ties,
+                        rng.normal(size=4096)]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    pieces = bf16_pieces(xt, 3)
+    for p in pieces:
+        assert torch.equal(p.to(torch.bfloat16).float(), p)
+    total = sum(p.double() for p in pieces)
+    assert torch.equal(total, xt.double())
+    # two pieces leave at most 2^-16 of |x| (the 16-bit output's plan)
+    hi, mid = bf16_pieces(xt, 2)
+    assert ((hi.double() + mid.double() - xt.double()).abs()
+            <= xt.double().abs() * 2.0 ** -16).all()
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_emulation_takes_the_paths_dtype_mix(window):
+    """fp32 q and k (as RoPE leaves them) beside bf16 v, the chip path's
+    mix, against the reference's kernel and dense attention at fp32's
+    2e-5, and the port's flash_mha."""
+    rng = np.random.default_rng(5)
+    arrs = [(rng.normal(size=(1, 2, 128, 64)) * sc).astype(np.float32)
+            for sc in (0.3, 0.3, 1.0)]
+    qj, kj = jnp.asarray(arrs[0]), jnp.asarray(arrs[1])
+    vj = jnp.asarray(arrs[2]).astype(jnp.bfloat16)
+    qt, kt = (torch.from_numpy(a) for a in arrs[:2])
+    vt = array_to_torch(np.asarray(vj), "cpu")
+    got = emulate_kernel(qt, kt, vt, window=window)
+    assert got.dtype == torch.float32
+    for want in (ref_flash_mha(qj, kj, vj, window=window, block_q=64,
+                               block_k=64),
+                 ref_attention(qj, kj, vj, window=window),
+                 flash_mha(qt, kt, vt, window=window)):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("dtypes", [("float32", "float32", "float32"),
+                                    ("bfloat16", "bfloat16", "bfloat16"),
+                                    ("float16", "float16", "float16"),
+                                    ("bfloat16", "float32", "float16")])
+def test_emulation_covers_ragged_tiles_and_masked_first_tiles(dtypes):
+    """S = T = 200 (partial last tiles: keys past T are -inf) and window
+    16, under which rows 80-127 meet a fully masked first live tile (m
+    stays -1e30 until a real key wipes it), against dense attention_ref:
+    fp32 at 2e-5, 16-bit outputs within one ulp of the output's type."""
+    rng = np.random.default_rng(len("".join(dtypes)))
+    q, k, v = (torch.from_numpy((rng.normal(size=(1, 2, 200, 32)) * sc)
+                                .astype(np.float32)).to(getattr(torch, dt))
+               for sc, dt in zip((0.3, 0.3, 1.0), dtypes))
+    for causal, window in ((True, None), (True, 16), (False, 50)):
+        got = emulate_kernel(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        err = (got.float() - want.float()).abs()
+        if q.dtype == torch.float32:
+            lim = 2e-5 + 2e-5 * want.float().abs()
+        else:
+            lim = 2e-5 + want.float().abs() * torch.finfo(q.dtype).eps
+        assert (err <= lim).all(), err.max().item()
+
+
+def test_build_report_reads_ptxas_registers_and_spills(tmp_path, monkeypatch):
+    """``_build.ptxas_report`` (what chip_smoke's [build] proves the kernel
+    with) reads registers and spill bytes per kernel from nvcc's -Xptxas -v
+    log, and keeps ptxas's warnings."""
+    from repro_torch.kernels import _build
+    lib = tmp_path / "libflash_attention-0.so"
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_Z3fooILi64ELb1EEv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooILi64ELb1EEv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 241 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3fooILi128ELb1EEv' for "
+        "'sm_90a'\n"
+        "ptxas warning : (C7510) wgmma serialized in '_Z3fooILi128ELb1EEv'\n"
+        "ptxas info    : Function properties for _Z3fooILi128ELb1EEv\n"
+        "    8 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n")
+    monkeypatch.setattr(_build, "lib_path", lambda source: lib)
+    rep = _build.ptxas_report("flash_attention.cu")
+    assert rep["_Z3fooILi64ELb1EEv"] == {"registers": 241, "spill_bytes": 0,
+                                         "warnings": []}
+    big = rep["_Z3fooILi128ELb1EEv"]
+    assert (big["registers"], big["spill_bytes"]) == (255, 40)
+    assert len(big["warnings"]) == 1
