@@ -8,10 +8,11 @@ package ``repro``. Phases, each of which fails the run on any error:
 
 1. ``[build]`` builds the hand-written kernels (one nvcc per source, in
    parallel), and proves that ``flash_attention``'s products run on the
-   tensor cores: for each of its instantiations the registers and spill
+   tensor cores: for each kernel of its library the registers and spill
    bytes ptxas reports and the count of HGMMA (``wgmma``) instructions in
-   ``cuobjdump -sass`` of the library; a spill or a count of 0 fails the
-   run, and so does a missing ``cuobjdump``.
+   ``cuobjdump -sass``; a spill anywhere, or a ``flash_kernel``
+   instantiation with no HGMMA, fails the run, and so does a missing
+   ``cuobjdump``.
 2. ``[check]`` holds each kernel against its plain PyTorch version on the
    card at the smallest and the largest bucket of full-width qwen3-0.6b at
    dp=4, fp32 and bf16: the raw mix and fused SGD sweep (alpha 0.5 and 0
@@ -23,7 +24,9 @@ package ``repro``. Phases, each of which fails the run on any error:
    (bf16, fp32 and no partner) on the largest bucket, static, () and
    per-row alpha.
 3. ``[time]`` and ``[time_opt]`` time each kernel, its plain version, the
-   PyTorch yardstick and the bound at the largest bucket in bf16, the fused
+   PyTorch yardstick and the bound at the largest bucket in bf16 (the mix
+   kernels, static and per-row alpha, and ``torch.lerp_`` in 7 interleaved
+   rounds: median, min and max, and the share of the bound), the fused
    SGD sweep over all buckets, the int8 wire encode (per bucket and per
    step), ``torch._fused_adamw_`` for orientation, and the LARS norm
    prepass (largest bucket and per step).
@@ -59,17 +62,22 @@ package ``repro``. Phases, each of which fails the run on any error:
 10. The forward-only kernels. ``[check_ssm]`` holds ``ssm_scan`` against its
     plain loop bit for bit at (2, 4096, 8192, 16) (falcon-mamba's scan at 2 x
     4096 tokens), a ragged (3, 1000, 100, 5) and S = 1. ``[check_attn]``
-    holds ``flash_attention`` against dense ``attention_ref`` at qwen3-0.6b's
+    holds ``flash_attention`` against its plain version
+    ``flash_attention_plain`` (dense ``attention_ref``, and the reference's
+    block rule for rows with no admissible key) at qwen3-0.6b's
     attention (16 heads after repeating the 8 KV heads, d 128): S = T =
-    4096 causal, the same with window 1024, a non-causal S 1024 x T 4096, and
-    d 64 at S 512, each in fp32 (rtol = atol = 2e-5, the reference's) and
+    4096 causal, the same with window 1024, a non-causal S 1024 x T 4096,
+    d 64 at S 512, and S 256 x T 128 with window 8 (rows 135-255 keyless),
+    causal and not, at blocks (128, 128), (32, 32), (64, 128) and (128, 32),
+    each in fp32 (rtol = atol = 2e-5, the reference's) and
     bf16 (one bf16 ulp of the plain output plus 2e-5), with
     ``torch.backends.cuda.matmul.allow_tf32`` logged and required False (the
     plain version's fp32 einsum would round to TF32); a block that does not
     divide S raises. ``[time_ssm]`` and ``[time_attn]`` time both against
     their plain versions, their bounds and, for attention, PyTorch's
     ``scaled_dot_product_attention`` (a yardstick the port never calls), at
-    S = 4096 and 32768. Attention's bound prices each product at the
+    S = 4096 and 32768, and the keyless-rows case (S 256, T 128, window 8,
+    blocks 32) against its plain version. Attention's bound prices each product at the
     split-pass rate of its operands on the tensor cores (``_attn_bound``);
     the kernels line's flash entry adds ``share_of_bound`` = bound / time.
 11. ``[flash_path]`` one ``flash_mha`` call on q, k, v projected by a
@@ -95,6 +103,7 @@ import functools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -148,6 +157,18 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def rounds_ms(fns: dict, rounds: int = 7, reps: int = 10) -> dict:
+    """Each of ``fns`` timed in ``rounds`` interleaved rounds (every one in
+    turn, each time the mean of ``reps`` calls by ``time_ms``): the median,
+    min and max over the rounds."""
+    ts = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            ts[k].append(time_ms(fn, reps=reps, warmup=1))
+    return {k: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+            for k, v in ts.items()}
+
+
 def bound(nbytes: float, flops: float, ops_ms: float = None) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over their peak rate, which is the fp32
@@ -176,7 +197,7 @@ def phase_build():
     src = "flash_attention.cu"
     report = _build.ptxas_report(src)
     hgmma = _build.sass_count(src, "HGMMA")
-    bad = []
+    bad, products = [], 0
     for fn, rep in report.items():
         m = re.search(r"flash_kernelILi(\d+)ELb([01])E", fn)
         name = (f"flash_kernel<{m.group(1)}, "
@@ -185,9 +206,12 @@ def phase_build():
         row = dict(registers=rep["registers"],
                    spill_bytes=rep["spill_bytes"], hgmma=hgmma.get(fn, 0))
         log(f"[build] {src} {name}: {json.dumps(row)}")
-        if row["spill_bytes"] or not row["hgmma"]:
+        # the products run in flash_kernel; masked_rows_kernel (rows with no
+        # admissible key) only sums v
+        products += bool(m)
+        if row["spill_bytes"] or (m and not row["hgmma"]):
             bad.append(name)
-    if not report or bad:
+    if not products or bad:
         raise AssertionError(f"{src}: spills or no HGMMA in {bad or 'any'}")
 
 
@@ -306,18 +330,45 @@ def phase_time(layout, dev):
     # (decode mul + the mix); the fused sweep reads p, g, partner, m and
     # writes p, m (the mix, m = mu*m + g, p - lr*m: 7 operations, 8 with
     # the decode)
+    rounds = 7
+    mix = rounds_ms({
+        "gossip_mix": lambda: gossip_mix_bucket(p, b, 0.5),
+        "gossip_mix_row_alpha": lambda: gossip_mix_bucket(p, b, row),
+        "torch.lerp_": lambda: p.lerp_(b, 0.5),
+        "gossip_mix_q": lambda: gossip_mix_bucket(p, enc, 0.5),
+        "gossip_mix_q_row_alpha": lambda: gossip_mix_bucket(p, enc, row)},
+        rounds=rounds)
+    mix_bound = bound(3 * 2 * elems, 3 * elems)
+    q_bound = bound(5 * elems + 4 * tiles, 4 * elems)
+    for k, v in mix.items():
+        bd = (q_bound if k.startswith("gossip_mix_q") else mix_bound)
+        log(f"[time] {k} bf16 ({DP}, {n}), {rounds} interleaved rounds: "
+            + json.dumps(dict(v, bound_ms=bd["bound_ms"],
+                              share_of_bound=bd["bound_ms"] / v["median"])))
+
+    def spread(key, name=None):
+        name = name or key
+        return {f"ms{key[len(name):]}": mix[key]["median"],
+                f"ms{key[len(name):]}_min": mix[key]["min"],
+                f"ms{key[len(name):]}_max": mix[key]["max"]}
+
     t = {
         "gossip_mix": dict(
-            ms=time_ms(lambda: gossip_mix_bucket(p, b, 0.5)),
+            **spread("gossip_mix"),
+            **spread("gossip_mix_row_alpha", "gossip_mix"),
             plain_ms=time_ms(lambda: gossip_mix_plain(p, b, 0.5)),
-            library_ms=time_ms(lambda: p.lerp_(b, 0.5)),
-            **bound(3 * 2 * elems, 3 * elems)),
+            library_ms=mix["torch.lerp_"]["median"],
+            library_ms_min=mix["torch.lerp_"]["min"],
+            library_ms_max=mix["torch.lerp_"]["max"], rounds=rounds,
+            share_of_bound=mix_bound["bound_ms"] / mix["gossip_mix"]["median"],
+            **mix_bound),
         "gossip_mix_q": dict(
-            ms=time_ms(lambda: gossip_mix_bucket(p, enc, 0.5)),
-            ms_row_alpha=time_ms(lambda: gossip_mix_bucket(p, enc, row)),
+            **spread("gossip_mix_q"),
+            **spread("gossip_mix_q_row_alpha", "gossip_mix_q"),
             plain_ms=time_ms(lambda: gossip_mix_q_plain(p, q, s, 0.5)),
-            library_ms=None,
-            **bound(5 * elems + 4 * tiles, 4 * elems)),
+            library_ms=None, rounds=rounds,
+            share_of_bound=q_bound["bound_ms"] / mix["gossip_mix_q"]["median"],
+            **q_bound),
         "fused_sgd": dict(
             ms=time_ms(lambda: fused_sgd_bucket(p, g, b, m, lr=LR, alpha=0.5)),
             plain_ms=time_ms(lambda: fused_sgd_plain(p, g, b, m, lr=LR,
@@ -626,30 +677,37 @@ def _attn_agree(got, want) -> tuple:
 
 
 def phase_check_attn(dev, S=ATTN_S, heads=16, kv_heads=8, d=128):
-    """flash_attention against dense attention_ref at qwen3-0.6b's
-    attention shapes."""
+    """flash_attention against its plain version (dense attention_ref, and
+    the reference's block rule for rows with no admissible key) at
+    qwen3-0.6b's attention shapes, and at S 256, T 128, window 8, where
+    rows 135-255 have no admissible key, for four (block_q, block_k)."""
     from repro_torch.kernels import flash_mha
-    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     tf32 = torch.backends.cuda.matmul.allow_tf32
     log(f"[check_attn] torch.backends.cuda.matmul.allow_tf32={tf32} (the "
         f"plain version's fp32 einsum must not round to TF32)")
     assert not tf32
     gen = torch.Generator(device=dev).manual_seed(6)
-    cases = [(S, S, True, None, d), (S, S, True, S // 4, d),
-             (S // 4, S, False, None, d), (S // 8, S // 8, True, None, d // 2)]
+    cases = [(S, S, True, None, d, 128), (S, S, True, S // 4, d, 128),
+             (S // 4, S, False, None, d, 128),
+             (S // 8, S // 8, True, None, d // 2, 128)]
+    cases += [(256, 128, causal, 8, d, blocks) for causal in (True, False)
+              for blocks in ((128, 128), (32, 32), (64, 128), (128, 32))]
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for s_, t_, causal, window, dd in cases:
+        for s_, t_, causal, window, dd, blocks in cases:
+            bq, bk = blocks if isinstance(blocks, tuple) else (blocks,) * 2
             q, k, v = _attn_qkv(gen, dev, 1, s_, t_, dd, dtype, heads,
                                 kv_heads)
-            got = flash_mha(q, k, v, causal=causal, window=window)
-            want = attention_ref(q, k, v, causal=causal, window=window)
+            kw = dict(causal=causal, window=window, block_q=bq, block_k=bk)
+            got = flash_mha(q, k, v, **kw)
+            want = flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
             e, ok = _attn_agree(got, want)
             err[dtype] = max(err[dtype], e)
             log(f"[check_attn] {str(dtype)[6:]} H {heads} S {s_} T {t_} d {dd} "
-                f"causal={causal} window={window}: within_tolerance={ok} "
-                f"max_abs_err={e}")
+                f"causal={causal} window={window} blocks ({bq}, {bk}): "
+                f"within_tolerance={ok} max_abs_err={e}")
             assert ok, "flash_attention disagrees with its plain version"
             del q, k, v, got, want
             torch.cuda.empty_cache()
@@ -719,6 +777,7 @@ def phase_time_attn(dev, lengths=(ATTN_S, ATTN_S_LONG), heads=16, d=128):
     figure rides beside it. The kernels line's flash entry takes its times
     from ``[flash_path]``'s own call; these enter it as ``*_bf16`` keys."""
     from repro_torch.kernels import flash_mha
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ref import attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -739,6 +798,23 @@ def phase_time_attn(dev, lengths=(ATTN_S, ATTN_S_LONG), heads=16, d=128):
         out[S] = t
         del q, k, v
         torch.cuda.empty_cache()
+    # rows with no admissible key: S 256, T 128, window 8, blocks 32 (rows
+    # 135-255 keyless, 224-255 with no live tile); no PyTorch call gives
+    # such rows the reference's value (SDPA's bool mask makes them NaN)
+    q, k, v = _attn_qkv(gen, dev, 1, 256, 128, d, torch.bfloat16, heads,
+                        heads // 2)
+    kw = dict(causal=True, window=8, block_q=32, block_k=32)
+    got = flash_mha(q, k, v, **kw)
+    e, ok = _attn_agree(got, flash_attention_plain(q, k, v, **kw))
+    t = dict(S=256, T=128, window=8, blocks=[32, 32], max_abs_err=e,
+             within_tolerance=ok,
+             ms=time_ms(lambda: flash_mha(q, k, v, **kw), reps=20),
+             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                              reps=5),
+             library_ms=None)
+    log(f"[time_attn] keyless rows bf16 B 1 H {heads} S 256 T 128 d {d} "
+        f"causal window 8: " + json.dumps(t))
+    assert ok, "flash_attention disagrees with its plain version"
     keys = ("ms", "plain_ms", "library_ms", "bound_ms",
             "bound_ms_fp32_cuda_cores")
     return {"flash_attention_bf16": {

@@ -57,7 +57,7 @@ SOURCES = {
                  [_P, _P, _P, _LL, _LL, _LL, _P]),
     "flash_attention": ("flash_attention.cu", "flash_attention_launch",
                         [_I, _I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _F,
-                         _I, _I, _LL, _P]),
+                         _I, _I, _LL, _LL, _LL, _P]),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,

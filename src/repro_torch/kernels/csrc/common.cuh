@@ -1,11 +1,13 @@
 // Shared helpers of the hand-written elementwise sweeps (sm_90a).
 //
-// Both kernel sources of the port are bandwidth-bound sweeps over flat
-// buffers: one grid-stride loop over 16-byte vectors of the bucket (4 fp32
-// or 8 bf16 elements) where every pointer is aligned for its vector, then a
-// masked scalar edge for the remainder, so a ragged tail needs no separate
-// pass. Indices are 64-bit: one launch covers a whole replica-stacked bucket
-// (up to 622 M elements for qwen3-0.6b's embedding at dp=4).
+// The mix and the fused updates are bandwidth-bound sweeps over flat
+// buffers, in 16-byte vectors of the bucket (4 fp32 or 8 bf16 elements)
+// where every pointer is aligned for its vector, then a masked scalar edge
+// for the remainder, so a ragged tail needs no separate pass. The fused
+// sweeps (fused_*.cu) run one grid-stride loop with 64-bit indices
+// (grid_for); gossip_mix.cu runs one wave of blocks, a chunk each, of its
+// own. One launch covers a whole replica-stacked bucket (up to 622 M
+// elements for qwen3-0.6b's embedding at dp=4).
 //
 // A partner stream may be narrower than the bucket: bf16 on an fp32 bucket,
 // or int8 / float8_e4m3fn wire codes with one fp32 scale per 128-element

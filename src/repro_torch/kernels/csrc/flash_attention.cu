@@ -15,6 +15,17 @@
 // outside the window is skipped, and the result is acc / max(l, 1e-30),
 // cast to q's dtype.
 //
+// The kernel applies that rule to its own 64-key tiles. For a row with an
+// admissible key that changes only the order of the sums (a masked key's p
+// is exp(-1e30 - m) = 0 once m is real). A row with none keeps m = -1e30,
+// so each key of every live tile counts with p = 1 and the reference's
+// output is the mean of v over the keys of the tiles live at the caller's
+// (bq, bk) = (min(block_q, S), min(block_k, T)) for the row's query block:
+// it depends on the blocks. Such rows form the suffix [r0, S) (a window w:
+// r0 = T + w - 1; causal with w < 1: every row), and masked_rows_kernel
+// writes them after flash_kernel by the reference's rule, summing each live
+// tile's keys in fp32 as the reference adds p . v tile by tile.
+//
 // Arithmetic: split-bf16 passes on the tensor cores (wgmma, fp32
 // accumulators). A bf16 x bf16 (or f16 x f16) product is exact in fp32, so
 // a 16-bit operand is one pass. An fp32 value x splits exactly into three
@@ -396,6 +407,56 @@ __device__ __forceinline__ int64_t elem_bytes(int dtype) {
   return dtype == kF32 ? 4 : 2;
 }
 
+__device__ __forceinline__ float load_f(const void* __restrict__ src,
+                                        int dtype, int64_t i) {
+  switch (dtype) {
+    case kBF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(src)[i]);
+    case kF16: return __half2float(static_cast<const __half*>(src)[i]);
+    default: return static_cast<const float*>(src)[i];
+  }
+}
+
+// ---- rows with no admissible key -------------------------------------------
+
+// One block per (head, query block of bq rows that holds rows >= r0); a
+// thread per output column. The live key tiles of the block form one run
+// [t_lo, t_hi] (the reference's rule at (bq, bk)); every key in it counts
+// with p = 1: o = (sum over tiles of the tile's sum of v) / keys, 0 where no
+// tile is live.
+__global__ void __launch_bounds__(kThreads)
+masked_rows_kernel(const Params prm, int bq, int bk, int r0) {
+  const int first_qb = r0 / bq;
+  const int nqb = (prm.S - 1) / bq - first_qb + 1;
+  const int64_t head = blockIdx.x / nqb;
+  const int64_t q0 = static_cast<int64_t>(first_qb + blockIdx.x % nqb) * bq;
+  const int64_t n_kt = (prm.T + bk - 1) / bk;
+  int64_t t_hi = n_kt - 1;
+  if (prm.causal && (q0 + bq - 1) / bk < t_hi) t_hi = (q0 + bq - 1) / bk;
+  int64_t t_lo = 0;
+  if (prm.has_window) {  // live iff k0 + bk - 1 >= q0 - window + 1
+    const int64_t need = q0 - prm.window + 1 - (bk - 1);
+    if (need > 0) t_lo = (need + bk - 1) / bk;
+  }
+  const int d = prm.d;
+  const int64_t vbase = head * prm.T * d, obase = head * prm.S * d;
+  const int64_t row_lo = q0 > r0 ? q0 : r0;
+  const int64_t row_hi = q0 + bq < prm.S ? q0 + bq : prm.S;
+  for (int col = threadIdx.x; col < d; col += blockDim.x) {
+    float acc = 0.0f, l = 0.0f;
+    for (int64_t t = t_lo; t <= t_hi; ++t) {
+      const int64_t k1 = (t + 1) * bk < prm.T ? (t + 1) * bk : prm.T;
+      float part = 0.0f;
+      for (int64_t j = t * bk; j < k1; ++j)
+        part = __fadd_rn(part, load_f(prm.v.ptr, prm.v.dtype, vbase + j * d + col));
+      acc = __fadd_rn(acc, part);
+      l = __fadd_rn(l, static_cast<float>(k1 - t * bk));
+    }
+    const float o = __fdiv_rn(acc, fmaxf(l, 1e-30f));
+    for (int64_t r = row_lo; r < row_hi; ++r)
+      store_f(prm.o, prm.q.dtype, obase + r * d + col, o);
+  }
+}
+
 // ---- the kernel --------------------------------------------------------------
 
 // kExact: the output is fp32, so the sums keep fp32 grade: p in 3 pieces
@@ -738,18 +799,21 @@ int pieces(int dtype, bool f16_native) {
 // Plain C entry point (bound with ctypes): q (bh, S, d), k and v (bh, T, d),
 // o (bh, S, d) of q's dtype, all contiguous; each of q, k and v has its own
 // dtype code (0 fp32, 1 bf16, 4 fp16); 1 <= d <= 256; window is read only
-// when has_window. Returns the cudaError_t of the launch; 0 means it was
-// accepted.
+// when has_window; bq and bk are the caller's blocks (min(block_q, S),
+// min(block_k, T)), which decide the rows with no admissible key. Returns
+// the cudaError_t of the launches; 0 means they were accepted.
 extern "C" int flash_attention_launch(int q_dtype, int k_dtype, int v_dtype,
                                       const void* q, const void* k,
                                       const void* v, void* o, long long bh,
                                       long long S, long long T, int d,
                                       float scale, int causal, int has_window,
-                                      long long window, void* stream) {
+                                      long long window, long long bq,
+                                      long long bk, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   constexpr long long kMaxLen = 1 << 30;  // every index stays in 32 bits
   if (d < 1 || !known(q_dtype) || !known(k_dtype) || !known(v_dtype) ||
-      S < 0 || T < 0 || S >= kMaxLen || T >= kMaxLen)
+      S < 0 || T < 0 || S >= kMaxLen || T >= kMaxLen || bq < 1 || bk < 1 ||
+      bq >= kMaxLen || bk >= kMaxLen)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool f16 = q_dtype == kF16 && k_dtype == kF16;
   Params prm{};
@@ -769,8 +833,20 @@ extern "C" int flash_attention_launch(int q_dtype, int k_dtype, int v_dtype,
                                 : window < -kMaxLen ? -kMaxLen
                                                     : window);
   prm.qk_f16 = f16;
-  if (d <= 64) return launch<64>(prm, s);
-  if (d <= 128) return launch<128>(prm, s);
-  if (d <= 256) return launch<256>(prm, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = d <= 64    ? launch<64>(prm, s)
+                 : d <= 128 ? launch<128>(prm, s)
+                 : d <= 256 ? launch<256>(prm, s)
+                            : static_cast<int>(cudaErrorInvalidValue);
+  // the first row with no admissible key: i >= T + w - 1 leaves none in
+  // the window; causal with w < 1 none at all
+  long long r0 = S;
+  if (has_window)
+    r0 = causal && prm.window < 1 ? 0 : T + prm.window - 1;
+  if (r0 < 0) r0 = 0;
+  if (rc != 0 || r0 >= S) return rc;
+  const long long blocks = ((S - 1) / bq - r0 / bq + 1) * bh;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  masked_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      prm, static_cast<int>(bq), static_cast<int>(bk), static_cast<int>(r0));
+  return static_cast<int>(cudaGetLastError());
 }

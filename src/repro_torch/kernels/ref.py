@@ -2,11 +2,12 @@
 the sequential selective scan.
 
 Port of ``repro/kernels/ref.py`` (``attention_ref``, ``ssm_scan_ref``; the
-mix's twin lives in ``kernels/gossip_mix.py``). They are the plain versions
-of ``kernels/flash_attention.py`` and ``kernels/ssm_scan_kernel.py``: the
-wrappers
-run them on CPU tensors, and ``chip_smoke.py`` holds the CUDA kernels
-against them on the card. Both stay differentiable.
+mix's twin lives in ``kernels/gossip_mix.py``). ``ssm_scan_ref`` is the
+plain version of ``kernels/ssm_scan_kernel.py``; ``attention_ref`` is that
+of ``kernels/flash_attention.py`` for every query row that has an
+admissible key (``flash_attention_plain`` adds the rows that have none).
+The wrappers run them on CPU tensors, and ``chip_smoke.py`` holds the CUDA
+kernels against them on the card. Both stay differentiable.
 """
 from __future__ import annotations
 

@@ -2,7 +2,12 @@
 
 Takes the reference's flags plus ``--device {cuda,cpu}`` (default cuda).
 The replicas live stacked on one device: ``--smoke-mesh 1,DP,1`` runs DP
-replicas there, and ``POD > 1`` or ``MODEL > 1`` raise. ``--protocol
+replicas there, and ``POD > 1`` or ``MODEL > 1`` raise. The model follows
+the reference's rule (``src/repro/launch/train.py:104``): it trains the
+reduced fp32 variant of ``--arch`` (``--d-model`` wide) under ``--smoke``
+or whenever the process sees one device. The port's replicas always share
+one device, so the launcher always reduces the model, ``--smoke`` or not
+(``model_config``). ``--protocol
 gossip_async`` takes ``--staleness``, ``--drop-timeout`` and
 ``--drop-seed``; both gossip protocols take ``--wire-dtype``,
 ``--gossip-subset`` and ``--wire-seed``. Flags of parts not ported yet
@@ -38,7 +43,7 @@ def _unported(args) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="qwen3-0.6b", choices=list_archs())
@@ -67,7 +72,9 @@ def main(argv=None) -> None:
                     help="single-sweep fused mix+apply engine (default on "
                     "for --packed; --no-fused-update mixes after the update)")
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced fp32 config")
+                    help="reduced fp32 config (the port reduces the model "
+                    "anyway: its replicas share one device, and the "
+                    "reference reduces on one device)")
     ap.add_argument("--smoke-mesh", default="1,1,1", metavar="POD,DATA,MODEL",
                     help="DATA replicas stacked on the one device; POD and "
                     "MODEL must be 1 in this slice")
@@ -77,7 +84,21 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def model_config(args: argparse.Namespace):
+    """The model the launcher trains: the reference reduces ``--arch`` to
+    its fp32 smoke variant under ``--smoke`` or on one device
+    (``src/repro/launch/train.py:104-107``), and the port always runs on
+    one device."""
+    return dataclasses.replace(reduced(get_config(args.arch),
+                                       d_model=args.d_model),
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     _unported(args)
 
     pod, dp, model = (int(x) for x in args.smoke_mesh.split(","))
@@ -85,11 +106,7 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "pod > 1 and model > 1 need multi-device meshes (ROADMAP A.12); "
             "this slice stacks DATA replicas on one device")
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = dataclasses.replace(reduced(cfg, d_model=args.d_model),
-                                  param_dtype="float32",
-                                  compute_dtype="float32")
+    cfg = model_config(args)
     opt = sgd(step_decay(args.lr, 0.1, max(args.steps // 3, 1)), momentum=0.9)
     bundle = make_train_step_bundle(
         cfg, opt, dp=dp, protocol=args.protocol, topology=args.topology,

@@ -1,13 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 bit for bit, including lengths that exercise the masked scalar edge and
 misaligned views that exercise the scalar path: the raw mix, the quantized
-mix ``gossip_mix_q``, the fused SGD and AdamW sweeps with raw, bf16 (on
+mix ``gossip_mix_q`` (also on lengths cut around one block's chunk, views
+offset by 1-7 elements and per-row alphas on rows that straddle chunks), the fused SGD and AdamW sweeps with raw, bf16 (on
 fp32) and int8 / fp8 wire partners, and the fused LARS sweep with raw
 partners of either width and a per-row trust scale, under a static alpha,
 a () tensor alpha and one alpha per replica row. The forward-only kernels:
 ``ssm_scan`` bit for bit against its plain sequential loop (ragged S and D
-included), ``flash_attention`` against dense ``attention_ref`` within the
-reference's fp32 tolerance (2e-5) and, in bf16, within one bf16 ulp of the
+included), ``flash_attention`` against its plain version (dense
+``attention_ref``; rows with no admissible key by the caller's blocks) within
+the reference's fp32 tolerance (2e-5) and, in bf16, within one bf16 ulp of the
 plain output plus 2e-5 (the final cast splits an fp32 gap below 2e-5);
 refused launches raise, and so does a call that autograd would record.
 
@@ -151,6 +153,91 @@ def test_mixed_dtype_partner_and_row_alpha_match_plain(cuda_device, n, offset):
         fused_sgd_1d(gp, g, b, gm, lr=0.01, alpha=alpha)
         torch.cuda.synchronize()
         assert torch.equal(gp, wp) and torch.equal(gm, wm)
+
+
+def _coded_view(q: torch.Tensor, offset: int) -> torch.Tensor:
+    """q's codes copied into a view that starts ``offset`` elements into a
+    fresh buffer (not aligned for a vector when offset > 0)."""
+    buf = torch.empty(q.numel() + offset, dtype=q.dtype, device=q.device)
+    view = buf[offset:].view(q.shape)
+    view.copy_(q)
+    return view
+
+
+# bytes of a that one block of the mix kernel owns: 1024 16-byte vectors
+# (csrc/gossip_mix.cu: kChunk)
+MIX_CHUNK_BYTES = 16 * 1024
+SWEEP_CASES = [(torch.float32, "raw"), (torch.float32, "bf16"),
+               (torch.float32, "int8"), (torch.float32, "fp8"),
+               (torch.bfloat16, "raw"), (torch.bfloat16, "int8"),
+               (torch.bfloat16, "fp8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,partner", SWEEP_CASES,
+                         ids=[f"{str(d)[6:]}-{p}" for d, p in SWEEP_CASES])
+def test_mix_sweep_ragged_and_misaligned_match_plain(cuda_device, dtype,
+                                                     partner):
+    """The mix sweep (one chunk of MIX_CHUNK_BYTES of a per block, its loads
+    batched) against its plain version bit for bit, every alpha form, on
+    lengths that are no multiple of a chunk: below one vector, one element
+    (codes: one 128-row) past a chunk, a prime; and on views offset by 1-7
+    elements (the scalar loop). Raw partners of the bucket's dtype or bf16
+    on fp32 take any length; wire codes take (M, 128 k)."""
+    chunk = MIX_CHUNK_BYTES // dtype.itemsize   # elements a block owns
+    gen = torch.Generator(device=cuda_device).manual_seed(chunk + len(partner))
+    coded = partner in ("int8", "fp8")
+    if coded:
+        shapes = [(1, 128), (1, chunk + 128), (3, 128 * 67), (2, chunk)]
+    else:
+        shapes = [(1, 1), (1, 3), (1, 7), (1, chunk + 1), (1, 2 * chunk - 1),
+                  (1, 100_003), (2, 128 * 67)]
+    cases = [(sh, 0) for sh in shapes] + [((2, 128 * 5), off)
+                                          for off in range(1, 8)]
+    for (rows, n), offset in cases:
+        a = torch.randn(rows * n + offset, generator=gen,
+                        device=cuda_device).to(dtype)[offset:].view(rows, n)
+        b = torch.randn(rows, n, generator=gen, device=cuda_device)
+        if coded:
+            enc = encode_wire(b.to(dtype), partner,
+                              keys=wire_key(1, range(rows), 2))
+            q, s = _coded_view(enc["q"], offset), enc["s"]
+        else:
+            b = b.to(dtype if partner == "raw" else torch.bfloat16)
+            b = _coded_view(b, offset)
+        for alpha in _wire_alphas(cuda_device, rows):
+            if coded:
+                got = gossip_mix_q2d(a.clone(), q, s, alpha)
+                want = gossip_mix_q_plain(a, q, s, alpha)
+            else:
+                got = gossip_mix_1d(a.clone(), b, alpha)
+                want = gossip_mix_plain(a, b, alpha)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ((rows, n), offset, alpha)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("coded", [False, True], ids=["raw", "int8"])
+@pytest.mark.parametrize("k", [3, 67, 129])
+def test_mix_sweep_row_alpha_straddles_chunks(cuda_device, dtype, coded, k):
+    """One alpha per replica row, rows of 128 k elements: k 3 puts many rows
+    in one block's chunk, k 67 and 129 make chunks that straddle two rows
+    (fp32 chunks hold 4096 elements, bf16 8192)."""
+    rows, n = 5, 128 * k
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    a = torch.randn(rows, n, generator=gen, device=cuda_device).to(dtype)
+    b = torch.randn(rows, n, generator=gen, device=cuda_device).to(dtype)
+    alpha = torch.tensor([0.5, 0.0, 0.25, 0.125, 1.0], device=cuda_device)
+    if coded:
+        enc = encode_wire(b, "int8", keys=wire_key(2, range(rows), 3))
+        got = gossip_mix_q2d(a.clone(), enc["q"], enc["s"], alpha)
+        want = gossip_mix_q_plain(a, enc["q"], enc["s"], alpha)
+    else:
+        got = gossip_mix_1d(a.clone(), b, alpha)
+        want = gossip_mix_plain(a, b, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -427,6 +514,37 @@ def test_flash_kernel_fully_masked_first_live_tile(cuda_device, dtypes):
     _flash_case(cuda_device, dtypes, 1, 2, 256, 256, 64, True, 16, 64)
 
 
+MASKED_BLOCKS = [(128, 128), (32, 32), (64, 128), (128, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("blocks", MASKED_BLOCKS,
+                         ids=[f"{a}x{b}" for a, b in MASKED_BLOCKS])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_rows_without_keys_take_the_callers_blocks(
+        cuda_device, causal, blocks, dtype):
+    """S 256, T 128, d 32, window 8: rows 135-255 have no admissible key and
+    take the mean of v over the keys of the tiles live at the caller's
+    (block_q, block_k) for their query block (0 where none is), as the
+    reference's blocked kernel gives them; the kernel against its plain
+    version ``flash_attention_plain`` on every row."""
+    bq, bk = blocks
+    gen = torch.Generator(device=cuda_device).manual_seed(bq + bk + causal)
+    q, k, v = ((torch.randn((1, 2, n, 32), generator=gen, device=cuda_device)
+                * sc).to(dtype) for n, sc in ((256, 0.3), (128, 0.3),
+                                              (128, 1.0)))
+    kw = dict(causal=causal, window=8, block_q=bq, block_k=bk)
+    before = flash_mod.launches.count
+    got = flash_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_mod.launches.count == before + 1
+    want = flash_mod.flash_attention_plain(q, k, v, **kw)
+    assert_attention_close(got, want)
+    if bq == 32:   # rows 224-255: no tile is live at (32, 32) or (32, x)
+        assert not want[:, :, 224:].any() and not got[:, :, 224:].any()
+
+
 @pytest.mark.cuda
 def test_forward_only_kernels_refuse_bad_calls(cuda_device):
     q = torch.randn((1, 1, 64, 16), device=cuda_device)
@@ -443,9 +561,11 @@ def test_forward_only_kernels_refuse_bad_calls(cuda_device):
     # launches the C entry points refuse: an unknown dtype code, a grid
     # past 2^31 blocks; the wrappers' check raises on their error codes
     s = torch.cuda.current_stream(cuda_device).cuda_stream
-    for codes in ((7, 0, 0), (0, 0, 2)):
+    for codes, blocks in (((7, 0, 0), (64, 64)), ((0, 0, 2), (64, 64)),
+                          ((0, 0, 0), (0, 64))):
         rc = _build.kernel("flash_attention")(*codes, None, None, None, None,
-                                              1, 64, 64, 16, 1.0, 1, 0, 0, s)
+                                              1, 64, 64, 16, 1.0, 1, 0, 0,
+                                              *blocks, s)
         with pytest.raises(RuntimeError, match="failed to launch"):
             _build.check_launch("flash_attention", rc)
     rc = _build.kernel("ssm_scan")(None, None, None, 1 << 20, 4, 1 << 22, s)

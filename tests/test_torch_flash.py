@@ -90,9 +90,12 @@ def _cross(a: list, b: list, eq: str) -> torch.Tensor:
 
 
 def emulate_kernel(q, k, v, *, causal=True, window=None, scale=None,
-                   tile=64):
+                   block_q=128, block_k=128, tile=64):
     """The CUDA kernel's arithmetic in plain torch: q (B,H,S,d), k and v
-    (B,H,T,d) of any of fp32, bf16, fp16 -> (B,H,S,d) of q's dtype."""
+    (B,H,T,d) of any of fp32, bf16, fp16 -> (B,H,S,d) of q's dtype. The
+    rows with no admissible key, [r0, S), are then written apart, as the
+    kernel's masked_rows_kernel writes them: the mean of v over the keys of
+    the tiles live at the caller's (bq, bk) for the row's query block."""
     B, H, S, d = q.shape
     T = k.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
@@ -133,6 +136,21 @@ def emulate_kernel(q, k, v, *, causal=True, window=None, scale=None,
                                       for x in vp], "bhst,bhtd->bhsd")
             m = m_new
         out[:, :, rows] = acc / torch.clamp(l, min=1e-30)
+    bq, bk = min(block_q, S), min(block_k, T)
+    r0 = S
+    if window is not None:
+        r0 = 0 if causal and window < 1 else max(0, T + window - 1)
+    for q0 in range(r0 // bq * bq, S if r0 < S else 0, bq):
+        t_hi = -(-T // bk) - 1
+        if causal:
+            t_hi = min(t_hi, (q0 + bq - 1) // bk)
+        need = q0 - window + 1 - (bk - 1)
+        t_lo = -(-need // bk) if need > 0 else 0
+        acc, n = torch.zeros((B, H, d)), 0
+        for t in range(t_lo, t_hi + 1):
+            keys = v[:, :, t * bk:min((t + 1) * bk, T)].float()
+            acc, n = acc + keys.sum(2), n + keys.shape[2]
+        out[:, :, max(q0, r0):q0 + bq] = (acc / max(n, 1e-30))[:, :, None]
     return out.to(q.dtype)
 
 
@@ -142,7 +160,8 @@ def _check(seed, B, H, S, T, d, *, causal, window=None, bq, bk, dtype, tol):
     got = flash_mha(qt, kt, vt, causal=causal, window=window, block_q=bq,
                     block_k=bk)
     assert got.dtype == qt.dtype and got.shape == qt.shape
-    emulated = emulate_kernel(qt, kt, vt, causal=causal, window=window)
+    emulated = emulate_kernel(qt, kt, vt, causal=causal, window=window,
+                              block_q=bq, block_k=bk)
     for want in (ref_flash_mha(qj, kj, vj, causal=causal, window=window,
                                block_q=bq, block_k=bk),
                  ref_attention(qj, kj, vj, causal=causal, window=window)):
@@ -203,6 +222,58 @@ def test_cpu_path_is_the_plain_version_and_launches_nothing():
     got = flash_mha(qt, kt, vt, window=8, block_q=32, block_k=32)
     assert flash_mod.launches.count == before
     assert torch.equal(got, attention_ref(qt, kt, vt, window=8))
+
+
+MASKED_BLOCKS = [(128, 128), (32, 32), (64, 128), (128, 32)]
+
+
+@pytest.mark.parametrize("blocks", MASKED_BLOCKS,
+                         ids=[f"{a}x{b}" for a, b in MASKED_BLOCKS])
+@pytest.mark.parametrize("causal", [True, False])
+def test_rows_without_keys_follow_the_reference_blocks(causal, blocks):
+    """S 256, T 128, d 32, window 8: rows 135-255 have no admissible key,
+    so the reference's blocked kernel gives them the mean of v over the
+    keys of the tiles live for their (bq, bk) query block (0 where none is:
+    rows 224-255 at blocks 32). The port's flash_mha (its plain version on
+    the CPU) and emulate_kernel match the reference's flash_mha (Pallas,
+    interpret mode) on every row within fp32's 2e-5, and the reference's
+    dense attention_ref on the rows where the two reference versions
+    agree: every row that has a key, and at blocks 128 all rows."""
+    bq, bk = blocks
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(11, 1, 2, 256, 128, 32, qk_scale=0.3)
+    kw = dict(causal=causal, window=8)
+    want = _f32(ref_flash_mha(qj, kj, vj, block_q=bq, block_k=bk, **kw))
+    dense = _f32(ref_attention(qj, kj, vj, **kw))
+    got = flash_mha(qt, kt, vt, block_q=bq, block_k=bk, **kw)
+    emulated = emulate_kernel(qt, kt, vt, block_q=bq, block_k=bk, **kw)
+    agree = np.isclose(want, dense, rtol=2e-5, atol=2e-5).all(-1)
+    assert agree[:, :, :135].all()
+    assert agree.all() == (blocks == (128, 128))
+    for port in (_f32(got), _f32(emulated)):
+        np.testing.assert_allclose(port, want, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(port[agree], dense[agree], rtol=2e-5,
+                                   atol=2e-5)
+    # rows with a key stay the dense plain version's, bit for bit
+    assert torch.equal(got[:, :, :135], attention_ref(qt, kt, vt, **kw)[:, :, :135])
+
+
+def test_plain_version_rows_without_keys_take_the_block_rule():
+    """flash_attention_plain on hand-made v (v_j = j): a row without keys
+    gets the mean over its live tiles' keys, and 0 where no tile is live.
+    S 8, T 4, causal, window 1, blocks 2: row i < 4 sees key i alone; rows
+    4-7 have none, and the window rule (k0 + 1 >= q0) leaves their query
+    blocks no live tile, so they are 0."""
+    q = torch.zeros((1, 1, 8, 1))
+    v = torch.arange(4.0).reshape(1, 1, 4, 1)
+    out = flash_mod.flash_attention_plain(q, q[:, :, :4], v, window=1,
+                                          block_q=2, block_k=2)
+    assert torch.equal(out[0, 0, :4, 0], v[0, 0, :, 0])   # key i only
+    assert torch.equal(out[0, 0, 4:, 0], torch.zeros(4))
+    # window 3, blocks 4: rows 6-7 have no key; query block 4-7 keeps tile
+    # 0-3 live (3 >= 4 - 3 + 1), so they get the mean of v: 1.5
+    out = flash_mod.flash_attention_plain(q, q[:, :, :4], v, window=3,
+                                          block_q=4, block_k=4)
+    assert torch.equal(out[0, 0, 6:, 0], torch.full((2,), 1.5))
 
 
 def test_bf16_pieces_sum_to_fp32_exactly():

@@ -206,6 +206,34 @@ def test_launcher_runs_and_refuses_unported_meshes(capsys):
         main(["--smoke", "--smoke-mesh", "1,2,1", "--device", "cpu"])
 
 
+def _on_port_fields(ref, port):
+    """The reference's config value cut down to the fields the port's
+    config has (the port's configs leave out the families it has not
+    ported yet)."""
+    if isinstance(port, dict):
+        return {k: _on_port_fields(ref[k], v) for k, v in port.items()}
+    if isinstance(port, (list, tuple)) and len(port) == len(ref):
+        return type(port)(_on_port_fields(r, v) for r, v in zip(ref, port))
+    return ref
+
+
+@pytest.mark.parametrize("argv", [[], ["--smoke"], ["--d-model", "64"]])
+def test_launcher_model_is_the_references_one_device_model(argv):
+    """The reference reduces the model under --smoke or on one device
+    (src/repro/launch/train.py:104-107); the port's replicas share one
+    device, so its launcher reduces qwen3-0.6b with or without --smoke."""
+    from repro.configs import get_config as ref_get_config
+    from repro.models import reduced as ref_reduced
+    from repro_torch.launch.train import model_config, parse_args
+    args = parse_args(["--arch", "qwen3-0.6b", "--device", "cpu", *argv])
+    port = dataclasses.asdict(model_config(args))
+    ref = dataclasses.asdict(dataclasses.replace(
+        ref_reduced(ref_get_config("qwen3-0.6b"), d_model=args.d_model),
+        param_dtype="float32", compute_dtype="float32"))
+    assert len(port["blocks"]) == 2 and port["d_model"] == args.d_model
+    assert _on_port_fields(ref, port) == port
+
+
 # ---------------------------------------------------------------- contract
 
 def _imported_roots(path: Path):
