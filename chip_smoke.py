@@ -38,10 +38,16 @@ package ``repro``. Phases, each of which fails the run on any error:
 5. ``[async_wire]`` the second slice's path on the same model:
    ``gossip_async`` (staleness 2, drop 0.2) on the int8 wire with subset
    0.5, fused, 8 steps, launch counts checked, then profiled likewise.
-6. ``[adamw_wire]`` and ``[lars_main]`` this slice's paths on the same
-   model, each 8 steps with launch counts checked and profiled likewise:
-   adamw on the ``async_wire`` protocol, and lars on the ``main`` one
-   (with the prepass's share of the step).
+6. ``[adamw_wire]`` and ``[lars_main]`` the third slice's paths on the
+   same model, each 8 steps with launch counts checked and profiled
+   likewise: adamw on the ``async_wire`` protocol, and lars on the
+   ``main`` one (with the prepass's share of the step). ``[agd_main]`` and
+   ``[every_logp_main]`` the paper's baselines on the same model, fused
+   (``fused_sgd`` at alpha 0, 104 launches each): the replicas
+   bit-identical after every step of agd and exactly after every_logp's
+   averaging steps (phase + 1 a multiple of the substeps), the replica
+   mean timed alone; both then timed and profiled like ``[main]``, and
+   ``[baselines]`` prints the three paths' ms/step from this call.
 7. At 2 layers, 4 steps each: ``[async_unfused]`` (the async ring unfused
    on the int8 wire; ``gossip_mix_q`` launches equal the count computed
    from ``selected(phase - k)``), ``[sync_fp8]`` (the sync fused engine on
@@ -49,7 +55,15 @@ package ``repro``. Phases, each of which fails the run on any error:
    (gossip_async int8 subset 0.5 fused, the partner decoded before the
    prepass), ``[adamw_unfused]`` (sync, tree-level update + ``gossip_mix``)
    and ``[lars_unfused]`` (gossip_async int8 subset 0.5, tree-level update
-   + ``gossip_mix_q``).
+   + ``gossip_mix_q``). ``[ckpt]`` (sync fused) and ``[ckpt_async]``
+   (``async_wire``'s protocol): two straight 8-step runs, then 4 steps,
+   ``save_state`` into a ``tempfile.mkdtemp()``, ``restore_state`` into a
+   fresh state drawn with another seed (bit-equal to what was saved), 4
+   more steps held bit for bit against the straight run when the two
+   straight runs are bit-equal, else within their difference; save and
+   restore seconds, bytes on disk and GB/s; ``[ckpt_async]`` also restores
+   the file into a staleness-4 ring (saved slots bit-equal, new ones
+   invalid). The depth is cut for the disk: 2 layers write about 6 GB.
 8. ``[agree]`` small fp32 models (5 buckets) on the card and on the CPU
    (plain versions) from one init: sgd sync fused, async int8 subset 0.5
    fused and unfused, sync bf16 wire unfused; adamw and lars sync fused,
@@ -92,8 +106,9 @@ package ``repro``. Phases, each of which fails the run on any error:
     the plain loop; a reduced fp32 falcon-mamba's logits on the card agree
     with the CPU's within rtol = atol = 2e-4.
 
-Prints the kernels' JSON line, the card's name and power limit, and last
-the line ``{"ok": true, "device": {...}}``. Exits non-zero on any failure.
+Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
+line, the card's name and power limit, and last the line ``{"ok": true,
+"device": {...}}``. Exits non-zero on any failure.
 """
 from __future__ import annotations
 
@@ -1138,17 +1153,18 @@ def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
     assert counts == want, (counts, want)
     assert _finite_buckets(tr), "non-finite parameters"
     if profile:
-        profile_step(name, tr)
+        res["profile"] = profile_step(name, tr)
     del tr, bundle
     torch.cuda.empty_cache()
     return res
 
 
 def profile_step(name, tr) -> None:
-    """One protocol period of steps timed without the profiler, then the
-    same phases again under torch.profiler, after the counted window: the
-    async paths' steps differ by phase (the subset sends the embedding
-    bucket every other step), so both windows cover each phase once.
+    """Whole protocol periods, at least 4 steps, timed without the
+    profiler, then the same phases again under torch.profiler, after the
+    counted window: the async paths' steps differ by phase (the subset
+    sends the embedding bucket every other step), so both windows cover
+    each phase alike.
     Device busy time is the sum of the kernels (device-side events only:
     an operator's row repeats its kernels' time), per step; the idle share
     is taken against the unprofiled window's step time, since the profiler
@@ -1156,7 +1172,8 @@ def profile_step(name, tr) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import make_replica_batches
-    n = tr.bundle.protocol.period
+    period = tr.bundle.protocol.period
+    n = period * -(-4 // period)   # at least 4 steps, whole periods
     step = len(tr.history)
     t0 = time.perf_counter()
     make_replica_batches(tr.dataset, step, tr.bundle.dp)
@@ -1180,13 +1197,17 @@ def profile_step(name, tr) -> None:
               for g in ("fused_sgd_kernel", "fused_adamw_kernel",
                         "fused_lars_kernel", "gossip_mix_kernel", "index",
                         "indexFunc", "reduce_kernel")}
-    log(f"[profile {name}] " + json.dumps({
-        "steps": n, "device_busy_ms": busy_ms, "step_ms_unprofiled": step_ms,
-        "idle_share": 1.0 - busy_ms / step_ms,
-        "profiled_wall_ms": wall_ms,
-        "device_ops_per_step": sum(r[2] for r in rows),
-        "host_batch_ms": batch_ms, "device_ms_by_kernel_name": groups}))
+    rec = {"steps": n, "device_busy_ms": busy_ms,
+           "step_ms_unprofiled": step_ms,
+           "tokens_per_s_unprofiled": tr.bundle.dp * PER_REPLICA * SEQ
+           / step_ms * 1e3,
+           "idle_share": 1.0 - busy_ms / step_ms,
+           "profiled_wall_ms": wall_ms,
+           "device_ops_per_step": sum(r[2] for r in rows),
+           "host_batch_ms": batch_ms, "device_ms_by_kernel_name": groups}
+    log(f"[profile {name}] " + json.dumps(rec))
     _log_top(name, rows)
+    return rec
 
 
 def _device_rows(prof, per: int = 1):
@@ -1230,6 +1251,200 @@ def _code_step(ref: np.ndarray, wire: str | None) -> np.ndarray:
         step = scale * 2.0 ** (np.floor(np.log2(np.maximum(y, 2.0 ** -6)))
                                - 3)
     return (0.5 * step).reshape(ref.shape)
+
+
+def _state_items(state):
+    """(name, value) of every tensor and host value of a train state in a
+    fixed order, a ``PackedParams`` by its buckets."""
+    from repro_torch.core import PackedParams
+
+    def walk(node, path):
+        if isinstance(node, PackedParams):
+            for i, b in enumerate(node.buckets):
+                yield f"{path}[{i}]", b
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k], f"{path}.{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                yield from walk(v, f"{path}[{i}]")
+        elif node is not None:
+            yield path, node
+    return list(walk(state, ""))
+
+
+_INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(_INT_OF_SIZE[a.element_size()]),
+            b.view(_INT_OF_SIZE[b.element_size()])))
+    return bool(np.array_equal(a, b))
+
+
+def _states_equal(got, want) -> bool:
+    g, w = _state_items(got), _state_items(want)
+    assert [k for k, _ in g] == [k for k, _ in w], "state structures differ"
+    return all(_same_bits(x, y) for (_, x), (_, y) in zip(g, w))
+
+
+def _states_diff(got, want) -> float:
+    """Largest elementwise difference over the state's tensors."""
+    return max((_diff(x, y) for (_, x), (_, y) in
+                zip(_state_items(got), _state_items(want))
+                if isinstance(x, torch.Tensor)), default=0.0)
+
+
+def phase_averaging(name, cfg, dev, protocol):
+    """The paper's baselines at full width, fused: ``agd`` averages the
+    gradients before every sweep (alpha 0), ``every_logp`` averages the
+    params after every ``substeps``-th sweep. Counted like [main], with the
+    replicas' bit identity checked after every step of the counted window
+    (agd: always; every_logp: exactly after the averaging steps), then
+    timed and profiled like [main]; the replica mean is timed alone on a
+    copy of the params."""
+    from repro_torch.core import PackedParams
+    from repro_torch.core.protocols import _replica_mean
+    bundle, tr = _train(cfg, fused=True, steps=MAIN_STEPS, dev=dev,
+                        protocol=protocol)
+    sub = bundle.protocol.schedule.substeps if protocol == "every_logp" else 1
+    buckets = lambda: tr.state["params"].buckets  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    same = []
+    t0 = time.perf_counter()
+    for s in range(MAIN_STEPS):
+        tr.run(1, start_step=s)
+        same.append(all(torch.equal(b, b[:1].expand_as(b))
+                        for b in buckets()))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    counts = _counts()
+    want = dict(dict.fromkeys(KERNELS, 0),
+                fused_sgd=MAIN_STEPS * bundle.layout.num_buckets)
+    expect = [(s + 1) % sub == 0 for s in range(MAIN_STEPS)]
+    copy = PackedParams([b.detach().clone() for b in buckets()],
+                        bundle.layout)
+    mean_ms = time_ms(lambda: _replica_mean(copy), reps=5)
+    nbytes = sum(b.numel() * b.element_size() * 2 for b in copy.buckets)
+    del copy
+    losses = [h["loss"] for h in tr.history]
+    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "dp": DP,
+           "seq": SEQ, "per_replica": PER_REPLICA, "protocol": protocol,
+           "period": bundle.protocol.period, "substeps": sub,
+           "num_buckets": bundle.layout.num_buckets, "losses": losses,
+           "ms_per_step_checked": (t1 - t0) * 1e3 / MAIN_STEPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "expected_launches": want,
+           "replicas_identical_after_step": same,
+           "replica_mean_ms": mean_ms,
+           "replica_mean_ms_per_step": mean_ms / sub,
+           "replica_mean_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[{name}] " + json.dumps(res))
+    assert all(math.isfinite(v) for v in losses), "non-finite loss"
+    assert abs(losses[0] - math.log(cfg.vocab)) <= 1.0, losses[0]
+    assert counts == want, (counts, want)
+    assert same == expect, (same, expect)
+    assert _finite_buckets(tr), "non-finite parameters"
+    res["profile"] = profile_step(name, tr)
+    del tr, bundle
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ckpt(name, cfg, dev, pad_to=None, **proto):
+    """Save after 4 steps, restore into a fresh state drawn with another
+    seed (every tensor, ``step`` and ``t`` bit-equal to what was saved),
+    run 4 more and hold the result against a straight 8-step run: bit for
+    bit when two straight runs are bit-equal on the card, else within
+    their own difference. ``pad_to`` also restores the file into a ring
+    of that depth: the saved slots bit-equal, the new ones invalid."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore_state, save_state
+    from repro_torch.train import Trainer, init_train_state
+    half, steps = SHORT_STEPS, 2 * SHORT_STEPS
+
+    def run(n):
+        bundle, tr = _train(cfg, fused=True, steps=steps, dev=dev, **proto)
+        tr.run(n)
+        return bundle, tr
+
+    def fresh(bundle, seed, inbox=None):
+        return init_train_state(
+            cfg, bundle.optimizer, dp=DP, packed=True, layout=bundle.layout,
+            seed=seed, device=dev, wire=bundle.wire,
+            inbox=bundle.protocol.staleness if inbox is None else inbox)
+
+    _, a = run(steps)
+    _, b = run(steps)
+    deterministic = _states_equal(b.state, a.state)
+    spread = _states_diff(b.state, a.state)
+    del b
+    bundle, tr = run(half)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_state(d, tr.state, step=half, metadata={
+            "protocol": proto.get("protocol", "gossip")})
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(d, "arrays.npz"))
+        template = fresh(bundle, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rest, man = restore_state(d, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del template
+        assert man["step"] == half
+        assert _states_equal(rest, tr.state), "restored state differs"
+        assert all(b.requires_grad and b.is_leaf
+                   and b.device.type == dev.type
+                   for b in rest["params"].buckets)
+        padded = None
+        if pad_to:
+            deep, _ = restore_state(d, fresh(bundle, seed=2, inbox=pad_to))
+            old, new = tr.state["inbox"], deep["inbox"]
+            k = len(old["slots"])
+            assert len(new["slots"]) == pad_to and new["t"] == old["t"]
+            assert _states_equal(new["slots"][:k], old["slots"])
+            assert (new["valid"][:, :k] == old["valid"]).all()
+            assert not new["valid"][:, k:].any()
+            padded = {"from": k, "to": pad_to, "t": new["t"]}
+            del deep
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    resumed = Trainer(bundle, rest, tr.dataset, log_every=0)
+    resumed.run(half, start_step=half)
+    losses = [h["loss"] for h in tr.history + resumed.history]
+    straight = [h["loss"] for h in a.history]
+    if deterministic:
+        held = "bit-equal"
+        assert losses == straight, (losses, straight)
+        assert _states_equal(resumed.state, a.state), "resume differs"
+        resume_diff = 0.0
+    else:
+        held = "within the straight runs' own difference"
+        resume_diff = _states_diff(resumed.state, a.state)
+        assert resume_diff <= spread, (resume_diff, spread)
+    res = {"layers": cfg.n_layers, "dp": DP, "steps": f"{half}+{half}",
+           **proto, "straight_runs_bit_equal": deterministic,
+           "straight_runs_max_diff": spread, "resume_held": held,
+           "resume_max_diff": resume_diff, "losses": losses,
+           "bytes_on_disk": nbytes, "save_s": save_s,
+           "restore_s": restore_s, "save_gb_per_s": nbytes / save_s / 1e9,
+           "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "mask_pad": padded}
+    log(f"[{name}] " + json.dumps(res))
+    del a, tr, rest, resumed, bundle
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_agree(dev):
@@ -1300,9 +1515,11 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     failures = []
+    seconds = {}   # wall seconds of each guarded phase, for the time limit
 
     def guard(name, fn, *args, **kw):
         """Run one phase; a failure is recorded and the next phase runs."""
+        t0 = time.perf_counter()
         try:
             return fn(*args, **kw)
         except Exception:  # noqa: BLE001 - every phase failure is reported
@@ -1312,6 +1529,8 @@ def main() -> int:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             return None
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 1)
 
     phase_build()
     cfg = get_config("qwen3-0.6b")
@@ -1361,6 +1580,15 @@ def main() -> int:
             {"prepass_ms_per_step": pre,
              "ms_per_step": lars_res["ms_per_step"],
              "share": pre / lars_res["ms_per_step"]}))
+    agd_res = guard("agd_main", phase_averaging, "agd_main", cfg, dev,
+                    "agd")
+    logp_res = guard("every_logp_main", phase_averaging, "every_logp_main",
+                     cfg, dev, "every_logp")
+    if main_res is not None and agd_res is not None and logp_res is not None:
+        log("[baselines] ms/step unprofiled, one call: " + json.dumps(
+            {k: r["profile"]["step_ms_unprofiled"] for k, r in
+             (("main", main_res), ("agd_main", agd_res),
+              ("every_logp_main", logp_res))}))
     # the other adamw and lars paths, at 2 layers to keep the call short
     guard("adamw_sync", run_path, "adamw_sync", short, dev, fused=True,
           steps=SHORT_STEPS, optimizer="adamw",
@@ -1389,6 +1617,9 @@ def main() -> int:
           expect=lambda b: none(fused_sgd=SHORT_STEPS * b.layout.num_buckets,
                                 fused_sgd_q=consumed(b, SHORT_STEPS)),
           wire_dtype="fp8")
+    guard("ckpt", phase_ckpt, "ckpt", short, dev)
+    guard("ckpt_async", phase_ckpt, "ckpt_async", short, dev, pad_to=4,
+          **ASYNC_WIRE)
     guard("agree", phase_agree, dev)
     unfused_res = guard(
         "unfused", run_path, "unfused", short, dev, fused=False,
@@ -1399,7 +1630,7 @@ def main() -> int:
     guard("mamba_agree", phase_mamba_agree, dev)
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
-            f"{failures}")
+            f"{failures}; phase seconds {json.dumps(seconds)}")
         return 1
 
     src = "src/repro_torch/kernels/csrc/"
@@ -1444,6 +1675,10 @@ def main() -> int:
         max_abs_err_q=err["fused_adamw_q"], ms_q=q["ms"],
         ms_q_row_alpha=q["ms_row_alpha"], plain_ms_q=q["plain_ms"],
         bound_ms_q=q["bound_ms"])
+    by_name["fused_sgd"]["launches_by_path"] = {
+        "main": main_res["launches"]["fused_sgd"],
+        "agd_main": agd_res["launches"]["fused_sgd"],
+        "every_logp_main": logp_res["launches"]["fused_sgd"]}
     by_name["ssm_scan"]["launches_per_forward"] = \
         mamba_res["ssm_scan_launches_per_forward"]
     flash = by_name["flash_attention"]
@@ -1453,7 +1688,8 @@ def main() -> int:
     for suffix in ("_bf16", f"_bf16_{ATTN_S_LONG}"):
         flash["share_of_bound" + suffix] = (flash["bound_ms" + suffix]
                                             / flash["ms" + suffix])
-    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] {time.perf_counter() - t_start:.1f}s; phase seconds "
+        f"{json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -4,8 +4,8 @@ No single reference counterpart: ``torch.Generator`` cannot replay
 ``jax.random``, so parity runs take the reference's ``lm_init`` tree as
 numpy arrays (nested dicts and lists keyed by the same paths) and load it
 here. Needs no JAX: bf16 and float8_e4m3fn arrays (``ml_dtypes``) cross as
-their raw bit patterns. The npz+manifest checkpoint format of ``repro/checkpoint``
-waits for ROADMAP A.8.
+their raw bit patterns. Whole train states cross in the npz+manifest
+checkpoint format (``checkpoint.io``).
 """
 from __future__ import annotations
 

@@ -6,10 +6,14 @@ Port of ``repro/core/async_gossip.py`` (``exchange_ok``,
 ``make_packed_async_gossip_mix``, ``make_packed_fused_async_update``) on
 replicas stacked on one device. The ring entering step t (k = staleness):
 
-    slots[0..k-1]   payloads dispatched at steps t-k .. t-1, oldest first,
-                    each a list over buckets (a (dp, n) tensor, a wire
-                    payload dict, or None for a bucket the subset did not
-                    send, which is never consumed)
+    slots[0..k-1]   payloads dispatched at steps t-k .. t-1, oldest first:
+                    under the fp32 full-participation wire a
+                    ``PackedParams`` of exchanged buckets (the reference's
+                    slot, which checkpoints through the leaf view); under
+                    another wire a list over buckets of (dp, n) tensors or
+                    wire payload dicts, a bucket the subset did not send
+                    holding the reference's zero payload as zero-stride
+                    views (never consumed)
     valid (dp, k)   landed flags, numpy float32 on the host
     t               dispatch counter, a host int
 
@@ -39,6 +43,7 @@ import torch
 
 from repro_torch.kernels.ops import gossip_mix_bucket
 from repro_torch.kernels.quantize import (WireFormat, _mix32_np, _u32,
+                                          unsent_payload_like,
                                           zero_payload_like)
 
 from .buckets import BucketLayout, PackedParams
@@ -74,9 +79,10 @@ def _ring(slots: List[List], dp: int) -> Dict:
 
 
 def init_inbox_ring(params: PackedParams, staleness: int, dp: int) -> Dict:
-    """Fresh-run ring: k slots of bucket copies (copies: the engines update
-    the live buckets in place), all invalid, counter 0."""
-    return _ring([[b.detach().clone() for b in params.buckets]
+    """Fresh-run ring: k ``PackedParams`` slots of bucket copies (copies:
+    the engines update the live buckets in place), all invalid, counter 0."""
+    return _ring([PackedParams([b.detach().clone() for b in params.buckets],
+                               params.layout)
                   for _ in range(int(staleness))], dp)
 
 
@@ -132,14 +138,21 @@ class _Ring:
                 send_masks(self.subset, nb, phase))
 
     def dispatch(self, bucket, i, sent, t, rf):
-        """Bucket i's exchanged wire payload; None when the subset does not
-        send it."""
+        """Bucket i's exchanged wire payload; a zero payload when the subset
+        does not send it."""
         if not sent[i]:
-            return None
+            return unsent_payload_like(bucket, self.wire.dtype)
         return exchange(encode_bucket(self.wire, bucket, t, i), rf)
 
     def ok(self, t, dp) -> np.ndarray:
         return exchange_ok(t, np.arange(dp), self.drop_seed, self.drop_rate)
+
+    def slot(self, payload: List):
+        """The ring slot of one dispatch: a ``PackedParams`` under the fp32
+        full-participation wire, as ``init_inbox_ring`` makes them."""
+        if self.wire.is_default:
+            return PackedParams(payload, self.layout)
+        return payload
 
 
 def make_packed_async_gossip_mix(schedule: GossipSchedule,
@@ -167,7 +180,8 @@ def make_packed_async_gossip_mix(schedule: GossipSchedule,
                 gossip_mix_bucket(x, ring["slots"][0][i], a)
             payload.append(st.dispatch(x, i, sent, ring["t"], rf))
         dp = params.buckets[0].shape[0]
-        return params, ring_advance(ring, payload, st.ok(ring["t"], dp))
+        return params, ring_advance(ring, st.slot(payload),
+                                    st.ok(ring["t"], dp))
 
     return mix
 
@@ -204,6 +218,7 @@ def make_packed_fused_async_update(schedule: GossipSchedule,
 
         params, opt = local(params, grads, opt_state, partner_of, alpha_eff=a)
         dp = params.buckets[0].shape[0]
-        return params, opt, ring_advance(ring, outbox, st.ok(ring["t"], dp))
+        return params, opt, ring_advance(ring, st.slot(outbox),
+                                         st.ok(ring["t"], dp))
 
     return update

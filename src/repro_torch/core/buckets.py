@@ -218,7 +218,9 @@ def build_layout(tree, *, skip_leading: int = 0,
 
 class PackedParams:
     """The bucket tensors plus their layout; ``unpack()`` gives the named
-    leaf tree as views."""
+    leaf tree as views. Indexing and ``len`` reach the buckets, so a ring
+    slot reads the same whether it is a ``PackedParams`` (the fp32
+    full-participation wire) or a list of wire payloads."""
 
     __slots__ = ("buckets", "layout")
 
@@ -236,6 +238,12 @@ class PackedParams:
 
     def unpack(self) -> Any:
         return self.layout.unpack(self.buckets)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.buckets[i]
+
+    def __len__(self) -> int:
+        return len(self.buckets)
 
     def __repr__(self) -> str:
         return (f"PackedParams(buckets={self.layout.num_buckets}, "

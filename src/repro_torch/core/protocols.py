@@ -1,9 +1,8 @@
 """Communication protocols around the local update (GossipGraD Table 6).
 
-Port of ``repro/core/protocols.py`` (``Protocol``, ``make_protocol``) for
-``gossip``, ``gossip_async`` and ``none``, plus ``make_ring_shuffle`` from
-``repro/core/shuffle.py`` on the stacked replica axis. The other protocols
-raise ``NotImplementedError`` naming their ROADMAP item.
+Port of ``repro/core/protocols.py`` (``Protocol``, ``make_protocol``,
+``_replica_mean``) on the packed engine, plus ``make_ring_shuffle`` from
+``repro/core/shuffle.py`` on the stacked replica axis.
 
     gossip        local update, then average params with the step's partner
                   (the paper's algorithm, §4);
@@ -11,6 +10,11 @@ raise ``NotImplementedError`` naming their ROADMAP item.
                   arrival mix of the oldest of k in-flight exchanges (a
                   dropped one is skipped) and the re-dispatch run BEFORE the
                   forward pass;
+    agd           gradients averaged over the replicas every step, the
+                  paper's all-reduce baseline (§3.1/§7.1);
+    every_logp    params averaged over the replicas after every
+                  ``schedule.substeps``-th step (ceil(log2 dp)), local
+                  updates between (§7.5's amortized alternative);
     none          no communication (the ensemble extreme, §4.1).
 
 The train step calls ``comm_grads`` before the optimizer and, for the
@@ -20,27 +24,48 @@ inbox=ring) -> (params, ring)`` before the forward pass. A compressed or
 partition-sampled wire (``wire_dtype``, ``gossip_subset``, ``wire_seed``)
 applies to both gossip protocols; ``period`` is then the lcm of the partner
 schedule and the subset rotation, and the trainer folds its step by it.
+every_logp's ``period`` is its schedule's, so the folded phase still counts
+the substeps.
+
+The replica mean is the reference's ``jnp.mean`` over the replica axis as
+XLA compiles it: the replicas summed in fp32 in order from a zero, times
+the fp32 reciprocal of dp (XLA rewrites the division by the constant dp as
+that product, so at dp = 3 or 6 it is not the correctly rounded quotient),
+rounded once to the bucket dtype. The reciprocal is a 0-d device tensor,
+so the product is the same bits on the CPU and the card.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.kernels.fused_update import device_scalar
 from repro_torch.kernels.quantize import WireFormat
 from repro_torch.tree import tree_map
 
 from .async_gossip import make_packed_async_gossip_mix
-from .buckets import BucketLayout
+from .buckets import BucketLayout, PackedParams
 from .gossip import make_packed_gossip_mix, wire_period, wire_subset_of
 from .topology import GossipSchedule, build_schedule
 
 __all__ = ["PROTOCOLS", "Protocol", "make_protocol", "make_ring_shuffle"]
 
 PROTOCOLS = ("gossip", "gossip_async", "agd", "every_logp", "none")
-_LATER = {"agd": "ROADMAP A.7 (sync engines + protocols)",
-          "every_logp": "ROADMAP A.7 (sync engines + protocols)"}
+
+
+def _replica_mean(packed: PackedParams) -> PackedParams:
+    """Every bucket's rows replaced, in place, by their mean over the
+    leading replica axis (one all-reduce once the replicas are ranks)."""
+    for x in packed.buckets:
+        acc = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
+        for r in range(x.shape[0]):
+            acc = acc + x[r].float()
+        recip = device_scalar(np.float32(1) / np.float32(x.shape[0]), x)
+        x.copy_((acc * recip).to(x.dtype).expand_as(x))
+    return packed
 
 
 @dataclasses.dataclass
@@ -53,7 +78,8 @@ class Protocol:
     staleness: int = 0
     # the gossip wire (the default one for a protocol that does not gossip)
     wire: WireFormat = dataclasses.field(default_factory=WireFormat)
-    # lcm(schedule period, subset rotation); the trainer folds its step by it
+    # lcm(schedule period, subset rotation), every_logp's schedule period;
+    # the trainer folds its step by it
     period: int = 1
 
     @property
@@ -62,6 +88,8 @@ class Protocol:
         return self.staleness > 0
 
     def comm_grads(self, grads, phase):
+        if self.name == "agd" and self.dp > 1:
+            return _replica_mean(grads)
         return grads
 
     def comm_params(self, params, phase, inbox=None):
@@ -73,8 +101,13 @@ class Protocol:
                     "gossip_async needs the inbox ring: comm_params(params, "
                     "phase, inbox): the train state must carry it")
             return self._mix(params, inbox, phase)
-        if self.dp > 1 and self.name == "gossip":
+        if self.dp <= 1:
+            return params
+        if self.name == "gossip":
             return self._mix(params, phase)
+        if self.name == "every_logp" and \
+                (int(phase) + 1) % self.schedule.substeps == 0:
+            return _replica_mean(params)
         return params
 
 
@@ -87,17 +120,20 @@ def make_protocol(name: str, dp: int, *, topology: str = "dissemination",
                   gossip_subset: float = 1.0, wire_seed: int = 0) -> Protocol:
     """Protocol over ``dp`` stacked replicas. The gossip protocols at dp > 1
     build the schedule and the packed bucket engine (``packed_layout``
-    required). ``staleness`` is gossip_async's ring depth k; ``drop_rate``
-    and ``drop_seed`` drive its ``exchange_ok`` drop injection."""
+    required); every_logp builds the schedule for its averaging period.
+    ``staleness`` is gossip_async's ring depth k; ``drop_rate`` and
+    ``drop_seed`` drive its ``exchange_ok`` drop injection."""
     if name not in PROTOCOLS:
         raise ValueError(f"unknown protocol {name!r}; options {PROTOCOLS}")
-    if name in _LATER:
-        raise NotImplementedError(
-            f"protocol {name!r} is not ported yet: {_LATER[name]}")
     if name == "gossip_async" and staleness < 1:
         raise ValueError(f"gossip_async staleness must be >= 1, "
                          f"got {staleness}")
     wire = WireFormat(dtype=wire_dtype, subset=gossip_subset, seed=wire_seed)
+    if name == "every_logp" and dp > 1:
+        schedule = build_schedule(dp, topology=topology,
+                                  num_rotations=num_rotations, seed=seed)
+        return Protocol(name=name, dp=dp, schedule=schedule, _mix=None,
+                        period=schedule.period)
     gossiping = dp > 1 and name in ("gossip", "gossip_async")
     if not gossiping:
         return Protocol(name=name, dp=dp, schedule=None, _mix=None)

@@ -1,12 +1,15 @@
 """Gossip communication topologies (GossipGraD §4.3-4.5), numpy only.
 
 Port of ``repro/core/topology.py`` (``GossipSchedule``, ``build_schedule``,
-``dissemination_partner``, ``hypercube_partner``, ``log2_steps``), kept bit-exact with it: the same partner maps, the same
-seeded rotations (``np.random.default_rng(seed).permutation``), the same
-``recv_from`` tables.
+``dissemination_partner``, ``hypercube_partner``, ``ring_partner``,
+``log2_steps``, ``reachability``, ``diffusion_steps``), kept bit-exact with
+it: the same partner maps, the same seeded rotations
+(``np.random.default_rng(seed).permutation``), the same ``recv_from``
+tables.
 
 * dissemination (§4.4.2): at sub-step k rank i sends to ``(i + 2^k) % p``;
 * hypercube (§4.4.1): partner ``i XOR 2^k`` (p a power of two);
+* ring (§4.5.2): rank i sends to ``(i + 1) % p``, one sub-step a rotation;
 * rotation (§4.5.1): after every ``log2 p`` steps the rank space is
   relabelled by a pre-computed random permutation sigma_r, giving the map
   ``i -> sigma_r^{-1}((sigma_r(i) + 2^k) % p)``.
@@ -22,8 +25,9 @@ import math
 import numpy as np
 
 __all__ = ["GossipSchedule", "build_schedule", "dissemination_partner",
-           "hypercube_partner", "log2_steps", "BucketSubsetSchedule",
-           "build_subset_schedule"]
+           "hypercube_partner", "ring_partner", "log2_steps",
+           "BucketSubsetSchedule", "build_subset_schedule", "reachability",
+           "diffusion_steps"]
 
 
 def _check_p(p: int) -> None:
@@ -52,9 +56,17 @@ def hypercube_partner(p: int, k: int) -> np.ndarray:
     return np.arange(p) ^ mask
 
 
+def ring_partner(p: int, k: int = 0) -> np.ndarray:
+    """send_to[i] = (i + 1) % p — the sample shuffle's ring (§4.5.2)."""
+    _check_p(p)
+    del k
+    return (np.arange(p) + 1) % p
+
+
 _TOPOLOGIES = {
     "dissemination": dissemination_partner,
     "hypercube": hypercube_partner,
+    "ring": ring_partner,
 }
 
 
@@ -93,13 +105,13 @@ class GossipSchedule:
 def build_schedule(p: int, topology: str = "dissemination",
                    num_rotations: int = 2, seed: int = 0) -> GossipSchedule:
     """``num_rotations`` random relabelings of the base topology, each used
-    for ``log2(p)`` consecutive steps (§4.5.1)."""
+    for ``log2(p)`` consecutive steps (one step for ``"ring"``, §4.5.1)."""
     _check_p(p)
     if topology not in _TOPOLOGIES:
         raise ValueError(f"unknown topology {topology!r}; options "
                          f"{sorted(_TOPOLOGIES)}")
     fn = _TOPOLOGIES[topology]
-    substeps = log2_steps(p)
+    substeps = 1 if topology == "ring" else log2_steps(p)
     rng = np.random.default_rng(seed)
     rows = []
     for r in range(num_rotations):
@@ -158,3 +170,24 @@ def build_subset_schedule(num_buckets: int, fraction: float
     if n_send >= num_buckets:
         return None
     return BucketSubsetSchedule(num_buckets=num_buckets, n_send=n_send)
+
+
+def reachability(schedule: GossipSchedule, steps: int) -> np.ndarray:
+    """Bool (p, p): has rank j's information reached rank i within
+    ``steps`` gossip steps (directly or through others)? After a step rank
+    i holds its own state mixed with ``recv_from[i]``'s."""
+    reach = np.eye(schedule.p, dtype=bool)
+    for t in range(steps):
+        reach = reach | reach[schedule.recv_from(t)]
+    return reach
+
+
+def diffusion_steps(schedule: GossipSchedule, max_steps: int = 64) -> int:
+    """Fewest steps after which every rank has mixed with every other, or
+    -1 within ``max_steps``; ceil(log2 p) for dissemination (§4.4)."""
+    reach = np.eye(schedule.p, dtype=bool)
+    for t in range(max_steps):
+        reach = reach | reach[schedule.recv_from(t)]
+        if reach.all():
+            return t + 1
+    return -1

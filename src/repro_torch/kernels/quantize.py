@@ -227,6 +227,18 @@ def zero_payload_like(bucket: torch.Tensor, wire_dtype: str):
                              device=bucket.device)}
 
 
+def unsent_payload_like(bucket: torch.Tensor, wire_dtype: str):
+    """The ring entry of a bucket the subset does not send: the reference's
+    zero payload (``zero_payload_like``) as zero-stride views of one zero,
+    which hold no memory. Such an entry is never consumed."""
+    def zeros(shape, dtype):
+        return torch.zeros((), dtype=dtype, device=bucket.device).expand(shape)
+    meta = zero_payload_like(bucket.detach().to("meta"), wire_dtype)
+    if isinstance(meta, dict):
+        return {k: zeros(v.shape, v.dtype) for k, v in meta.items()}
+    return zeros(meta.shape, meta.dtype)
+
+
 def wire_itemsize(wire_dtype: str, bucket_dtype: torch.dtype) -> int:
     """Bytes per code element on the wire (scales counted apart)."""
     if wire_dtype == "fp32":

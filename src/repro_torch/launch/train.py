@@ -25,22 +25,13 @@ import argparse
 import dataclasses
 import json
 
+from repro_torch.checkpoint import (checkpoint_exists, read_manifest,
+                                    restore_state, save_state)
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import ShardedTokenDataset
 from repro_torch.models import reduced
-from repro_torch.optim import sgd, step_decay
+from repro_torch.optim import scale_lr_sqrt_p, sgd, step_decay
 from repro_torch.train import Trainer, init_train_state, make_train_step_bundle
-
-
-def _unported(args) -> None:
-    checks = [
-        (args.checkpoint is not None or args.resume,
-         "checkpoints (ROADMAP A.8)"),
-        (args.multi_pod, "multi-pod meshes (ROADMAP A.12)"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -81,7 +72,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--checkpoint", default=None)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore from --checkpoint (if it exists) and "
+                    "continue from its saved step; async runs resume their "
+                    "ring and gossip phase (a checkpoint written at another "
+                    "--staleness is mask-padded / truncated into the ring)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap.parse_args(argv)
@@ -97,9 +92,19 @@ def model_config(args: argparse.Namespace):
                                param_dtype="float32", compute_dtype="float32")
 
 
+def lr_schedule(args: argparse.Namespace, dp: int):
+    """sgd's schedule: a step decay over the run, scaled by sqrt(dp) for
+    ``agd`` (Krizhevsky's rule, the AGD baseline only, §7.1), as the
+    reference's launcher builds it (``src/repro/launch/train.py:114-117``)."""
+    lr = step_decay(args.lr, 0.1, max(args.steps // 3, 1))
+    return scale_lr_sqrt_p(lr, dp) if args.protocol == "agd" else lr
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    _unported(args)
+    if args.multi_pod:
+        raise NotImplementedError(
+            "multi-pod meshes (ROADMAP A.12) are not ported yet")
 
     pod, dp, model = (int(x) for x in args.smoke_mesh.split(","))
     if pod > 1 or model > 1:
@@ -107,7 +112,7 @@ def main(argv=None) -> None:
             "pod > 1 and model > 1 need multi-device meshes (ROADMAP A.12); "
             "this slice stacks DATA replicas on one device")
     cfg = model_config(args)
-    opt = sgd(step_decay(args.lr, 0.1, max(args.steps // 3, 1)), momentum=0.9)
+    opt = sgd(lr_schedule(args, dp), momentum=0.9)
     bundle = make_train_step_bundle(
         cfg, opt, dp=dp, protocol=args.protocol, topology=args.topology,
         num_rotations=args.num_rotations, gossip_packed=args.packed,
@@ -119,16 +124,42 @@ def main(argv=None) -> None:
                              layout=bundle.layout, seed=0, device=args.device,
                              inbox=bundle.protocol.staleness,
                              wire=bundle.wire)
+    period = bundle.protocol.period
+    start_step = 0
+    if args.resume and args.checkpoint and checkpoint_exists(args.checkpoint):
+        meta = read_manifest(args.checkpoint).get("metadata", {})
+        if meta.get("protocol") not in (None, args.protocol):
+            raise SystemExit(
+                f"checkpoint was written by protocol {meta['protocol']!r}; "
+                f"refusing to resume it as {args.protocol!r}")
+        state, manifest = restore_state(args.checkpoint, state)
+        start_step = int(manifest.get("step") or 0)
+        print(f"resumed {args.checkpoint} at step {start_step} "
+              f"(phase {start_step % period})")
     ds = ShardedTokenDataset(cfg.vocab, args.seq_len, n_shards=dp,
                              batch_per_shard=args.global_batch // dp)
-    hist = Trainer(bundle, state, ds, log_every=args.log_every).run(args.steps)
+    trainer = Trainer(bundle, state, ds, log_every=args.log_every)
+    hist = trainer.run(args.steps, start_step=start_step)
     print(json.dumps({"arch": cfg.name, "protocol": args.protocol,
                       "fused": bundle.fused, "dp": dp,
                       "staleness": bundle.protocol.staleness,
                       "wire_dtype": args.wire_dtype,
                       "gossip_subset": args.gossip_subset,
                       "final_loss": hist[-1]["loss"],
-                      "first_loss": hist[0]["loss"], "start_step": 0}))
+                      "first_loss": hist[0]["loss"],
+                      "start_step": start_step}))
+    if args.checkpoint:
+        end_step = start_step + args.steps
+        save_state(args.checkpoint, trainer.state,
+                   metadata={"arch": cfg.name, "protocol": args.protocol,
+                             "staleness": bundle.protocol.staleness,
+                             "drop_timeout": args.drop_timeout,
+                             "wire_dtype": args.wire_dtype,
+                             "gossip_subset": args.gossip_subset,
+                             "wire_seed": args.wire_seed,
+                             "phase": end_step % period},
+                   step=end_step)
+        print(f"checkpoint -> {args.checkpoint}")
 
 
 if __name__ == "__main__":

@@ -17,8 +17,11 @@ Step layout (GossipGraD Fig. 8/9):
 **Fused mix+apply** (default for packed sgd, adamw and lars): steps 3-4
 are one single-sweep kernel per bucket that mixes with the partner's PRE-update
 bucket (``core.gossip.make_packed_fused_update``), the reference's
-GoSGD-style combined update; dp == 1 and ``none`` run it with alpha = 0.
-``fused_update=False`` keeps the mix-then-apply composition.
+GoSGD-style combined update; dp == 1, ``agd``, ``every_logp`` and ``none``
+run it with alpha = 0. ``agd`` averages the gradients before the sweep and
+``every_logp`` averages the params after it on its averaging steps (a
+separate pass, as in the reference). ``fused_update=False`` keeps the
+mix-then-apply composition.
 
 **gossip_async** (``core.async_gossip``): the state carries the staleness-k
 inbox ring (``state["inbox"]``). Unfused, the masked arrival mix of the
@@ -125,6 +128,7 @@ def make_train_step_bundle(
     gossip_subset: float = 1.0,
     wire_seed: int = 0,
     fused_update: Optional[bool] = None,
+    rotate_samples: Optional[bool] = None,
     seed: int = 0,
     device="cuda",
 ) -> TrainStepBundle:
@@ -132,7 +136,9 @@ def make_train_step_bundle(
     ``fused_update=None`` turns the fused engine on whenever the params are
     packed and the optimizer has a fused backend. ``staleness``,
     ``drop_rate`` and ``drop_seed`` configure gossip_async's ring;
-    ``wire_dtype``, ``gossip_subset`` and ``wire_seed`` the gossip wire."""
+    ``wire_dtype``, ``gossip_subset`` and ``wire_seed`` the gossip wire.
+    ``rotate_samples`` (default: on for the gossip protocols) ring-rotates
+    the batch shards after each step (§4.5.2)."""
     _packed_only(gossip_packed)
     dev = resolve_device(device)
     layout = build_layout(lm_specs(cfg))
@@ -162,9 +168,9 @@ def make_train_step_bundle(
                 proto.schedule if gossiping else None, layout, optimizer,
                 alpha=gossip_alpha if gossiping else 0.0, wire=proto.wire)
     loss_fn = make_loss_fn(cfg)
-    # gossip rotates the sample shards around the replica ring (§4.5.2)
-    shuffle = (make_ring_shuffle()
-               if protocol in ("gossip", "gossip_async") and dp > 1 else None)
+    if rotate_samples is None:
+        rotate_samples = protocol in ("gossip", "gossip_async")
+    shuffle = make_ring_shuffle() if rotate_samples and dp > 1 else None
 
     def train_step(state, batch, phase: int):
         params, inbox = state["params"], state.get("inbox")
@@ -183,6 +189,8 @@ def make_train_step_bundle(
                                                state["opt"], phase)
             elif fused_eng is not None:
                 params, opt = fused_eng(params, grads, state["opt"], phase)
+                if proto.name == "every_logp":
+                    params = proto.comm_params(params, phase)
             else:
                 params, opt = optimizer.update(params, grads, state["opt"])
                 if not ring:

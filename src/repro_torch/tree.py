@@ -4,13 +4,14 @@ No module of the reference holds these: it uses ``jax.tree_util``. The port
 keeps parameters as plain nested dicts and lists of tensors, and flattens
 them in JAX's order (dict keys sorted, lists and tuples in order, ``None``
 an empty subtree) so that ``core.buckets.build_layout`` sees the leaves in
-the reference's order and builds the same slot table.
+the reference's order and builds the same slot table. ``keystr`` names a
+leaf's path as ``jax.tree_util.keystr`` does, the checkpoint's key.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, Sequence, Tuple
 
-__all__ = ["TreeDef", "tree_flatten", "tree_map", "tree_paths"]
+__all__ = ["TreeDef", "tree_flatten", "tree_map", "tree_paths", "keystr"]
 
 _LEAF = "*"
 
@@ -125,3 +126,9 @@ def tree_map(fn: Callable, tree, *rest):
     leaves, td = tree_flatten(tree)
     others = [td.flatten_up_to(r) for r in rest]
     return td.unflatten([fn(*xs) for xs in zip(leaves, *others)])
+
+
+def keystr(path: Sequence[Any]) -> str:
+    """``jax.tree_util.keystr`` of a key path: ``['name']`` for a dict key,
+    ``[i]`` for a list or tuple index (both are the key's ``repr``)."""
+    return "".join(f"[{k!r}]" for k in path)

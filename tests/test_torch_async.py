@@ -106,13 +106,14 @@ def _ring_t(ring):
 
 
 def _payload_equal(got, want, sent: bool):
-    """The newest ring slot: a sent payload bit-equal to the reference's;
-    an unsent one is None in the port and zeros in the reference."""
+    """The newest ring slot: a payload bit-equal to the reference's, in
+    shape and dtype too; an unsent one is the zero payload in both."""
     if not sent:
-        assert got is None
         for v in jax.tree.leaves(want):
             assert not np.asarray(jnp.asarray(v).astype(jnp.float32)).any()
-        return
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert tuple(g.shape) == tuple(np.shape(w))
+        assert str(g.dtype).rsplit(".", 1)[-1] == str(w.dtype)
     if isinstance(want, dict):
         np.testing.assert_array_equal(_f32(got["q"]), _f32(want["q"]))
         np.testing.assert_array_equal(_f32(got["s"]), _f32(want["s"]))
@@ -276,7 +277,7 @@ def test_protocol_async_period_and_refusals():
     with pytest.raises(ValueError, match="inbox"):
         p.comm_params(None, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        make_protocol("agd", DP, packed_layout=layout)
+        make_protocol("gossip_async", DP)   # the per-leaf engine
 
 
 # ------------------------------------------------------- the slice as a whole
@@ -444,5 +445,5 @@ def test_launcher_runs_gossip_async_wire(capsys):
           "--gossip-subset", "0.5", "--no-fused-update"])
     out = capsys.readouterr().out
     assert '"staleness": 2' in out and '"fused": false' in out
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        main(["--smoke", "--packed", "--checkpoint", "x", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+        main(["--smoke", "--packed", "--multi-pod", "--device", "cpu"])

@@ -12,6 +12,9 @@ included), ``flash_attention`` against its plain version (dense
 the reference's fp32 tolerance (2e-5) and, in bf16, within one bf16 ulp of the
 plain output plus 2e-5 (the final cast splits an fp32 gap below 2e-5);
 refused launches raise, and so does a call that autograd would record.
+Beside the kernels: the replica mean of ``agd`` and ``every_logp`` equals
+the CPU's bit for bit, and a state trained and saved on the card restores
+on the CPU bit for bit.
 
 Marked ``cuda``; they skip on a machine without a card. This file imports
 neither JAX nor the reference, so on a machine with a card and no JAX it
@@ -589,3 +592,93 @@ def test_forward_only_kernels_refuse_grad(cuda_device):
     torch.cuda.synchronize()
     assert (flash_mod.launches.count, ssm_launches.count) == (before[0] + 1,
                                                               before[1] + 1)
+
+
+# ------------------------------------------------ the replica mean, ckpts
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dp", [3, 4])
+def test_replica_mean_on_card_matches_cpu(cuda_device, dtype, dp):
+    """agd's and every_logp's mean: fp32 sums and the product with the
+    fp32 reciprocal of dp give the CPU's bits on the card."""
+    from repro_torch.core import PackedParams, build_layout
+    from repro_torch.core.protocols import _replica_mean
+    gen = torch.Generator().manual_seed(dp)
+    layout = build_layout({"a": torch.zeros(128 * 1000 + 3),
+                           "b": torch.zeros(384)})
+    cpu = PackedParams([(torch.randn((dp, n), generator=gen)
+                         * 10.0 ** torch.randint(-3, 4, (dp, n),
+                                                 generator=gen)).to(dtype)
+                        for n in layout.bucket_sizes], layout)
+    card = PackedParams([b.to(cuda_device) for b in cpu.buckets], layout)
+    _replica_mean(cpu)
+    _replica_mean(card)
+    torch.cuda.synchronize()
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for c, g in zip(cpu.buckets, card.buckets):
+        assert torch.equal(g.cpu().view(ints), c.view(ints))
+        assert torch.equal(c, c[:1].expand_as(c))
+
+
+@pytest.mark.cuda
+def test_card_checkpoint_restores_on_cpu(cuda_device, tmp_path):
+    """A small model's gossip_async int8 state, trained two steps on the
+    card (through the kernels), saved there and restored into a CPU
+    template: every tensor, ``step`` and ``t`` bit for bit."""
+    import dataclasses
+
+    from repro_torch.checkpoint import restore_state, save_state
+    from repro_torch.configs import get_config
+    from repro_torch.core import PackedParams
+    from repro_torch.data import ShardedTokenDataset
+    from repro_torch.models import reduced
+    from repro_torch.optim import sgd
+    from repro_torch.train import (Trainer, init_train_state,
+                                   make_train_step_bundle)
+    cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b"), d_model=64),
+                              param_dtype="bfloat16", compute_dtype="float32")
+    opt = sgd(0.1, momentum=0.9)
+    proto = dict(protocol="gossip_async", staleness=2, wire_dtype="int8",
+                 gossip_subset=0.5)
+
+    def state_on(dev, seed):
+        b = make_train_step_bundle(cfg, opt, dp=4, gossip_packed=True,
+                                   device=dev, **proto)
+        return b, init_train_state(cfg, opt, dp=4, packed=True,
+                                   layout=b.layout, seed=seed, device=dev,
+                                   inbox=b.protocol.staleness, wire=b.wire)
+
+    bundle, state = state_on(cuda_device, 0)
+    before = fused_update.scaled_launches.count
+    tr = Trainer(bundle, state, ShardedTokenDataset(
+        cfg.vocab, 16, n_shards=4, batch_per_shard=2), log_every=0)
+    tr.run(2)
+    torch.cuda.synchronize()
+    assert fused_update.scaled_launches.count > before
+    save_state(str(tmp_path), tr.state, step=2)
+    rest, man = restore_state(str(tmp_path), state_on("cpu", 1)[1])
+    assert man["step"] == 2 and rest["opt"]["step"] == 2
+    assert rest["inbox"]["t"] == tr.state["inbox"]["t"] == 2
+    assert (rest["inbox"]["valid"] == tr.state["inbox"]["valid"]).all()
+
+    def tensors(node):
+        if isinstance(node, PackedParams):
+            yield from node.buckets
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                yield from tensors(node[k])
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                yield from tensors(v)
+        elif isinstance(node, torch.Tensor):
+            yield node
+
+    got, want = list(tensors(rest)), list(tensors(tr.state))
+    assert len(got) == len(want)
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu" and g.dtype == w.dtype
+        w = w.cpu()
+        assert torch.equal(g.view(ints[g.element_size()]),
+                           w.view(ints[w.element_size()]))
