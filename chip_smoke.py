@@ -106,6 +106,28 @@ package ``repro``. Phases, each of which fails the run on any error:
     the plain loop; a reduced fp32 falcon-mamba's logits on the card agree
     with the CPU's within rtol = atol = 2e-4.
 
+12. The per-leaf engines, the launcher's default path: ``[leaf_main]``
+    main's model (28 layers, 4 replicas, bf16, seq 256, 2 sequences a
+    replica, sgd on step_decay) on the per-leaf sync ``gossip`` engine as
+    the launcher runs it (the mix op by op in bf16, no hand kernel: 0
+    launches), 8 steps, timed and profiled like ``[main]``;
+    ``[leaf_kernel]`` the same run with ``mix_impl=gossip_mix_1d`` (8 x 13
+    leaves launches), then its params against ``[leaf_main]``'s, bit for
+    bit (the kernel mixes in fp32 and rounds once; in bf16 the two differ
+    only where a product of the mix rounds, which at alpha 0.5 none does);
+    ``[leaf_mix_check]`` ``gossip_mix_1d`` on each of the 13 full-width
+    leaves against its plain version and the default per-leaf mix on the
+    same inputs, bit for bit; ``[leaf_async]`` per-leaf ``gossip_async``
+    (staleness 2, drop 0.2), profiled. ``[leaf_agree]``: at ``[agree]``'s
+    size, per-leaf with the mix kernel against packed
+    ``fused_update=False`` on the card, bit for bit. ``[sim_agree]``: the port's own
+    oracle ``core.simulate`` on the card, ``make_sim_train_step`` against
+    the per-leaf and packed unfused gossip, agd, every_logp and none
+    engines and ``make_async_sim_train_step`` (k 2, drop 0.2) against the
+    per-leaf and packed unfused async engines, bit for bit; the int8 wire
+    at subset 0.5, the packed async engine against
+    ``gossip_mix_sim_quantized_k`` step by step, bit for bit.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -1057,16 +1079,18 @@ def make_optimizer(name: str, steps: int, lr: float):
 
 def _train(cfg, *, fused, steps, dev, params=None, dp=DP, seq=SEQ,
            per_replica=PER_REPLICA, protocol="gossip", optimizer="sgd",
-           lr=None, **wire):
+           lr=None, packed=True, **wire):
+    """A bundle and its Trainer; ``packed=False`` runs the per-leaf engines
+    (``wire`` may then carry ``mix_impl``)."""
     from repro_torch.data import ShardedTokenDataset
     from repro_torch.train import (Trainer, init_train_state,
                                    make_train_step_bundle)
     opt = make_optimizer(optimizer, steps,
                          FULL_LR[optimizer] if lr is None else lr)
     bundle = make_train_step_bundle(cfg, opt, dp=dp, protocol=protocol,
-                                    gossip_packed=True, fused_update=fused,
+                                    gossip_packed=packed, fused_update=fused,
                                     device=dev, **wire)
-    state = init_train_state(cfg, opt, dp=dp, packed=True,
+    state = init_train_state(cfg, opt, dp=dp, packed=packed,
                              layout=bundle.layout, seed=0, params=params,
                              device=dev, inbox=bundle.protocol.staleness,
                              wire=bundle.wire)
@@ -1098,9 +1122,25 @@ def _counts():
     return {k: c.count for k, c in _counters().items()}
 
 
+def _leaf_view(params):
+    """Every param as a leaf tensor: a tree's leaves, or packed buckets
+    through their ``unpack()`` views."""
+    from repro_torch.core import PackedParams
+    from repro_torch.tree import tree_flatten
+    if isinstance(params, PackedParams):
+        params = params.unpack()
+    return [x.detach() for x in tree_flatten(params)[0]]
+
+
 def _finite_buckets(trainer) -> bool:
     return all(bool(torch.isfinite(b).all()) for b in
-               trainer.state["params"].buckets)
+               _leaf_view(trainer.state["params"]))
+
+
+def _num_leaves(cfg) -> int:
+    from repro_torch.models import lm_specs
+    from repro_torch.tree import tree_flatten
+    return len(tree_flatten(lm_specs(cfg))[0])
 
 
 def consumed(bundle, steps: int, start: int = 0) -> int:
@@ -1117,12 +1157,16 @@ def consumed(bundle, steps: int, start: int = 0) -> int:
 
 
 def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
-             **proto):
+             keep_params=False, **proto):
     """Drive one path through Trainer with the launch counts reset just
     before and read just after; ``expect(bundle)`` gives the counts it
     must show. Returns the path's record (its counts under
-    ``"launches"``)."""
+    ``"launches"``; with ``keep_params`` a copy of the params after the
+    counted steps under ``"params"``)."""
     bundle, tr = _train(cfg, fused=fused, steps=steps, dev=dev, **proto)
+    impl = proto.pop("mix_impl", None)
+    if impl is not None:
+        proto["mix_impl"] = impl.__name__
     assert bundle.fused == fused
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1141,7 +1185,9 @@ def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
            "seq": SEQ, "per_replica": PER_REPLICA, "fused": fused,
            "optimizer": "sgd", **proto,
            "period": bundle.protocol.period,
-           "num_buckets": bundle.layout.num_buckets, "losses": losses,
+           "num_buckets": (bundle.layout.num_buckets if bundle.layout
+                           is not None else None),
+           "num_leaves": _num_leaves(cfg), "losses": losses,
            "first_step_ms": (t1 - t0) * 1e3,
            "ms_per_step": (t2 - t1) * 1e3 / (steps - 1),
            "tokens_per_s": DP * PER_REPLICA * SEQ * (steps - 1) / (t2 - t1),
@@ -1152,10 +1198,14 @@ def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
     assert abs(losses[0] - math.log(cfg.vocab)) <= 1.0, losses[0]
     assert counts == want, (counts, want)
     assert _finite_buckets(tr), "non-finite parameters"
+    kept = ([x.clone() for x in _leaf_view(tr.state["params"])]
+            if keep_params else None)
     if profile:
         res["profile"] = profile_step(name, tr)
     del tr, bundle
     torch.cuda.empty_cache()
+    if kept is not None:
+        res["params"] = kept
     return res
 
 
@@ -1499,6 +1549,236 @@ def phase_agree(dev):
              "elements": total}))
 
 
+def _small_cfg():
+    """[agree]'s reduced fp32 qwen3-0.6b (2 layers, d 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+    return dataclasses.replace(reduced(get_config("qwen3-0.6b"), d_model=64),
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def phase_leaf_kernel_gap(main_res, kernel_res):
+    """[leaf_kernel] against [leaf_main] after the same 8 steps: the
+    kernel mixes in fp32 and rounds once, the default mix rounds each bf16
+    op, so the two part where a product rounds; at alpha 0.5 both products
+    are exact and the runs are deterministic (``[ckpt]``'s straight runs),
+    so every element must be equal."""
+    diff, differ, total = 0.0, 0, 0
+    for a, b in zip(kernel_res.pop("params"), main_res.pop("params")):
+        d = (a.float() - b.float()).abs()
+        diff = max(diff, float(d.max()))
+        differ += int((d > 0).sum())
+        total += d.numel()
+    rec = {"max_abs_diff_params": diff, "elements_differing": differ,
+           "elements": total, "losses_kernel": kernel_res["losses"],
+           "losses_default": main_res["losses"]}
+    log("[leaf_kernel] against [leaf_main]: " + json.dumps(rec))
+    assert differ == 0 and kernel_res["losses"] == main_res["losses"], rec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_leaf_mix_check(cfg, dev, dp=DP):
+    """``gossip_mix_1d`` on every leaf of the per-leaf path at full width
+    (the leaves of ``lm_specs(cfg)``, layers stacked, in the params' dtype,
+    ``dp`` replicas, schedule row 1) against its plain version and against
+    the default per-leaf mix on the same inputs, one leaf at a time: bit
+    for bit (alpha 0.5: both products exact, one rounding of the sum).
+    These launches are made outside the counted runs."""
+    from repro_torch.core import build_schedule, make_gossip_mix
+    from repro_torch.kernels import gossip_mix_1d, gossip_mix_plain
+    from repro_torch.models import lm_specs
+    from repro_torch.tree import tree_flatten
+    sched = build_schedule(dp)
+    default = make_gossip_mix(sched)
+    kernel = make_gossip_mix(sched, mix_impl=gossip_mix_1d)
+    rf = torch.as_tensor(np.asarray(sched.recv_from(1), np.int64),
+                         device=dev)
+    dtype = getattr(torch, cfg.param_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    err, shapes = 0.0, []
+    for spec in tree_flatten(lm_specs(cfg))[0]:
+        x = torch.randn((dp,) + tuple(spec.shape), generator=gen,
+                        device=dev).to(dtype)
+        flat = x.view(dp, -1)
+        want = gossip_mix_plain(flat, flat.index_select(0, rf), 0.5)
+        got = kernel({"w": x.clone()}, 1)["w"].view(dp, -1)
+        ref = default({"w": x.clone()}, 1)["w"].view(dp, -1)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        assert _same_bits(got, want), (spec.shape, "vs plain")
+        assert _same_bits(got, ref), (spec.shape, "vs default mix")
+        shapes.append(list(spec.shape))
+        del x, flat, want, got, ref
+    torch.cuda.empty_cache()
+    rec = {"leaves": len(shapes), "dp": dp, "dtype": cfg.param_dtype,
+           "max_abs_err": err, "bit_equal": True, "shapes": shapes}
+    log("[leaf_mix_check] gossip_mix_1d vs plain and default mix: "
+        + json.dumps(rec))
+    return rec
+
+
+def phase_leaf_agree(dev, steps=SHORT_STEPS):
+    """Per-leaf with the mix kernel under every leaf against packed
+    ``fused_update=False`` on the card, from one init at [agree]'s size:
+    the same arithmetic (fp32 mixes, the tree-level sgd), so predicted bit
+    for bit; the gap and the share of differing elements are reported."""
+    from repro_torch.kernels import gossip_mix_1d
+    from repro_torch.models import lm_init
+    cfg = _small_cfg()
+    init = lm_init(cfg, seed=0, device=dev)
+    runs = {}
+    for name, kw in (("leaf_kernel", dict(packed=False,
+                                          mix_impl=gossip_mix_1d)),
+                     ("packed_unfused", dict(packed=True))):
+        _, tr = _train(cfg, fused=False, steps=steps, dev=dev, params=init,
+                       seq=16, per_replica=2, lr=AGREE_LR["sgd"], **kw)
+        losses = [h["loss"] for h in tr.run(steps)]
+        runs[name] = (losses, _leaf_view(tr.state["params"]))
+    (la, pa), (lb, pb) = runs["leaf_kernel"], runs["packed_unfused"]
+    same = la == lb and all(_same_bits(a, b) for a, b in zip(pa, pb))
+    gap = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    rec = {"steps": steps, "bit_equal": same, "max_abs_diff_params": gap,
+           "losses_leaf": la, "losses_packed": lb}
+    log("[leaf_agree] per-leaf (gossip_mix_1d) vs packed unfused: "
+        + json.dumps(rec))
+    assert same, rec
+    return rec
+
+
+def _sim_run(cfg, dev, steps, protocol, init, **async_kw):
+    """The port's simulator (core.simulate) on the card from ``init``, fed
+    the Trainer's batches: losses per step and the final params."""
+    from repro_torch.core import build_schedule
+    from repro_torch.core import simulate as S
+    from repro_torch.core.async_gossip import init_inbox_ring
+    from repro_torch.data import ShardedTokenDataset, make_replica_batches
+    from repro_torch.train import make_loss_fn
+    opt = make_optimizer("sgd", steps, AGREE_LR["sgd"])
+    sched = build_schedule(DP)
+    params = S.replicate(init, DP)
+    st = opt.init(params)
+    ds = ShardedTokenDataset(cfg.vocab, 16, n_shards=DP, batch_per_shard=2)
+    if async_kw:
+        step = S.make_async_sim_train_step(make_loss_fn(cfg), opt, sched,
+                                           **async_kw)
+        ring = init_inbox_ring(params, async_kw["staleness"], DP)
+    else:
+        step = S.make_sim_train_step(make_loss_fn(cfg), opt, sched,
+                                     protocol=protocol)
+    losses = []
+    for t in range(steps):
+        toks = make_replica_batches(ds, t, DP)["tokens"]
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if async_kw:
+            st, params, ring, m = step(st, params, ring, batch, t)
+        else:
+            st, params, m = step(st, params, batch, t)
+        losses.append(float(m["loss"]))
+    return losses, _leaf_view(params)
+
+
+def _engine_run(cfg, dev, steps, init, **kw):
+    _, tr = _train(cfg, fused=False, steps=steps, dev=dev, params=init,
+                   seq=16, per_replica=2, lr=AGREE_LR["sgd"], **kw)
+    losses = [h["loss"] for h in tr.run(steps)]
+    return losses, _leaf_view(tr.state["params"])
+
+
+def _wire_oracle_case(dev, k=2, drop=0.2, phases=6):
+    """The packed unfused async engine on the int8 wire at subset 0.5
+    against ``gossip_mix_sim_quantized_k`` on the card, step for step from
+    one state: params, the newest slot's codes and scales, ``valid``."""
+    from repro_torch.core import (PackedParams, build_layout, build_schedule,
+                                  make_packed_async_gossip_mix)
+    from repro_torch.core import simulate as S
+    from repro_torch.core.async_gossip import (exchange_ok,
+                                               init_wire_inbox_ring)
+    from repro_torch.kernels.quantize import WireFormat
+    from repro_torch.models import lm_init
+    init = lm_init(_small_cfg(), seed=0, device=dev)
+    layout = build_layout(init, target_bucket_bytes=AGREE_BUCKET_BYTES)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    buckets = [torch.randn((DP, n), generator=gen, device=dev)
+               for n in layout.bucket_sizes]
+    wire = WireFormat("int8", 0.5, seed=3)
+    sched = build_schedule(DP)
+    mix = make_packed_async_gossip_mix(sched, layout, staleness=k,
+                                       drop_rate=drop, drop_seed=1,
+                                       wire=wire)
+    params = PackedParams([b.clone() for b in buckets], layout)
+    ring = init_wire_inbox_ring(params, k, DP, wire)
+    want, wring = [b.clone() for b in buckets], dict(ring)
+    same = True
+    for t in range(phases):
+        ok = exchange_ok(wring["t"], np.arange(DP), 1, drop)
+        want, wring = S.gossip_mix_sim_quantized_k(
+            want, wring, sched.recv_from(t), wire=wire, ok=ok)
+        params, ring = mix(params, ring, t)
+        same &= all(_same_bits(a, b) for a, b in zip(params.buckets, want))
+        for g, w in zip(ring["slots"][-1], wring["slots"][-1]):
+            g = [g["q"], g["s"]] if isinstance(g, dict) else [g]
+            w = [w["q"], w["s"]] if isinstance(w, dict) else [w]
+            same &= all(torch.equal(a, b) for a, b in zip(g, w))
+        same &= bool(np.array_equal(ring["valid"], wring["valid"]))
+    return same
+
+
+def phase_sim_agree(dev, steps=SHORT_STEPS):
+    """The port's own oracle on the card: ``make_sim_train_step`` against
+    the engines' Trainer runs (per-leaf and packed unfused gossip, agd,
+    every_logp, none) and ``make_async_sim_train_step`` (k 2, drop 0.2,
+    fp32 wire) against the per-leaf and packed unfused async engines, from
+    one init at [agree]'s size; bit for bit, as the CPU tests find them.
+    The int8 wire at subset 0.5: the packed async engine against
+    ``gossip_mix_sim_quantized_k`` step by step, bit for bit; the async
+    simulator's leaf-as-bucket wire (the reference's science twin, which
+    no engine computes) on the card against the CPU within rtol = atol =
+    2e-4."""
+    from repro_torch.models import lm_init
+    from repro_torch.tree import tree_map
+    cfg = _small_cfg()
+    init = lm_init(cfg, seed=0, device=dev)
+    async_kw = dict(staleness=2, drop_rate=0.2)
+    cases = [("gossip per-leaf", "gossip", dict(packed=False), {}),
+             ("gossip packed unfused", "gossip", dict(packed=True), {}),
+             ("agd per-leaf", "agd", dict(packed=False, protocol="agd"), {}),
+             ("every_logp per-leaf", "every_logp",
+              dict(packed=False, protocol="every_logp"), {}),
+             ("none per-leaf", "none", dict(packed=False, protocol="none"),
+              {}),
+             ("gossip_async per-leaf", None,
+              dict(packed=False, protocol="gossip_async", **async_kw),
+              async_kw),
+             ("gossip_async packed unfused", None,
+              dict(packed=True, protocol="gossip_async", **async_kw),
+              async_kw)]
+    out = {}
+    for name, proto, kw, akw in cases:
+        ls, ps = _sim_run(cfg, dev, steps, proto, init, **akw)
+        le, pe = _engine_run(cfg, dev, steps, init, **kw)
+        same = ls == le and all(_same_bits(a, b) for a, b in zip(pe, ps))
+        gap = max(float((a - b).abs().max()) for a, b in zip(pe, ps))
+        out[name] = {"bit_equal": same, "max_abs_diff_params": gap}
+    out["int8 sub0.5 packed async vs gossip_mix_sim_quantized_k"] = {
+        "bit_equal": _wire_oracle_case(dev)}
+    wire_kw = dict(async_kw, wire_dtype="int8", gossip_subset=0.5)
+    cpu_init = tree_map(lambda x: x.cpu(), init)
+    lg, pg = _sim_run(cfg, dev, steps, None, init, **wire_kw)
+    lc, pc = _sim_run(cfg, torch.device("cpu"), steps, None, cpu_init,
+                      **wire_kw)
+    close = bool(np.allclose(lg, lc, rtol=2e-4, atol=2e-4)) and all(
+        np.allclose(a.cpu().numpy(), b.numpy(), rtol=2e-4, atol=2e-4)
+        for a, b in zip(pg, pc))
+    out["async sim int8 sub0.5: card vs cpu"] = {"within_2e-4": close}
+    log("[sim_agree] " + json.dumps(out))
+    bad = [k for k, v in out.items() if not (v.get("bit_equal")
+                                              or v.get("within_2e-4"))]
+    assert not bad, bad
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1621,6 +1901,32 @@ def main() -> int:
     guard("ckpt_async", phase_ckpt, "ckpt_async", short, dev, pad_to=4,
           **ASYNC_WIRE)
     guard("agree", phase_agree, dev)
+    # the per-leaf engines (the launcher's default path), full width
+    from repro_torch.kernels import gossip_mix_1d
+    leaves = _num_leaves(cfg)
+    leaf_res = guard(
+        "leaf_main", run_path, "leaf_main", cfg, dev, fused=False,
+        steps=MAIN_STEPS, profile=True, keep_params=True, packed=False,
+        expect=lambda b: none())
+    leaf_kernel_res = guard(
+        "leaf_kernel", run_path, "leaf_kernel", cfg, dev, fused=False,
+        steps=MAIN_STEPS, keep_params=True, packed=False,
+        mix_impl=gossip_mix_1d,
+        expect=lambda b: none(gossip_mix=MAIN_STEPS * leaves))
+    if leaf_res is not None and leaf_kernel_res is not None:
+        guard("leaf_kernel_gap", phase_leaf_kernel_gap, leaf_res,
+              leaf_kernel_res)
+    for res in (leaf_res, leaf_kernel_res):
+        if res is not None:
+            res.pop("params", None)
+    torch.cuda.empty_cache()
+    leaf_mix = guard("leaf_mix_check", phase_leaf_mix_check, cfg, dev) or {}
+    guard("leaf_async", run_path, "leaf_async", cfg, dev, fused=False,
+          steps=MAIN_STEPS, profile=True, packed=False,
+          protocol="gossip_async", staleness=2, drop_rate=0.2,
+          expect=lambda b: none())
+    guard("leaf_agree", phase_leaf_agree, dev)
+    guard("sim_agree", phase_sim_agree, dev)
     unfused_res = guard(
         "unfused", run_path, "unfused", short, dev, fused=False,
         steps=SHORT_STEPS,
@@ -1675,6 +1981,15 @@ def main() -> int:
         max_abs_err_q=err["fused_adamw_q"], ms_q=q["ms"],
         ms_q_row_alpha=q["ms_row_alpha"], plain_ms_q=q["plain_ms"],
         bound_ms_q=q["bound_ms"])
+    by_name["gossip_mix"]["launches_by_path"] = {
+        "unfused": unfused_res["launches"]["gossip_mix"],
+        "leaf_kernel": leaf_kernel_res["launches"]["gossip_mix"]}
+    by_name["gossip_mix"]["launches"] = sum(
+        by_name["gossip_mix"]["launches_by_path"].values())
+    by_name["gossip_mix"]["max_abs_err_leaves"] = leaf_mix["max_abs_err"]
+    by_name["gossip_mix"]["path"] += (
+        f"; leaf_kernel (per-leaf sync gossip, mix_impl=gossip_mix_1d, "
+        f"{MAIN_STEPS} steps x {leaves} leaves)")
     by_name["fused_sgd"]["launches_by_path"] = {
         "main": main_res["launches"]["fused_sgd"],
         "agd_main": agd_res["launches"]["fused_sgd"],

@@ -17,10 +17,13 @@ by. The port keeps ``opt["step"]`` and the ring's ``t`` as host ints where
 the reference keeps 0-d int32 arrays: they are written as 0-d int32 and
 restored as ints.
 
-``PackedParams`` nodes (the params, the optimizer's moments and, under the
-fp32 full-participation wire, the inbox ring's slots) are written through
-their leaf view: every bucket is pulled to the host first and unpacked
-there as views, so no second copy exists on the device. Restore re-packs
+A per-leaf state (the params, the moments and the ring's slots as trees
+of tensors) is written leaf by leaf; ``PackedParams`` nodes (the params,
+the optimizer's moments and, under the fp32 full-participation wire, the
+inbox ring's slots) are written through their leaf view, so a packed and
+a per-leaf state of the same model write the same keys and either
+restores into the other's template. Every bucket is pulled to the host
+first and unpacked there as views, so no second copy exists on the device. Restore re-packs
 into the template's layout, on the template's device, and a bucket the
 template holds as an autograd leaf is one again (the engines update in
 place). A compressed wire's ring slots are per-bucket payloads (a bucket
@@ -46,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.buckets import PackedParams, dtype_name, torch_dtype
-from repro_torch.tree import keystr
+from repro_torch.tree import keystr, tree_map
 
 __all__ = ["save_state", "restore_state", "checkpoint_exists",
            "read_manifest"]
@@ -207,6 +210,8 @@ def _ckpt_ring_depth(names) -> Optional[Tuple[int, bool]]:
 def _copy_slot(slot):
     if isinstance(slot, PackedParams):
         return PackedParams([b.clone() for b in slot.buckets], slot.layout)
+    if isinstance(slot, dict):   # a per-leaf slot: a param tree
+        return tree_map(lambda x: x.clone(), slot)
     return [{k: v.clone() for k, v in p.items()} if isinstance(p, dict)
             else p.clone() for p in slot]
 

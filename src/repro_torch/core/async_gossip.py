@@ -3,10 +3,15 @@
 
 Port of ``repro/core/async_gossip.py`` (``exchange_ok``,
 ``init_inbox_ring``, ``init_wire_inbox_ring``, ``_ring_advance``,
-``make_packed_async_gossip_mix``, ``make_packed_fused_async_update``) on
-replicas stacked on one device. The ring entering step t (k = staleness):
+``make_async_gossip_mix``, ``make_packed_async_gossip_mix``,
+``make_packed_fused_async_update``) on replicas stacked on one device, or
+one per process of a ``core.replica_group.ReplicaGroup``, passed as
+``group`` when an engine is built (the exchange and the drop flags then
+run per rank, and ``valid`` has one row). The ring
+entering step t (k = staleness):
 
     slots[0..k-1]   payloads dispatched at steps t-k .. t-1, oldest first:
+                    per-leaf, a param tree of exchanged leaves; packed,
                     under the fp32 full-participation wire a
                     ``PackedParams`` of exchanged buckets (the reference's
                     slot, which checkpoints through the leaf view); under
@@ -18,8 +23,11 @@ replicas stacked on one device. The ring entering step t (k = staleness):
     t               dispatch counter, a host int
 
 One step: the masked alpha ``a_eff = alpha * valid[:, 0]`` is one value per
-replica row (the reference has one scalar per device), uploaded as a (dp,)
-tensor that the kernels read on the device; the oldest slot is mixed in
+replica row, uploaded as a (dp,) tensor that the kernels read on the
+device. The reference hands ``mix_impl`` one scalar, ``a.reshape(-1)[0]``,
+because each of its devices holds one replica; on stacked replicas every
+row keeps its own value, so a drop on any replica skips that replica
+alone. The oldest slot is mixed in
 (skip-on-timeout: a dropped exchange mixes at alpha 0); the step's payload
 is exchanged with schedule row ``phase`` and appended with its landed flags
 ``exchange_ok(t, j)`` for each receiving row j. ``valid`` and ``t`` are
@@ -36,7 +44,7 @@ in-place sweep, as the sync fused engine's exchange does.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,16 +53,18 @@ from repro_torch.kernels.ops import gossip_mix_bucket
 from repro_torch.kernels.quantize import (WireFormat, _mix32_np, _u32,
                                           unsent_payload_like,
                                           zero_payload_like)
+from repro_torch.tree import tree_flatten, tree_map
 
 from .buckets import BucketLayout, PackedParams
-from .gossip import (_check_dp, _RecvTables, encode_bucket, exchange,
-                     packed_fused_local_update, send_masks, wire_period,
-                     wire_subset_of)
+from .replica_group import ReplicaGroup
+from .gossip import (_MODES, _check_dp, _mix_leaf, _phase, _RecvTables,
+                     encode_bucket, exchange, packed_fused_local_update,
+                     replica_ranks, send_masks, wire_period, wire_subset_of)
 from .topology import GossipSchedule
 
 __all__ = ["exchange_ok", "init_inbox_ring", "init_wire_inbox_ring",
-           "ring_advance", "masked_alpha", "make_packed_async_gossip_mix",
-           "make_packed_fused_async_update"]
+           "ring_advance", "masked_alpha", "make_async_gossip_mix",
+           "make_packed_async_gossip_mix", "make_packed_fused_async_update"]
 
 
 def exchange_ok(t, rank, seed: int = 0, rate: float = 0.0) -> np.ndarray:
@@ -78,12 +88,19 @@ def _ring(slots: List[List], dp: int) -> Dict:
             "valid": np.zeros((max(dp, 1), len(slots)), np.float32), "t": 0}
 
 
-def init_inbox_ring(params: PackedParams, staleness: int, dp: int) -> Dict:
-    """Fresh-run ring: k ``PackedParams`` slots of bucket copies (copies:
-    the engines update the live buckets in place), all invalid, counter 0."""
-    return _ring([PackedParams([b.detach().clone() for b in params.buckets],
-                               params.layout)
-                  for _ in range(int(staleness))], dp)
+def init_inbox_ring(params, staleness: int, dp: int) -> Dict:
+    """Fresh-run ring: k slots of copies of ``params`` (copies: the engines
+    update the live tensors in place), ``PackedParams`` of bucket copies
+    for packed params and trees of leaf copies for a param tree; all
+    invalid, counter 0. ``dp`` is the replica rows this process holds."""
+    if isinstance(params, PackedParams):
+        def copy():
+            return PackedParams([b.detach().clone() for b in params.buckets],
+                                params.layout)
+    else:
+        def copy():
+            return tree_map(lambda x: x.detach().clone(), params)
+    return _ring([copy() for _ in range(int(staleness))], dp)
 
 
 def init_wire_inbox_ring(params: PackedParams, staleness: int, dp: int,
@@ -119,7 +136,7 @@ class _Ring:
     receive tables and the drop injection."""
 
     def __init__(self, schedule, layout, *, staleness, drop_rate, drop_seed,
-                 wire):
+                 wire, group):
         if staleness < 1:
             raise ValueError(f"gossip_async needs staleness >= 1, "
                              f"got {staleness}")
@@ -128,7 +145,8 @@ class _Ring:
         self.wire = wire
         self.subset = wire_subset_of(self.wire, layout.num_buckets)
         self.period = wire_period(schedule, self.subset)
-        self.recv = _RecvTables(schedule)
+        self.group = group
+        self.recv = _RecvTables(schedule, group)
 
     def masks(self, phase: int):
         """(consumed, sent) bucket masks at ``phase``: the slot consumed now
@@ -142,10 +160,12 @@ class _Ring:
         does not send it."""
         if not sent[i]:
             return unsent_payload_like(bucket, self.wire.dtype)
-        return exchange(encode_bucket(self.wire, bucket, t, i), rf)
+        return exchange(encode_bucket(self.wire, bucket, t, i, self.group),
+                        rf, self.group)
 
-    def ok(self, t, dp) -> np.ndarray:
-        return exchange_ok(t, np.arange(dp), self.drop_seed, self.drop_rate)
+    def ok(self, t, rows) -> np.ndarray:
+        return exchange_ok(t, replica_ranks(rows, self.group),
+                           self.drop_seed, self.drop_rate)
 
     def slot(self, payload: List):
         """The ring slot of one dispatch: a ``PackedParams`` under the fp32
@@ -155,20 +175,62 @@ class _Ring:
         return payload
 
 
+def make_async_gossip_mix(schedule: GossipSchedule, *, alpha: float = 0.5,
+                          staleness: int = 1, drop_rate: float = 0.0,
+                          drop_seed: int = 0, mode: str = "static",
+                          mix_impl: Callable | None = None,
+                          group: Optional[ReplicaGroup] = None) -> Callable:
+    """``mix(params, ring, phase) -> (params, ring)``, the per-leaf engine,
+    in place on the leaves: mix every leaf with the oldest slot's leaf at
+    the masked alpha (one value per replica row; ``mix_impl(a, b, alpha)``
+    gets that (rows,) tensor, the leaf viewed as ``(rows, -1)``), then
+    exchange the mixed leaves with schedule row ``phase`` and append them
+    with their landed flags. ``mode`` and ``group`` as in
+    ``make_gossip_mix``."""
+    if staleness < 1:
+        raise ValueError(f"gossip_async needs staleness >= 1, got {staleness}")
+    if mode not in _MODES:
+        raise ValueError(f"unknown gossip mode {mode!r}")
+    k = int(staleness)
+    recv = _RecvTables(schedule, group)
+
+    def mix(params, ring: Dict, phase):
+        if len(ring["slots"]) != k:
+            raise ValueError(f"ring carries {len(ring['slots'])} slots but "
+                             f"the engine was built for staleness {k}")
+        ph = _phase(phase, mode) % schedule.period
+        _check_dp(schedule, params, group)
+        leaves, td = tree_flatten(params)
+        dev, rows = leaves[0].device, leaves[0].shape[0]
+        rf = recv(ph, dev)
+        a = masked_alpha(alpha, ring["valid"], dev)
+        payload = []
+        for x, b in zip(leaves, td.flatten_up_to(ring["slots"][0])):
+            _mix_leaf(x, b, a, mix_impl)
+            payload.append(exchange(x, rf, group))
+        ok = exchange_ok(ring["t"], replica_ranks(rows, group), drop_seed,
+                         drop_rate)
+        return params, ring_advance(ring, td.unflatten(payload), ok)
+
+    return mix
+
+
 def make_packed_async_gossip_mix(schedule: GossipSchedule,
                                  layout: BucketLayout, *, alpha: float = 0.5,
                                  staleness: int = 1, drop_rate: float = 0.0,
                                  drop_seed: int = 0,
-                                 wire: WireFormat = WireFormat()) -> Callable:
+                                 wire: WireFormat = WireFormat(),
+                                 group: Optional[ReplicaGroup] = None
+                                 ) -> Callable:
     """``mix(params, ring, phase) -> (params, ring)``, in place on the
     buckets: mix the oldest slot in (masked alpha, consumed buckets only),
     then dispatch the mixed buckets, encoded for the wire, with schedule row
     ``phase``."""
     st = _Ring(schedule, layout, staleness=staleness, drop_rate=drop_rate,
-               drop_seed=drop_seed, wire=wire)
+               drop_seed=drop_seed, wire=wire, group=group)
 
     def mix(params: PackedParams, ring: Dict, phase: int):
-        _check_dp(schedule, params)
+        _check_dp(schedule, params, group)
         dev = params.buckets[0].device
         ph = int(phase) % st.period
         rf = st.recv(ph, dev)
@@ -190,18 +252,20 @@ def make_packed_fused_async_update(schedule: GossipSchedule,
                                    layout: BucketLayout, optimizer, *,
                                    alpha: float = 0.5, staleness: int = 1,
                                    drop_rate: float = 0.0, drop_seed: int = 0,
-                                   wire: WireFormat = WireFormat()) -> Callable:
+                                   wire: WireFormat = WireFormat(),
+                                   group: Optional[ReplicaGroup] = None
+                                   ) -> Callable:
     """``update(params, grads, ring, opt_state, phase) -> (params,
     opt_state, ring)``: per bucket, dispatch the RAW pre-update bucket
     encoded for the wire, then one fused mix+update sweep (the optimizer's
     ``fused_update``) against the oldest slot's payload at the masked alpha
     (the pure local update for a bucket outside the consumed subset)."""
     st = _Ring(schedule, layout, staleness=staleness, drop_rate=drop_rate,
-               drop_seed=drop_seed, wire=wire)
+               drop_seed=drop_seed, wire=wire, group=group)
     local = packed_fused_local_update(layout, optimizer, alpha=alpha)
 
     def update(params, grads, ring, opt_state, phase):
-        _check_dp(schedule, params)
+        _check_dp(schedule, params, group)
         dev = params.buckets[0].device
         ph = int(phase) % st.period
         rf = st.recv(ph, dev)

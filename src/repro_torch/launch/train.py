@@ -1,23 +1,29 @@
 """Training launcher CLI (port of ``repro/launch/train.py``).
 
 Takes the reference's flags plus ``--device {cuda,cpu}`` (default cuda).
-The replicas live stacked on one device: ``--smoke-mesh 1,DP,1`` runs DP
-replicas there, and ``POD > 1`` or ``MODEL > 1`` raise. The model follows
-the reference's rule (``src/repro/launch/train.py:104``): it trains the
-reduced fp32 variant of ``--arch`` (``--d-model`` wide) under ``--smoke``
-or whenever the process sees one device. The port's replicas always share
-one device, so the launcher always reduces the model, ``--smoke`` or not
-(``model_config``). ``--protocol
-gossip_async`` takes ``--staleness``, ``--drop-timeout`` and
+Without ``--packed`` it runs the per-leaf engine, the reference's default;
+``--packed`` runs the bucketed engines (fused by default). The model
+follows the reference's rule (``src/repro/launch/train.py:104``): it
+trains the reduced fp32 variant of ``--arch`` (``--d-model`` wide) under
+``--smoke`` or whenever the process sees one device, so the port's
+launcher always reduces the model, ``--smoke`` or not (``model_config``).
+``--protocol gossip_async`` takes ``--staleness``, ``--drop-timeout`` and
 ``--drop-seed``; both gossip protocols take ``--wire-dtype``,
-``--gossip-subset`` and ``--wire-seed``. Flags of parts not ported yet
-(checkpoints, multi-pod meshes, the per-leaf engine) raise
-``NotImplementedError`` naming their ROADMAP item.
+``--gossip-subset`` and ``--wire-seed`` (a compressed wire needs
+``--packed``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train \\
-        --smoke --packed --smoke-mesh 1,4,1 --steps 8 --device cpu \\
-        --protocol gossip_async --staleness 2 --drop-timeout 0.2 \\
-        --wire-dtype int8 --gossip-subset 0.5
+``--smoke-mesh 1,DP,1`` runs DP replicas: stacked on the one device, or,
+when ``WORLD_SIZE`` > 1 (``torchrun``), one replica per process over
+``torch.distributed`` (gloo with ``--device cpu``, NCCL on
+``cuda:LOCAL_RANK``), DP equal to the world size; only rank 0 prints.
+``POD > 1``, ``MODEL > 1`` and ``--multi-pod`` raise
+``NotImplementedError`` naming their ROADMAP item, and so does
+``--checkpoint`` with one process per rank.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from repro_torch.checkpoint import (checkpoint_exists, read_manifest,
                                     restore_state, save_state)
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import ShardedTokenDataset
+from repro_torch.launch.mesh import (destroy_replica_group,
+                                     init_replica_group, world_from_env)
 from repro_torch.models import reduced
 from repro_torch.optim import scale_lr_sqrt_p, sgd, step_decay
 from repro_torch.train import Trainer, init_train_state, make_train_step_bundle
@@ -67,8 +75,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "anyway: its replicas share one device, and the "
                     "reference reduces on one device)")
     ap.add_argument("--smoke-mesh", default="1,1,1", metavar="POD,DATA,MODEL",
-                    help="DATA replicas stacked on the one device; POD and "
-                    "MODEL must be 1 in this slice")
+                    help="DATA replicas, stacked on the one device or one "
+                    "per process under torchrun; POD and MODEL must be 1 "
+                    "in this slice")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--checkpoint", default=None)
@@ -110,7 +119,26 @@ def main(argv=None) -> None:
     if pod > 1 or model > 1:
         raise NotImplementedError(
             "pod > 1 and model > 1 need multi-device meshes (ROADMAP A.12); "
-            "this slice stacks DATA replicas on one device")
+            "this slice runs DATA replicas only")
+    world = world_from_env()
+    if world > 1:
+        if world != dp:
+            raise ValueError(f"--smoke-mesh gives {dp} replicas but "
+                             f"WORLD_SIZE is {world}")
+        if args.checkpoint:
+            raise NotImplementedError(
+                "checkpoints of one process per rank are not ported yet "
+                "(ROADMAP A.1)")
+        group = init_replica_group(args.device)
+        try:
+            _run(args, dp, group.device, group.rank == 0, group)
+        finally:
+            destroy_replica_group()
+    else:
+        _run(args, dp, args.device, True)
+
+
+def _run(args, dp: int, device, report: bool, group=None) -> None:
     cfg = model_config(args)
     opt = sgd(lr_schedule(args, dp), momentum=0.9)
     bundle = make_train_step_bundle(
@@ -119,11 +147,11 @@ def main(argv=None) -> None:
         staleness=args.staleness, drop_rate=args.drop_timeout,
         drop_seed=args.drop_seed, wire_dtype=args.wire_dtype,
         gossip_subset=args.gossip_subset, wire_seed=args.wire_seed,
-        fused_update=args.fused_update, device=args.device)
+        fused_update=args.fused_update, device=device, group=group)
     state = init_train_state(cfg, opt, dp=dp, packed=args.packed,
-                             layout=bundle.layout, seed=0, device=args.device,
+                             layout=bundle.layout, seed=0, device=device,
                              inbox=bundle.protocol.staleness,
-                             wire=bundle.wire)
+                             wire=bundle.wire, group=group)
     period = bundle.protocol.period
     start_step = 0
     if args.resume and args.checkpoint and checkpoint_exists(args.checkpoint):
@@ -138,16 +166,18 @@ def main(argv=None) -> None:
               f"(phase {start_step % period})")
     ds = ShardedTokenDataset(cfg.vocab, args.seq_len, n_shards=dp,
                              batch_per_shard=args.global_batch // dp)
-    trainer = Trainer(bundle, state, ds, log_every=args.log_every)
+    trainer = Trainer(bundle, state, ds,
+                      log_every=args.log_every if report else 0)
     hist = trainer.run(args.steps, start_step=start_step)
-    print(json.dumps({"arch": cfg.name, "protocol": args.protocol,
-                      "fused": bundle.fused, "dp": dp,
-                      "staleness": bundle.protocol.staleness,
-                      "wire_dtype": args.wire_dtype,
-                      "gossip_subset": args.gossip_subset,
-                      "final_loss": hist[-1]["loss"],
-                      "first_loss": hist[0]["loss"],
-                      "start_step": start_step}))
+    if report:
+        print(json.dumps({"arch": cfg.name, "protocol": args.protocol,
+                          "packed": args.packed, "fused": bundle.fused,
+                          "dp": dp, "staleness": bundle.protocol.staleness,
+                          "wire_dtype": args.wire_dtype,
+                          "gossip_subset": args.gossip_subset,
+                          "final_loss": hist[-1]["loss"],
+                          "first_loss": hist[0]["loss"],
+                          "start_step": start_step}))
     if args.checkpoint:
         end_step = start_step + args.steps
         save_state(args.checkpoint, trainer.state,

@@ -2,8 +2,9 @@
 backends.
 
 Port of ``repro/optim/optimizers.py`` (``Optimizer``, ``sgd``, ``adamw``,
-``lars``, ``_lars_row_scale``). States mirror the param layout: for packed
-params every moment is a ``PackedParams`` of zero buckets. sgd's momentum
+``lars``, ``_lars_row_scale``). States mirror the params: for packed params
+every moment is a ``PackedParams`` of zero buckets, for a param tree (the
+per-leaf engines) a tree of zero leaves. sgd's momentum
 keeps the params' dtype (as ``zeros_like`` gives it in the reference), so a
 bf16 bucket keeps a bf16 momentum; adamw's ``m``, ``v`` and lars's ``mom``
 are fp32 whatever the bucket dtype.
@@ -12,8 +13,9 @@ Both paths update in place (the reference returns new arrays and donates
 the old ones):
 
 * ``update`` is the tree-level rule in the reference's dtypes and op order:
-  sgd and adamw bucket by bucket (they are elementwise), lars leaf by leaf
-  through the ``PackedParams.unpack()`` views;
+  sgd and adamw bucket by bucket or leaf by leaf (they are elementwise),
+  lars leaf by leaf, through the ``PackedParams.unpack()`` views when
+  packed;
 * ``fused_update`` is one single-sweep kernel per bucket
   (``kernels.ops.fused_{sgd,adamw,lars}_bucket``), all arithmetic in fp32
   before the stores. Its partner is a bucket-shaped tensor or a quantized
@@ -44,7 +46,7 @@ from repro_torch.kernels.fused_update import (_adamw_math, _mix_f32,
 from repro_torch.kernels.ops import (fused_adamw_bucket, fused_lars_bucket,
                                      fused_sgd_bucket)
 from repro_torch.kernels.quantize import dequant_flat
-from repro_torch.tree import tree_flatten
+from repro_torch.tree import tree_flatten, tree_map
 
 from .schedules import Schedule, constant
 
@@ -64,22 +66,28 @@ class Optimizer:
     fused_update: Callable | None = None
 
 
-def _buckets(x):
-    if not isinstance(x, PackedParams):
-        raise NotImplementedError(
-            "the port's optimizers run on packed params only; the per-leaf "
-            "engine is not ported yet (ROADMAP A.7)")
-    return x.buckets
+def _parts(x):
+    """The tensors an elementwise rule sweeps: the buckets of a
+    ``PackedParams``, the leaves of a tree."""
+    if isinstance(x, PackedParams):
+        return x.buckets
+    return tree_flatten(x)[0]
+
+
+def _like(params, fn):
+    """A state mirroring ``params``: ``fn`` of every bucket or leaf."""
+    if isinstance(params, PackedParams):
+        return PackedParams([fn(b) for b in params.buckets], params.layout)
+    return tree_map(fn, params)
 
 
 def _schedule(schedule: Schedule | float) -> Schedule:
     return constant(schedule) if isinstance(schedule, (int, float)) else schedule
 
 
-def _zeros_f32(params) -> PackedParams:
-    return PackedParams([torch.zeros_like(b, dtype=torch.float32,
-                                          requires_grad=False)
-                         for b in _buckets(params)], params.layout)
+def _zeros_f32(params):
+    return _like(params, lambda b: torch.zeros_like(b, dtype=torch.float32,
+                                                    requires_grad=False))
 
 
 def sgd(schedule: Schedule | float, momentum: float = 0.9,
@@ -91,18 +99,19 @@ def sgd(schedule: Schedule | float, momentum: float = 0.9,
     def init(params):
         mom = None
         if momentum:
-            mom = PackedParams([torch.zeros_like(b, requires_grad=False)
-                                for b in _buckets(params)], params.layout)
+            mom = _like(params, lambda b: torch.zeros_like(
+                b, requires_grad=False))
         return {"step": 0, "mom": mom}
 
     @torch.no_grad()
     def update(params, grads, state):
         lr = sched(state["step"])
-        for i, (p, g) in enumerate(zip(_buckets(params), _buckets(grads))):
+        moms = _parts(state["mom"]) if momentum else None
+        for i, (p, g) in enumerate(zip(_parts(params), _parts(grads))):
             if weight_decay:
                 g = g + weight_decay * p.to(g.dtype)
             if momentum:
-                m = state["mom"].buckets[i]
+                m = moms[i]
                 m.copy_(momentum * m + g.to(m.dtype))
                 p.copy_((p - lr * m.float()).to(p.dtype))
             else:
@@ -141,8 +150,9 @@ def adamw(schedule: Schedule | float, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(params, grads, state):
         lr, t = sched(state["step"]), state["step"] + 1
-        for i, (p, g) in enumerate(zip(_buckets(params), _buckets(grads))):
-            m, v = state["m"].buckets[i], state["v"].buckets[i]
+        ms, vs = _parts(state["m"]), _parts(state["v"])
+        for i, (p, g) in enumerate(zip(_parts(params), _parts(grads))):
+            m, v = ms[i], vs[i]
             new_p, new_m, new_v = _adamw_math(
                 p.float(), g.float(), m, v, lr,
                 device_scalar(bias_correction(b1, t), p),
@@ -226,12 +236,13 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
         return {"step": 0, "mom": _zeros_f32(params)}
 
     def leaves(x):
-        _buckets(x)
-        return tree_flatten(x.unpack())[0]
+        return tree_flatten(x.unpack() if isinstance(x, PackedParams)
+                            else x)[0]
 
     @torch.no_grad()
     def update(params, grads, state):
-        """In place on the ``unpack()`` views, leaf by leaf. Each norm spans
+        """In place, leaf by leaf (on the ``unpack()`` views when packed).
+        Each norm spans
         the leaf AS GIVEN, i.e. across the stacked replica axis, exactly as
         the reference's unfused trainer computes it on its global arrays
         (ROADMAP C); the fused backend's prepass is per replica row."""

@@ -1,42 +1,54 @@
-"""Protocol-neutral train step over replicas stacked on one device.
+"""Protocol-neutral train step over replicas stacked on one device, or one
+per process of a ``core.replica_group.ReplicaGroup`` (``group``).
 
 Port of ``repro/train/step.py`` (``make_train_step_bundle``,
-``init_train_state``) for the packed engine. Every bucket carries the
-replica axis first, ``(dp, stride)``; the batch is ``(dp, b, S+1)``. One
-forward over ``PackedParams.unpack()`` views and one backward of the summed
-per-replica losses leave every replica's own gradient, already packed, in
-``bucket.grad``; nothing mixes replicas unless the protocol does.
+``init_train_state``). Every tensor carries the replica axis first: the
+rows this process holds (all dp stacked, or one under a replica group).
+The batch is ``(rows, b, S+1)``. One forward and one backward of the
+summed per-replica losses leave every replica's own gradient in ``.grad``;
+nothing mixes replicas unless the protocol does.
 
 Step layout (GossipGraD Fig. 8/9):
     1. per-replica grads from the local batch shard
     2. protocol.comm_grads
     3. local optimizer update             } fused: one sweep per bucket
     4. protocol.comm_params (gossip mix)  } (mix + update, in place)
-    5. ring-rotate the batch shards (§4.5.2)
+    5. ring-rotate the batch shards (§4.5.2; skipped with ``rotate=False``
+       by a caller that draws the next batch itself, as the Trainer does)
 
-**Fused mix+apply** (default for packed sgd, adamw and lars): steps 3-4
-are one single-sweep kernel per bucket that mixes with the partner's PRE-update
-bucket (``core.gossip.make_packed_fused_update``), the reference's
-GoSGD-style combined update; dp == 1, ``agd``, ``every_logp`` and ``none``
-run it with alpha = 0. ``agd`` averages the gradients before the sweep and
-``every_logp`` averages the params after it on its averaging steps (a
-separate pass, as in the reference). ``fused_update=False`` keeps the
-mix-then-apply composition.
+**Per-leaf** (``gossip_packed=False``, the reference's default): the params
+are a tree of tensors, the autograd leaves; the loss runs over the tree,
+then the tree-level ``optimizer.update``, then the per-leaf engine's
+``comm_params`` (``core.gossip.make_gossip_mix``; ``mix_impl`` may put a
+kernel such as ``kernels.gossip_mix_1d`` under every leaf). A compressed
+wire or the fused engine needs the packed params and raises here, as in
+the reference.
+
+**Packed** (``gossip_packed=True``): every bucket is ``(rows, stride)``;
+the forward runs over ``PackedParams.unpack()`` views, so the gradients
+arrive packed in ``bucket.grad``.
+
+**Fused mix+apply** (default for packed sgd, adamw and lars, never
+per-leaf): steps 3-4 are one single-sweep kernel per bucket that mixes with
+the partner's PRE-update bucket (``core.gossip.make_packed_fused_update``),
+the reference's GoSGD-style combined update; dp == 1, ``agd``,
+``every_logp`` and ``none`` run it with alpha = 0. ``agd`` averages the
+gradients before the sweep and ``every_logp`` averages the params after it
+on its averaging steps (a separate pass, as in the reference).
+``fused_update=False`` keeps the mix-then-apply composition.
 
 **gossip_async** (``core.async_gossip``): the state carries the staleness-k
-inbox ring (``state["inbox"]``). Unfused, the masked arrival mix of the
-oldest slot and the re-dispatch run BEFORE the forward pass, in place under
-``no_grad`` on the buckets (which are autograd leaves); fused, the ring's
+inbox ring (``state["inbox"]``). Unfused (per-leaf or packed), the masked
+arrival mix of the oldest slot and the re-dispatch run BEFORE the forward
+pass, in place under ``no_grad`` on the autograd leaves; fused, the ring's
 oldest slot is the fused sweep's partner and each bucket is dispatched just
 before its sweep. Both gossip protocols take the compressed /
-partition-sampled wire (``wire_dtype``, ``gossip_subset``, ``wire_seed``)
-and rotate the batch shards.
-
-The per-leaf engine waits for a later slice (ROADMAP A.7).
+partition-sampled wire on the packed engines (``wire_dtype``,
+``gossip_subset``, ``wire_seed``) and rotate the batch shards.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -45,12 +57,15 @@ from repro_torch.core import (PackedParams, build_layout, make_protocol,
 from repro_torch.core.async_gossip import (init_inbox_ring,
                                            init_wire_inbox_ring,
                                            make_packed_fused_async_update)
-from repro_torch.core.gossip import make_packed_fused_update
+from repro_torch.core.gossip import (local_rows, make_packed_fused_update,
+                                     replica_mean)
 from repro_torch.device import resolve_device
+from repro_torch.core.replica_group import ReplicaGroup
 from repro_torch.kernels.quantize import WireFormat
 from repro_torch.models import lm_init, lm_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer
+from repro_torch.tree import tree_flatten, tree_map
 
 from .loss import make_loss_fn
 
@@ -59,55 +74,83 @@ __all__ = ["TrainStepBundle", "make_train_step_bundle", "init_train_state"]
 
 class TrainStepBundle:
     def __init__(self, *, step_fn, protocol, cfg, optimizer, dp, layout,
-                 fused, device, wire):
-        self.step_fn = step_fn      # (state, batch, phase) -> (state, next_batch, metrics)
+                 fused, device, wire, group):
+        self.step_fn = step_fn      # (state, batch, phase, rotate) -> (state, next_batch, metrics)
         self.protocol = protocol
         self.cfg = cfg
         self.optimizer = optimizer
         self.dp = dp
-        self.layout = layout        # BucketLayout of the packed engine
+        self.layout = layout        # BucketLayout of the packed engine (None per-leaf)
         self.fused = fused          # single-sweep fused mix+apply engine
         self.device = device
         self.wire = wire            # the protocol's WireFormat
+        self.group = group          # ReplicaGroup of one replica a process, or None
 
-    def step(self, state, batch, phase: int):
-        return self.step_fn(state, batch, phase % self.protocol.period)
+    def step(self, state, batch, phase: int, *, rotate: bool = True):
+        """``(state, next_batch, metrics)``; ``rotate=False`` skips the ring
+        shuffle and returns ``batch`` as ``next_batch``."""
+        return self.step_fn(state, batch, phase % self.protocol.period,
+                            rotate)
 
 
-def _packed_only(gossip_packed: bool) -> None:
-    if not gossip_packed:
-        raise NotImplementedError(
-            "the per-leaf (unpacked) engine is not ported yet (ROADMAP A.7); "
-            "use gossip_packed=True")
+def _stacked(tree, cfg: ModelConfig, rows: int):
+    """A param tree with ``rows`` replicas leading every leaf: a leaf of
+    one replica's shape is copied to every row, a leaf that already leads
+    with the replica axis is taken as it is."""
+    specs, td = tree_flatten(lm_specs(cfg))
+    out = []
+    for spec, x in zip(specs, td.flatten_up_to(tree)):
+        shape = tuple(spec.shape)
+        if tuple(x.shape) == shape:
+            x = x.detach().unsqueeze(0).expand((rows,) + shape).clone()
+        elif tuple(x.shape) != (rows,) + shape:
+            raise ValueError(f"leaf of shape {tuple(x.shape)}: want {shape} "
+                             f"or {(rows,) + shape}")
+        out.append(x)
+    return td.unflatten(out)
 
 
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *, dp: int,
                      packed: bool = False, layout=None, seed: int = 0,
                      params=None, device="cuda", inbox: int = 0,
-                     wire: WireFormat = WireFormat()):
-    """``{"params", "opt"}`` with every bucket ``(dp, stride)`` holding the
-    same initial replica (the reference replicates one init). ``params`` may
-    give that replica's tree (or a ready ``PackedParams``, e.g. from
+                     wire: WireFormat = WireFormat(),
+                     group: Optional[ReplicaGroup] = None):
+    """``{"params", "opt"}`` with every replica holding the same initial
+    params (the reference replicates one init): a tree of leaves
+    ``(rows, *shape)``, or with ``packed`` a ``PackedParams`` of
+    ``(rows, stride)`` buckets (pass the bundle's ``layout``). ``rows`` is
+    dp, or 1 under a replica group of dp ranks (pass the bundle's
+    ``group``). ``params`` may give that
+    replica's tree (or a ready ``PackedParams``, e.g. from
     ``checkpoint.bridge``) instead of drawing it with ``seed``.
 
     ``inbox`` is the ring depth (pass the bundle's ``protocol.staleness``;
     0 = no ring) and ``wire`` the bundle's ``wire``: gossip_async carries a
-    ring bootstrapped all-invalid, its slots bucket copies or, under a
-    compressed wire, zero payloads."""
-    _packed_only(packed)
+    ring bootstrapped all-invalid, its slots copies of the params or, under
+    a compressed wire (packed only), zero payloads."""
     dev = resolve_device(device)
-    layout = layout if layout is not None else build_layout(lm_specs(cfg))
-    if not isinstance(params, PackedParams):
+    rows = local_rows(dp, group)
+    if not wire.is_default and inbox and not packed:
+        raise ValueError("the compressed wire needs packed state")
+    if packed:
+        layout = layout if layout is not None else build_layout(lm_specs(cfg))
+        if not isinstance(params, PackedParams):
+            tree = params if params is not None else lm_init(cfg, seed=seed,
+                                                             device=dev)
+            params = PackedParams.pack(tree, layout, lead=(rows,), device=dev)
+        leaves = params.buckets
+    else:
         tree = params if params is not None else lm_init(cfg, seed=seed,
                                                          device=dev)
-        params = PackedParams.pack(tree, layout, lead=(dp,), device=dev)
-    for b in params.buckets:
-        b.requires_grad_(True)
+        params = _stacked(tree_map(lambda x: x.to(dev), tree), cfg, rows)
+        leaves = tree_flatten(params)[0]
+    for x in leaves:
+        x.requires_grad_(True)
     state = {"params": params, "opt": optimizer.init(params)}
     if inbox:
-        state["inbox"] = (init_inbox_ring(params, inbox, dp)
+        state["inbox"] = (init_inbox_ring(params, inbox, rows)
                           if wire.is_default
-                          else init_wire_inbox_ring(params, inbox, dp, wire))
+                          else init_wire_inbox_ring(params, inbox, rows, wire))
     return state
 
 
@@ -119,6 +162,7 @@ def make_train_step_bundle(
     protocol: str = "gossip",
     topology: str = "dissemination",
     num_rotations: int = 2,
+    gossip_mode: str = "static",
     gossip_packed: bool = False,
     gossip_alpha: float = 0.5,
     staleness: int = 1,
@@ -128,32 +172,56 @@ def make_train_step_bundle(
     gossip_subset: float = 1.0,
     wire_seed: int = 0,
     fused_update: Optional[bool] = None,
+    mix_impl: Optional[Callable] = None,
     rotate_samples: Optional[bool] = None,
     seed: int = 0,
     device="cuda",
+    group: Optional[ReplicaGroup] = None,
 ) -> TrainStepBundle:
-    """Build the train step for ``dp`` stacked replicas under ``protocol``.
-    ``fused_update=None`` turns the fused engine on whenever the params are
-    packed and the optimizer has a fused backend. ``staleness``,
-    ``drop_rate`` and ``drop_seed`` configure gossip_async's ring;
-    ``wire_dtype``, ``gossip_subset`` and ``wire_seed`` the gossip wire.
+    """Build the train step for ``dp`` replicas under ``protocol``.
+    ``gossip_packed`` picks the bucketed engines (default: the per-leaf
+    ones, whose mix ``mix_impl`` may replace and whose phase ``gossip_mode``
+    selects as ``core.gossip.make_gossip_mix`` does).
+    ``fused_update=None`` turns the fused engine on when the params are
+    packed and the optimizer has a fused backend; the fused engine and a
+    compressed wire need ``gossip_packed``. ``staleness``, ``drop_rate``
+    and ``drop_seed`` configure gossip_async's ring; ``wire_dtype``,
+    ``gossip_subset`` and ``wire_seed`` the gossip wire.
     ``rotate_samples`` (default: on for the gossip protocols) ring-rotates
-    the batch shards after each step (§4.5.2)."""
-    _packed_only(gossip_packed)
+    the batch shards after each step (§4.5.2). ``group`` runs one replica
+    per process (a ``core.replica_group.ReplicaGroup`` of dp ranks; None:
+    the dp replicas stacked on ``device``)."""
     dev = resolve_device(device)
-    layout = build_layout(lm_specs(cfg))
+    local_rows(dp, group)
+    wire = WireFormat(dtype=wire_dtype, subset=gossip_subset, seed=wire_seed)
+    if (not wire.is_default and protocol in ("gossip", "gossip_async")
+            and not gossip_packed):
+        raise ValueError(
+            f"the compressed/partition-sampled wire (wire_dtype="
+            f"{wire_dtype!r}, gossip_subset={gossip_subset}) needs "
+            "gossip_packed=True: the per-leaf path has no lane-aligned "
+            "buckets to quantize over")
     if fused_update is None:
-        fused_update = optimizer.fused_update is not None
+        fused_update = gossip_packed and optimizer.fused_update is not None
+    if fused_update and not gossip_packed:
+        raise ValueError("fused_update needs the bucketed engine: pass "
+                         "gossip_packed=True")
     if fused_update and optimizer.fused_update is None:
         raise ValueError("fused_update=True but this optimizer has no fused "
                          "backend; use sgd, adamw or lars, or "
                          "fused_update=False")
+    if gossip_packed and mix_impl is not None:
+        raise ValueError("mix_impl replaces the per-leaf engine's mix; the "
+                         "packed engines run the bucket kernels")
+    layout = build_layout(lm_specs(cfg)) if gossip_packed else None
     proto = make_protocol(protocol, dp, topology=topology,
                           num_rotations=num_rotations, alpha=gossip_alpha,
                           staleness=staleness, drop_rate=drop_rate,
-                          drop_seed=drop_seed, packed_layout=layout,
+                          drop_seed=drop_seed, mode=gossip_mode,
+                          mix_impl=mix_impl, packed_layout=layout,
                           seed=seed, wire_dtype=wire_dtype,
-                          gossip_subset=gossip_subset, wire_seed=wire_seed)
+                          gossip_subset=gossip_subset, wire_seed=wire_seed,
+                          group=group)
     ring = proto.staleness > 0
     fused_eng = None
     if fused_update:
@@ -161,27 +229,40 @@ def make_train_step_bundle(
             fused_eng = make_packed_fused_async_update(
                 proto.schedule, layout, optimizer, alpha=gossip_alpha,
                 staleness=proto.staleness, drop_rate=drop_rate,
-                drop_seed=drop_seed, wire=proto.wire)
+                drop_seed=drop_seed, wire=proto.wire, group=group)
         else:
             gossiping = protocol == "gossip" and dp > 1
             fused_eng = make_packed_fused_update(
                 proto.schedule if gossiping else None, layout, optimizer,
-                alpha=gossip_alpha if gossiping else 0.0, wire=proto.wire)
+                alpha=gossip_alpha if gossiping else 0.0, wire=proto.wire,
+                group=group)
     loss_fn = make_loss_fn(cfg)
     if rotate_samples is None:
         rotate_samples = protocol in ("gossip", "gossip_async")
-    shuffle = make_ring_shuffle() if rotate_samples and dp > 1 else None
+    shuffle = (make_ring_shuffle(dp, group) if rotate_samples and dp > 1
+               else None)
 
-    def train_step(state, batch, phase: int):
+    def as_tree(params):
+        return params.unpack() if gossip_packed else params
+
+    def autograd_leaves(params):
+        return params.buckets if gossip_packed else tree_flatten(params)[0]
+
+    def grads_of(params):
+        if gossip_packed:
+            return PackedParams([b.grad for b in params.buckets], layout)
+        return tree_map(lambda x: x.grad, params)
+
+    def train_step(state, batch, phase: int, rotate: bool = True):
         params, inbox = state["params"], state.get("inbox")
         if ring and fused_eng is None:
             # bounded-delay arrival: mix the oldest slot in and re-dispatch,
-            # in place on the leaf buckets, before the forward pass
+            # in place on the autograd leaves, before the forward pass
             with torch.no_grad():
                 params, inbox = proto.comm_params(params, phase, inbox=inbox)
-        loss, metrics = loss_fn(params.unpack(), batch)
+        loss, metrics = loss_fn(as_tree(params), batch)
         loss.sum().backward()  # replica r's grad is d loss_r / d params_r
-        grads = PackedParams([b.grad for b in params.buckets], layout)
+        grads = grads_of(params)
         with torch.no_grad():
             grads = proto.comm_grads(grads, phase)
             if fused_eng is not None and ring:
@@ -195,10 +276,14 @@ def make_train_step_bundle(
                 params, opt = optimizer.update(params, grads, state["opt"])
                 if not ring:
                     params = proto.comm_params(params, phase)
-        for b in params.buckets:
-            b.grad = None
-        next_batch = shuffle(batch) if shuffle is not None else batch
-        metrics = {k: v.detach().mean() for k, v in metrics.items()}
+        for x in autograd_leaves(params):
+            x.grad = None
+        next_batch = (shuffle(batch) if shuffle is not None and rotate
+                      else batch)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            metrics = {k: replica_mean(v, group) for k, v in metrics.items()}
+        metrics = {k: v.mean() for k, v in metrics.items()}
         new_state = {"params": params, "opt": opt}
         if ring:
             new_state["inbox"] = inbox
@@ -207,4 +292,4 @@ def make_train_step_bundle(
     return TrainStepBundle(step_fn=train_step, protocol=proto, cfg=cfg,
                            optimizer=optimizer, dp=dp, layout=layout,
                            fused=bool(fused_update), device=dev,
-                           wire=proto.wire)
+                           wire=proto.wire, group=group)

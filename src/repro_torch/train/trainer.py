@@ -7,7 +7,12 @@ subset rotation; ``TrainStepBundle.step`` folds the step by it). PyTorch
 launches work asynchronously on the card, so the loop keeps each step's
 metrics on the device and reads them back only on log boundaries and at the
 end of ``run`` (the only host syncs). The caching allocator and in-place
-bucket updates take the place of the reference's buffer donation.
+bucket updates take the place of the reference's buffer donation. Under a
+replica group (``bundle.group``) each process feeds its own replica's shard
+of the step's batch (row ``rank`` of the stacked batch). Every step draws
+its batch afresh, as the reference's loop does, so the loop asks the step
+for no ring-shuffled next batch (``rotate=False``): under a replica group
+that would be a point-to-point round that nothing reads.
 
 The reference bounds JAX's asynchronous dispatch with an in-flight window
 of ``2 + 2 * staleness`` steps. It has no counterpart here: the async ring
@@ -42,6 +47,9 @@ class Trainer:
 
     def _batch(self, step: int):
         toks = make_replica_batches(self.dataset, step, self.bundle.dp)["tokens"]
+        group = self.bundle.group
+        if group is not None:
+            toks = toks[group.rank:group.rank + 1]
         return {"tokens": torch.from_numpy(toks).to(self.bundle.device)}
 
     def _drain(self, pending: List) -> None:
@@ -55,8 +63,8 @@ class Trainer:
         t0 = time.perf_counter()
         pending: List = []
         for step in range(start_step, start_step + num_steps):
-            self.state, _, metrics = self.bundle.step(self.state,
-                                                      self._batch(step), step)
+            self.state, _, metrics = self.bundle.step(
+                self.state, self._batch(step), step, rotate=False)
             pending.append((step, metrics))
             if self.log_every and step % self.log_every == 0:
                 self._drain(pending)

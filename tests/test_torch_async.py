@@ -276,8 +276,10 @@ def test_protocol_async_period_and_refusals():
         make_protocol("gossip_async", DP, staleness=0, packed_layout=layout)
     with pytest.raises(ValueError, match="inbox"):
         p.comm_params(None, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        make_protocol("gossip_async", DP)   # the per-leaf engine
+    leaf = make_protocol("gossip_async", DP, staleness=2)  # per-leaf engine
+    assert leaf.staleness == 2 and leaf.period == leaf.schedule.period
+    with pytest.raises(ValueError, match="packed"):
+        make_protocol("gossip_async", DP, wire_dtype="int8")
 
 
 # ------------------------------------------------------- the slice as a whole

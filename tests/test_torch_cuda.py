@@ -682,3 +682,73 @@ def test_card_checkpoint_restores_on_cpu(cuda_device, tmp_path):
         w = w.cpu()
         assert torch.equal(g.view(ints[g.element_size()]),
                            w.view(ints[w.element_size()]))
+
+
+LEAF_SHAPES = [(4, 3, 5), (4, 130), (4, 2, 7, 11), (4, 28, 128),
+               (4, 3, 1000 * 128 + 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LEAF_SHAPES)
+def test_mix_kernel_on_leaf_shapes_with_row_alpha(cuda_device, dtype, shape):
+    """The per-leaf engine's ``mix_impl``: ``gossip_mix_1d`` on a leaf
+    viewed as (rows, -1), lengths not a LANE multiple, one alpha per row
+    (zeros on rows other than 0, as a dropped exchange gives), bit for bit
+    against the plain version, one launch per leaf."""
+    gen = torch.Generator(device=cuda_device).manual_seed(len(shape))
+    a = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    b = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+    rows = a.view(shape[0], -1)
+    for alpha in (0.25, torch.tensor([0.5, 0.0, 0.25, 0.0],
+                                     device=cuda_device)):
+        want = gossip_mix_plain(rows, b.view(shape[0], -1), alpha)
+        got = rows.clone()
+        before = gossip_mix.launches.count
+        gossip_mix_1d(got, b.view(shape[0], -1), alpha)
+        torch.cuda.synchronize()
+        assert gossip_mix.launches.count == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [0.0, 0.3], ids=["nodrop", "drop30"])
+def test_leaf_engines_with_the_kernel_match_the_oracle(cuda_device, drop):
+    """On the card: ``make_gossip_mix`` and ``make_async_gossip_mix`` with
+    ``mix_impl=gossip_mix_1d`` against ``core.simulate`` (``gossip_mix_sim``
+    and ``gossip_mix_sim_delayed_k``, per-row masked alpha) bit for bit in
+    fp32 over period + 2 phases; one launch per leaf and step."""
+    from repro_torch.core import build_schedule
+    from repro_torch.core import simulate as S
+    from repro_torch.core.async_gossip import (exchange_ok, init_inbox_ring,
+                                               make_async_gossip_mix)
+    from repro_torch.core.gossip import make_gossip_mix
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    tree = {f"w{i}": torch.randn(s, generator=gen, device=cuda_device)
+            for i, s in enumerate(LEAF_SHAPES[:4])}
+    sched = build_schedule(4, seed=2)
+    got = {k: v.clone() for k, v in tree.items()}
+    want = {k: v.clone() for k, v in tree.items()}
+    mix = make_gossip_mix(sched, mix_impl=gossip_mix_1d)
+    before = gossip_mix.launches.count
+    for t in range(sched.period + 2):
+        mix(got, t)
+        want = S.gossip_mix_sim(want, sched.recv_from(t))
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[k], want[k]) for k in tree)
+    assert gossip_mix.launches.count == before + (sched.period + 2) * 4
+    got = {k: v.clone() for k, v in tree.items()}
+    want = {k: v.clone() for k, v in tree.items()}
+    ring, wring = init_inbox_ring(got, 2, 4), init_inbox_ring(want, 2, 4)
+    amix = make_async_gossip_mix(sched, staleness=2, drop_rate=drop,
+                                 drop_seed=1, mix_impl=gossip_mix_1d)
+    for t in range(sched.period + 2):
+        got, ring = amix(got, ring, t)
+        ok = exchange_ok(wring["t"], list(range(4)), 1, drop)
+        want, wring = S.gossip_mix_sim_delayed_k(want, wring,
+                                                 sched.recv_from(t), 0.5, ok)
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[k], want[k]) for k in tree)
+        assert all(torch.equal(ring["slots"][-1][k], wring["slots"][-1][k])
+                   for k in tree)
+        assert (ring["valid"] == wring["valid"]).all()

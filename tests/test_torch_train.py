@@ -203,7 +203,7 @@ def test_launcher_runs_and_refuses_unported_meshes(capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--smoke", "--packed", "--smoke-mesh", "2,2,1", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--smoke", "--smoke-mesh", "1,2,1", "--device", "cpu"])
+        main(["--smoke", "--multi-pod", "--device", "cpu"])
 
 
 def _on_port_fields(ref, port):
