@@ -128,6 +128,25 @@ package ``repro``. Phases, each of which fails the run on any error:
     at subset 0.5, the packed async engine against
     ``gossip_mix_sim_quantized_k`` step by step, bit for bit.
 
+13. The shard-local (hierarchical) bucket layouts. ``[hier_main]``:
+    ``[main]``'s model, optimizer, batches and 8 steps under the
+    distribution plan of mesh (1, 4, 2) in ``replica`` mode (dp 4, each
+    replica's leaves sharded over ``model`` in 2 shard-local pieces),
+    counted and profiled like ``[main]``, with the layout (``num_shards``,
+    buckets, strides) and ``unpack`` alone (device ms, GB assembled, its
+    byte bound); its params after the 8 steps must equal ``[main]``'s bit
+    for bit, and its losses too. ``[hier_fsdp]``: ``fsdp`` on (2, 2, 2)
+    (dp 2 over the pods, 4 shards), qwen3-0.6b at full width with 2
+    layers, ``async_wire``'s protocol fused, 4 steps, raw and scaled
+    ``fused_sgd`` launches counted. ``[hier_agree]``: [agree]'s model on the
+    (2, 2, 2) fsdp layout, sync fused and unfused, async int8 subset 0.5
+    fused and unfused, adamw sync fused, card against CPU under [agree]'s
+    rule and, on the fp32 wire, against the flat layout on the card bit
+    for bit; the port's simulator against the shard-local packed unfused
+    engines (sync, async k 2 drop 0.2) and the int8 ring against
+    ``gossip_mix_sim_quantized_k`` on the shard-local buckets, bit for
+    bit.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -1079,22 +1098,25 @@ def make_optimizer(name: str, steps: int, lr: float):
 
 def _train(cfg, *, fused, steps, dev, params=None, dp=DP, seq=SEQ,
            per_replica=PER_REPLICA, protocol="gossip", optimizer="sgd",
-           lr=None, packed=True, **wire):
+           lr=None, packed=True, dist=None, **wire):
     """A bundle and its Trainer; ``packed=False`` runs the per-leaf engines
-    (``wire`` may then carry ``mix_impl``)."""
+    (``wire`` may then carry ``mix_impl``); ``dist`` (a distribution plan)
+    replaces ``dp`` and picks the shard-local layout when it shards inside
+    a replica."""
     from repro_torch.data import ShardedTokenDataset
     from repro_torch.train import (Trainer, init_train_state,
                                    make_train_step_bundle)
     opt = make_optimizer(optimizer, steps,
                          FULL_LR[optimizer] if lr is None else lr)
-    bundle = make_train_step_bundle(cfg, opt, dp=dp, protocol=protocol,
+    size = dict(dist=dist) if dist is not None else dict(dp=dp)
+    bundle = make_train_step_bundle(cfg, opt, protocol=protocol,
                                     gossip_packed=packed, fused_update=fused,
-                                    device=dev, **wire)
-    state = init_train_state(cfg, opt, dp=dp, packed=packed,
+                                    device=dev, **size, **wire)
+    state = init_train_state(cfg, opt, packed=packed,
                              layout=bundle.layout, seed=0, params=params,
                              device=dev, inbox=bundle.protocol.staleness,
-                             wire=bundle.wire)
-    ds = ShardedTokenDataset(cfg.vocab, seq, n_shards=dp,
+                             wire=bundle.wire, **size)
+    ds = ShardedTokenDataset(cfg.vocab, seq, n_shards=bundle.dp,
                              batch_per_shard=per_replica)
     return bundle, Trainer(bundle, state, ds, log_every=0)
 
@@ -1162,11 +1184,16 @@ def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
     before and read just after; ``expect(bundle)`` gives the counts it
     must show. Returns the path's record (its counts under
     ``"launches"``; with ``keep_params`` a copy of the params after the
-    counted steps under ``"params"``)."""
+    counted steps under ``"params"``, on the card, or on the host with
+    ``keep_params="cpu"`` so that later paths' peaks do not count it)."""
     bundle, tr = _train(cfg, fused=fused, steps=steps, dev=dev, **proto)
     impl = proto.pop("mix_impl", None)
     if impl is not None:
         proto["mix_impl"] = impl.__name__
+    dist = proto.pop("dist", None)
+    if dist is not None:
+        proto["mesh"] = dict(dist.mesh.shape)
+        proto["dist_mode"] = dist.mode
     assert bundle.fused == fused
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1181,16 +1208,18 @@ def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
     counts = _counts()
     losses = [h["loss"] for h in hist]
     want = expect(bundle)
-    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "dp": DP,
+    lay = bundle.layout
+    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "dp": bundle.dp,
            "seq": SEQ, "per_replica": PER_REPLICA, "fused": fused,
            "optimizer": "sgd", **proto,
            "period": bundle.protocol.period,
-           "num_buckets": (bundle.layout.num_buckets if bundle.layout
-                           is not None else None),
+           "num_buckets": lay.num_buckets if lay is not None else None,
+           "num_shards": lay.num_shards if lay is not None else None,
            "num_leaves": _num_leaves(cfg), "losses": losses,
            "first_step_ms": (t1 - t0) * 1e3,
            "ms_per_step": (t2 - t1) * 1e3 / (steps - 1),
-           "tokens_per_s": DP * PER_REPLICA * SEQ * (steps - 1) / (t2 - t1),
+           "tokens_per_s": bundle.dp * PER_REPLICA * SEQ * (steps - 1)
+           / (t2 - t1),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": counts, "expected_launches": want}
     log(f"[{name}] " + json.dumps(res))
@@ -1198,15 +1227,35 @@ def run_path(name, cfg, dev, *, fused, steps, expect, profile=False,
     assert abs(losses[0] - math.log(cfg.vocab)) <= 1.0, losses[0]
     assert counts == want, (counts, want)
     assert _finite_buckets(tr), "non-finite parameters"
-    kept = ([x.clone() for x in _leaf_view(tr.state["params"])]
+    kept = ([x.cpu() if keep_params == "cpu" else x.clone()
+             for x in _leaf_view(tr.state["params"])]
             if keep_params else None)
     if profile:
         res["profile"] = profile_step(name, tr)
+    if lay is not None and lay.hierarchical:   # after the timed windows
+        res.update(_unpack_cost(tr.state["params"]))
+        log(f"[{name}] unpack alone: " + json.dumps(
+            {k: res[k] for k in ("strides", "unpack_ms", "unpack_gb",
+                                 "unpack_bound_ms")}))
     del tr, bundle
     torch.cuda.empty_cache()
     if kept is not None:
         res["params"] = kept
     return res
+
+
+def _unpack_cost(params) -> dict:
+    """A shard-local layout's ``unpack`` alone (forward, no autograd): the
+    per-shard strides, the device ms of one assembly of every leaf and the
+    bytes it writes (the extra peak a forward holds until backward)."""
+    lay = params.layout
+    with torch.no_grad():
+        ms = time_ms(lambda: lay.unpack(params.buckets), reps=5, warmup=1)
+        nbytes = sum(x.numel() * x.element_size() for x in
+                     _leaf_view(params))
+    return {"strides": list(lay.strides), "unpack_ms": ms,
+            "unpack_gb": nbytes / 1e9,
+            "unpack_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
 
 
 def profile_step(name, tr) -> None:
@@ -1246,7 +1295,7 @@ def profile_step(name, tr) -> None:
     groups = {g: sum(ms for k, ms, _ in rows if g in k)
               for g in ("fused_sgd_kernel", "fused_adamw_kernel",
                         "fused_lars_kernel", "gossip_mix_kernel", "index",
-                        "indexFunc", "reduce_kernel")}
+                        "indexFunc", "reduce_kernel", "CatArrayBatchedCopy")}
     rec = {"steps": n, "device_busy_ms": busy_ms,
            "step_ms_unprofiled": step_ms,
            "tokens_per_s_unprofiled": tr.bundle.dp * PER_REPLICA * SEQ
@@ -1531,22 +1580,30 @@ def phase_agree(dev):
                 out[str(d)] = (losses, [b.detach().cpu().numpy() for b in
                                         tr.state["params"].buckets])
         (lc, bc), (lg, bg) = out["cpu"], out[str(dev)]
-        np.testing.assert_allclose(lg, lc, rtol=2e-4, atol=2e-4)
-        # AdamW's first steps move an element by about lr times the sign
-        # of its gradient, which a rounding-level gradient may flip
-        sign_flip = 2 * AGREE_LR[opt] * steps if opt == "adamw" else 0.0
-        flips = total = 0
-        for a, b in zip(bg, bc):
-            bad = ~np.isclose(a, b, rtol=2e-4, atol=2e-4)
-            step = _code_step(b, proto.get("wire_dtype"))
-            assert (np.abs(a - b)[bad] <= step[bad] * 1.001 + sign_flip
-                    + 2e-4).all(), name
-            flips += int(bad.sum())
-            total += a.size
-        assert flips <= 1e-3 * total, (name, flips, total)
-        log(f"[agree] {name}: card vs cpu losses " + json.dumps(
-            {"cuda": lg, "cpu": lc, "code_step_or_sign_elements": flips,
-             "elements": total}))
+        rec = _assert_agree(name, opt, proto, steps, (lc, bc), (lg, bg))
+        log(f"[agree] {name}: card vs cpu losses " + json.dumps(rec))
+
+
+def _assert_agree(name, opt, proto, steps, cpu, card) -> dict:
+    """[agree]'s rule between a CPU and a card run (losses, buckets as
+    numpy): within rtol = atol = 2e-4, but for at most 0.1% of elements one
+    wire code step (AdamW: 2 * lr * steps) apart."""
+    (lc, bc), (lg, bg) = cpu, card
+    np.testing.assert_allclose(lg, lc, rtol=2e-4, atol=2e-4)
+    # AdamW's first steps move an element by about lr times the sign
+    # of its gradient, which a rounding-level gradient may flip
+    sign_flip = 2 * AGREE_LR[opt] * steps if opt == "adamw" else 0.0
+    flips = total = 0
+    for a, b in zip(bg, bc):
+        bad = ~np.isclose(a, b, rtol=2e-4, atol=2e-4)
+        step = _code_step(b, proto.get("wire_dtype"))
+        assert (np.abs(a - b)[bad] <= step[bad] * 1.001 + sign_flip
+                + 2e-4).all(), name
+        flips += int(bad.sum())
+        total += a.size
+    assert flips <= 1e-3 * total, (name, flips, total)
+    return {"cuda": lg, "cpu": lc, "code_step_or_sign_elements": flips,
+            "elements": total}
 
 
 def _small_cfg():
@@ -1646,7 +1703,7 @@ def phase_leaf_agree(dev, steps=SHORT_STEPS):
     return rec
 
 
-def _sim_run(cfg, dev, steps, protocol, init, **async_kw):
+def _sim_run(cfg, dev, steps, protocol, init, dp=DP, **async_kw):
     """The port's simulator (core.simulate) on the card from ``init``, fed
     the Trainer's batches: losses per step and the final params."""
     from repro_torch.core import build_schedule
@@ -1655,20 +1712,20 @@ def _sim_run(cfg, dev, steps, protocol, init, **async_kw):
     from repro_torch.data import ShardedTokenDataset, make_replica_batches
     from repro_torch.train import make_loss_fn
     opt = make_optimizer("sgd", steps, AGREE_LR["sgd"])
-    sched = build_schedule(DP)
-    params = S.replicate(init, DP)
+    sched = build_schedule(dp)
+    params = S.replicate(init, dp)
     st = opt.init(params)
-    ds = ShardedTokenDataset(cfg.vocab, 16, n_shards=DP, batch_per_shard=2)
+    ds = ShardedTokenDataset(cfg.vocab, 16, n_shards=dp, batch_per_shard=2)
     if async_kw:
         step = S.make_async_sim_train_step(make_loss_fn(cfg), opt, sched,
                                            **async_kw)
-        ring = init_inbox_ring(params, async_kw["staleness"], DP)
+        ring = init_inbox_ring(params, async_kw["staleness"], dp)
     else:
         step = S.make_sim_train_step(make_loss_fn(cfg), opt, sched,
                                      protocol=protocol)
     losses = []
     for t in range(steps):
-        toks = make_replica_batches(ds, t, DP)["tokens"]
+        toks = make_replica_batches(ds, t, dp)["tokens"]
         batch = {"tokens": torch.from_numpy(toks).to(dev)}
         if async_kw:
             st, params, ring, m = step(st, params, ring, batch, t)
@@ -1685,10 +1742,11 @@ def _engine_run(cfg, dev, steps, init, **kw):
     return losses, _leaf_view(tr.state["params"])
 
 
-def _wire_oracle_case(dev, k=2, drop=0.2, phases=6):
+def _wire_oracle_case(dev, k=2, drop=0.2, phases=6, layout=None, dp=DP):
     """The packed unfused async engine on the int8 wire at subset 0.5
     against ``gossip_mix_sim_quantized_k`` on the card, step for step from
-    one state: params, the newest slot's codes and scales, ``valid``."""
+    one state: params, the newest slot's codes and scales, ``valid``
+    (``layout``: [agree]'s flat one by default)."""
     from repro_torch.core import (PackedParams, build_layout, build_schedule,
                                   make_packed_async_gossip_mix)
     from repro_torch.core import simulate as S
@@ -1696,23 +1754,24 @@ def _wire_oracle_case(dev, k=2, drop=0.2, phases=6):
                                                init_wire_inbox_ring)
     from repro_torch.kernels.quantize import WireFormat
     from repro_torch.models import lm_init
-    init = lm_init(_small_cfg(), seed=0, device=dev)
-    layout = build_layout(init, target_bucket_bytes=AGREE_BUCKET_BYTES)
+    if layout is None:
+        init = lm_init(_small_cfg(), seed=0, device=dev)
+        layout = build_layout(init, target_bucket_bytes=AGREE_BUCKET_BYTES)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    buckets = [torch.randn((DP, n), generator=gen, device=dev)
+    buckets = [torch.randn((dp, n), generator=gen, device=dev)
                for n in layout.bucket_sizes]
     wire = WireFormat("int8", 0.5, seed=3)
-    sched = build_schedule(DP)
+    sched = build_schedule(dp)
     mix = make_packed_async_gossip_mix(sched, layout, staleness=k,
                                        drop_rate=drop, drop_seed=1,
                                        wire=wire)
     params = PackedParams([b.clone() for b in buckets], layout)
-    ring = init_wire_inbox_ring(params, k, DP, wire)
+    ring = init_wire_inbox_ring(params, k, dp, wire)
     want, wring = [b.clone() for b in buckets], dict(ring)
     same = True
     for t in range(phases):
-        ok = exchange_ok(wring["t"], np.arange(DP), 1, drop)
+        ok = exchange_ok(wring["t"], np.arange(dp), 1, drop)
         want, wring = S.gossip_mix_sim_quantized_k(
             want, wring, sched.recv_from(t), wire=wire, ok=ok)
         params, ring = mix(params, ring, t)
@@ -1779,6 +1838,105 @@ def phase_sim_agree(dev, steps=SHORT_STEPS):
     return out
 
 
+def _plan(pod: int, data: int, model: int, mode: str):
+    """The distribution plan of the smoke mesh (pod, data, model)."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.train import make_distribution
+    return make_distribution(make_smoke_mesh(data, model, pod=pod), mode)
+
+
+def phase_hier_gap(main_res, hier_res):
+    """[hier_main] against [main] after the same 8 steps: the shard-local
+    layout moves bytes, not arithmetic, so every param element and loss
+    must be equal."""
+    differ = total = 0
+    for a, b in zip(hier_res.pop("params"), main_res.pop("params")):
+        assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
+        ints = _INT_OF_SIZE[a.element_size()]
+        differ += int((a.view(ints) != b.view(ints)).sum())
+        total += a.numel()
+    rec = {"elements_differing": differ, "elements": total,
+           "losses_equal": hier_res["losses"] == main_res["losses"],
+           "num_shards": hier_res["num_shards"],
+           "num_buckets": hier_res["num_buckets"],
+           "main_num_buckets": main_res["num_buckets"]}
+    log("[hier_main] against [main]: " + json.dumps(rec))
+    assert differ == 0 and rec["losses_equal"], rec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_hier_agree(dev, steps=SHORT_STEPS):
+    """[agree]'s reduced fp32 model on the fsdp (2, 2, 2) shard-local layout
+    (dp 2 over the pods, 4 shards): each case on the card against the same
+    on the CPU under [agree]'s rule, and, on the fp32 wire, against the
+    flat layout over dp 2 on the card bit for bit; the port's simulator
+    against the shard-local packed unfused engines (sync and async k 2,
+    drop 0.2) on the card, and the int8 ring at subset 0.5 against
+    ``gossip_mix_sim_quantized_k`` on the shard-local buckets, bit for
+    bit."""
+    from repro_torch.models import lm_init
+    from repro_torch.train.step import _build_packed_layout
+    from repro_torch.tree import tree_map
+    cfg = _small_cfg()
+    fsdp = _plan(2, 2, 2, "fsdp")
+    init = lm_init(cfg, seed=0, device="cpu")
+    cases = [("sync fused", True, {}), ("sync unfused", False, {}),
+             ("async int8 sub0.5 fused", True, ASYNC_WIRE),
+             ("async int8 sub0.5 unfused", False, ASYNC_WIRE),
+             ("adamw sync fused", True, dict(optimizer="adamw"))]
+    out = {}
+    with _bucket_bytes(AGREE_BUCKET_BYTES):
+        for name, fused, proto in cases:
+            opt = proto.get("optimizer", "sgd")
+            runs = {}
+            for tag, d, dist in (("card", dev, fsdp), ("cpu", "cpu", fsdp),
+                                 ("card_flat", dev, None)):
+                if tag == "card_flat" and "wire_dtype" in proto:
+                    continue   # the wire's tiles follow the layout
+                params = tree_map(lambda t, d=d: t.to(d), init)
+                bundle, tr = _train(cfg, fused=fused, steps=steps, dev=d,
+                                    params=params, seq=16, per_replica=2,
+                                    lr=AGREE_LR[opt], dist=dist, dp=fsdp.dp,
+                                    **proto)
+                assert bundle.fused == fused and bundle.dp == fsdp.dp
+                assert bundle.layout.num_shards == (4 if dist else 1)
+                losses = [h["loss"] for h in tr.run(steps)]
+                params = tr.state["params"]
+                runs[tag] = (losses, _leaf_view(params),
+                             [b.detach().cpu().numpy()
+                              for b in params.buckets])
+            rec = _assert_agree(name, opt, proto, steps,
+                                (runs["cpu"][0], runs["cpu"][2]),
+                                (runs["card"][0], runs["card"][2]))
+            rec["num_buckets"] = len(runs["card"][2])
+            if "card_flat" in runs:
+                (lh, ph, _), (lf, pf, _) = runs["card"], runs["card_flat"]
+                rec["bit_equal_to_flat"] = lh == lf and all(
+                    _same_bits(a, b) for a, b in zip(ph, pf))
+            out[name] = rec
+        layout = _build_packed_layout(fsdp, cfg)
+    init = tree_map(lambda t: t.to(dev), init)
+    async_kw = dict(staleness=2, drop_rate=0.2)
+    for name, proto, kw, akw in (
+            ("sim gossip vs packed unfused", "gossip", {}, {}),
+            ("async sim vs packed unfused", None,
+             dict(protocol="gossip_async", **async_kw), async_kw)):
+        ls, ps = _sim_run(cfg, dev, steps, proto, init, dp=fsdp.dp, **akw)
+        le, pe = _engine_run(cfg, dev, steps, init, dist=fsdp, **kw)
+        out[name] = {"bit_equal": ls == le and all(
+            _same_bits(a, b) for a, b in zip(pe, ps))}
+    out["int8 sub0.5 ring vs gossip_mix_sim_quantized_k"] = {
+        "bit_equal": _wire_oracle_case(dev, layout=layout, dp=fsdp.dp),
+        "num_buckets": layout.num_buckets}
+    log("[hier_agree] " + json.dumps(out))
+    bad = [k for k, v in out.items()
+           if v.get("bit_equal") is False or v.get("bit_equal_to_flat")
+           is False]
+    assert not bad, bad
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1830,8 +1988,36 @@ def main() -> int:
 
     main_res = guard(
         "main", run_path, "main", cfg, dev, fused=True, steps=MAIN_STEPS,
-        profile=True,
+        profile=True, keep_params="cpu",
         expect=lambda b: none(fused_sgd=MAIN_STEPS * b.layout.num_buckets))
+    # the shard-local layout: main's run on mesh (1, 4, 2), replica mode
+    # (dp 4, each replica's leaves sharded over model in 2)
+    hier_res = guard(
+        "hier_main", run_path, "hier_main", cfg, dev, fused=True,
+        steps=MAIN_STEPS, profile=True, keep_params="cpu",
+        dist=_plan(1, DP, 2, "replica"),
+        expect=lambda b: none(fused_sgd=MAIN_STEPS * b.layout.num_buckets))
+    if main_res is not None and hier_res is not None:
+        guard("hier_main_gap", phase_hier_gap, main_res, hier_res)
+    for res in (main_res, hier_res):
+        if res is not None:
+            res.pop("params", None)
+    torch.cuda.empty_cache()
+    if main_res is not None and hier_res is not None:
+        log("[hier_main] against [main], one call: " + json.dumps(
+            {k: {"ms_per_step": r["ms_per_step"],
+                 "step_ms_unprofiled": r["profile"]["step_ms_unprofiled"],
+                 "device_busy_ms": r["profile"]["device_busy_ms"],
+                 "peak_mem_gb": r["peak_mem_gb"],
+                 "cat_ms": r["profile"]["device_ms_by_kernel_name"][
+                     "CatArrayBatchedCopy"]}
+             for k, r in (("main", main_res), ("hier_main", hier_res))}))
+    hier_fsdp_res = guard(
+        "hier_fsdp", run_path, "hier_fsdp", short, dev, fused=True,
+        steps=SHORT_STEPS, dist=_plan(2, 2, 2, "fsdp"),
+        expect=lambda b: none(fused_sgd=SHORT_STEPS * b.layout.num_buckets,
+                              fused_sgd_q=consumed(b, SHORT_STEPS)),
+        **ASYNC_WIRE)
     async_res = guard(
         "async_wire", run_path, "async_wire", cfg, dev, fused=True,
         steps=MAIN_STEPS, profile=True,
@@ -1927,6 +2113,7 @@ def main() -> int:
           expect=lambda b: none())
     guard("leaf_agree", phase_leaf_agree, dev)
     guard("sim_agree", phase_sim_agree, dev)
+    guard("hier_agree", phase_hier_agree, dev)
     unfused_res = guard(
         "unfused", run_path, "unfused", short, dev, fused=False,
         steps=SHORT_STEPS,
@@ -1993,7 +2180,12 @@ def main() -> int:
     by_name["fused_sgd"]["launches_by_path"] = {
         "main": main_res["launches"]["fused_sgd"],
         "agd_main": agd_res["launches"]["fused_sgd"],
-        "every_logp_main": logp_res["launches"]["fused_sgd"]}
+        "every_logp_main": logp_res["launches"]["fused_sgd"],
+        "hier_main": hier_res["launches"]["fused_sgd"],
+        "hier_fsdp": hier_fsdp_res["launches"]["fused_sgd"]}
+    by_name["fused_sgd_q"]["launches_by_path"] = {
+        "async_wire": async_res["launches"]["fused_sgd_q"],
+        "hier_fsdp": hier_fsdp_res["launches"]["fused_sgd_q"]}
     by_name["ssm_scan"]["launches_per_forward"] = \
         mamba_res["ssm_scan_launches_per_forward"]
     flash = by_name["flash_attention"]

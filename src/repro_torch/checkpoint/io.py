@@ -22,8 +22,9 @@ of tensors) is written leaf by leaf; ``PackedParams`` nodes (the params,
 the optimizer's moments and, under the fp32 full-participation wire, the
 inbox ring's slots) are written through their leaf view, so a packed and
 a per-leaf state of the same model write the same keys and either
-restores into the other's template. Every bucket is pulled to the host
-first and unpacked there as views, so no second copy exists on the device. Restore re-packs
+restores into the other's template, whatever their layouts (flat or
+shard-local). Every bucket is pulled to the host first and unpacked
+there, so no second copy exists on the device. Restore re-packs
 into the template's layout, on the template's device, and a bucket the
 template holds as an autograd leaf is one again (the engines update in
 place). A compressed wire's ring slots are per-bucket payloads (a bucket
@@ -168,9 +169,8 @@ def _fill(node, path: Tuple, read: Callable[[str], np.ndarray]):
         return None
     if isinstance(node, PackedParams):
         lay, ref = node.layout, node.buckets[0]
-        leaves = [_tensor(read(keystr(path + sub)), torch_dtype(s.dtype),
-                          "cpu")
-                  for sub, s in zip(lay.treedef.paths(), lay.slots)]
+        leaves = [_tensor(read(keystr(path + sub)), torch_dtype(dt), "cpu")
+                  for sub, dt in zip(lay.treedef.paths(), lay.leaf_dtypes)]
         buckets = lay.pack(lay.treedef.unflatten(leaves),
                            lead=tuple(ref.shape[:-1]), device=ref.device)
         for b, t in zip(buckets, node.buckets):

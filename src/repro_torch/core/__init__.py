@@ -6,7 +6,7 @@ from .async_gossip import (exchange_ok, init_inbox_ring, init_wire_inbox_ring,
                            make_packed_async_gossip_mix,
                            make_packed_fused_async_update)
 from .buckets import (LANE, BucketLayout, LeafSlot, PackedParams,
-                      build_layout)
+                      build_layout, check_layout_mesh, packed_param_specs)
 from .gossip import (exchange, linear_pairs, make_gossip_mix,
                      make_packed_fused_update, make_packed_gossip_mix,
                      packed_fused_local_update, replica_mean, wire_period,
@@ -26,6 +26,7 @@ from .topology import (BucketSubsetSchedule, GossipSchedule, build_schedule,
                        reachability, ring_partner)
 
 __all__ = ["LANE", "BucketLayout", "LeafSlot", "PackedParams", "build_layout",
+           "check_layout_mesh", "packed_param_specs",
            "exchange", "linear_pairs", "make_gossip_mix",
            "make_packed_fused_update", "make_packed_gossip_mix",
            "packed_fused_local_update", "replica_mean", "wire_period",

@@ -55,7 +55,7 @@ from repro_torch.kernels.quantize import (WireFormat, _mix32_np, _u32,
                                           zero_payload_like)
 from repro_torch.tree import tree_flatten, tree_map
 
-from .buckets import BucketLayout, PackedParams
+from .buckets import BucketLayout, PackedParams, check_layout_mesh
 from .replica_group import ReplicaGroup
 from .gossip import (_MODES, _check_dp, _mix_leaf, _phase, _RecvTables,
                      encode_bucket, exchange, packed_fused_local_update,
@@ -220,12 +220,15 @@ def make_packed_async_gossip_mix(schedule: GossipSchedule,
                                  staleness: int = 1, drop_rate: float = 0.0,
                                  drop_seed: int = 0,
                                  wire: WireFormat = WireFormat(),
-                                 group: Optional[ReplicaGroup] = None
-                                 ) -> Callable:
+                                 group: Optional[ReplicaGroup] = None,
+                                 mesh=None) -> Callable:
     """``mix(params, ring, phase) -> (params, ring)``, in place on the
     buckets: mix the oldest slot in (masked alpha, consumed buckets only),
     then dispatch the mixed buckets, encoded for the wire, with schedule row
-    ``phase``."""
+    ``phase``. ``mesh`` (a ``mesh_spec.MeshSpec``) is checked against a
+    shard-local layout's axes (``check_layout_mesh``)."""
+    if mesh is not None:
+        check_layout_mesh(layout, mesh)
     st = _Ring(schedule, layout, staleness=staleness, drop_rate=drop_rate,
                drop_seed=drop_seed, wire=wire, group=group)
 
@@ -253,13 +256,16 @@ def make_packed_fused_async_update(schedule: GossipSchedule,
                                    alpha: float = 0.5, staleness: int = 1,
                                    drop_rate: float = 0.0, drop_seed: int = 0,
                                    wire: WireFormat = WireFormat(),
-                                   group: Optional[ReplicaGroup] = None
-                                   ) -> Callable:
+                                   group: Optional[ReplicaGroup] = None,
+                                   mesh=None) -> Callable:
     """``update(params, grads, ring, opt_state, phase) -> (params,
     opt_state, ring)``: per bucket, dispatch the RAW pre-update bucket
     encoded for the wire, then one fused mix+update sweep (the optimizer's
     ``fused_update``) against the oldest slot's payload at the masked alpha
-    (the pure local update for a bucket outside the consumed subset)."""
+    (the pure local update for a bucket outside the consumed subset).
+    ``mesh`` as in ``make_packed_async_gossip_mix``."""
+    if mesh is not None:
+        check_layout_mesh(layout, mesh)
     st = _Ring(schedule, layout, staleness=staleness, drop_rate=drop_rate,
                drop_seed=drop_seed, wire=wire, group=group)
     local = packed_fused_local_update(layout, optimizer, alpha=alpha)

@@ -30,6 +30,13 @@ stacked) when it is built and passes it to both.
   updates run in place, so a bucket's exchange is taken right before that
   bucket's update, never after it.
 
+The packed engines sweep a shard-local (hierarchical) layout's buckets
+unchanged: shard s of a bucket is the row's stretch ``[s * stride, (s + 1)
+* stride)``, and the wire encodes the whole row keyed by the global element
+index, which is what the reference's per-shard encode at ``base_index = s *
+stride`` computes (``stride`` is a LANE multiple, so no scale tile crosses
+a shard).
+
 Both engines run one path for every ``wire`` (``kernels.quantize.
 WireFormat``): each bucket of the step's rotating subset is encoded on the
 dispatch side (row r keyed on the phase and rank r), its payload exchanged
@@ -54,7 +61,7 @@ from repro_torch.kernels.ops import gossip_mix_bucket
 from repro_torch.kernels.quantize import WireFormat, encode_wire, wire_key
 from repro_torch.tree import tree_flatten
 
-from .buckets import BucketLayout, PackedParams
+from .buckets import BucketLayout, PackedParams, check_layout_mesh
 from .replica_group import ReplicaGroup
 from .topology import (BucketSubsetSchedule, GossipSchedule,
                        build_subset_schedule)
@@ -307,9 +314,13 @@ def make_gossip_mix(schedule: GossipSchedule, *, alpha: float = 0.5,
 def make_packed_gossip_mix(schedule: GossipSchedule, layout: BucketLayout,
                            *, alpha: float = 0.5,
                            wire: WireFormat = WireFormat(),
-                           group: Optional[ReplicaGroup] = None) -> Callable:
+                           group: Optional[ReplicaGroup] = None,
+                           mesh=None) -> Callable:
     """``mix(packed, phase) -> packed``: one exchange + one in-place mix per
-    sent bucket."""
+    sent bucket. ``mesh`` (a ``mesh_spec.MeshSpec``) is checked against a
+    shard-local layout's axes (``check_layout_mesh``)."""
+    if mesh is not None:
+        check_layout_mesh(layout, mesh)
     recv = _RecvTables(schedule, group)
     subset = wire_subset_of(wire, layout.num_buckets)
     eff = wire_period(schedule, subset)
@@ -363,13 +374,16 @@ def make_packed_fused_update(schedule: Optional[GossipSchedule],
                              layout: BucketLayout, optimizer, *,
                              alpha: float = 0.5,
                              wire: WireFormat = WireFormat(),
-                             group: Optional[ReplicaGroup] = None
-                             ) -> Callable:
+                             group: Optional[ReplicaGroup] = None,
+                             mesh=None) -> Callable:
     """``update(params, grads, opt_state, phase) -> (params, opt_state)``,
     the synchronous fused engine. With a schedule each sent bucket mixes
     with the partner's pre-update bucket, encoded for the wire;
     with ``schedule=None`` (dp == 1 or a protocol without gossip) the same
-    kernel runs with alpha = 0."""
+    kernel runs with alpha = 0. ``mesh`` as in
+    ``make_packed_gossip_mix``."""
+    if mesh is not None:
+        check_layout_mesh(layout, mesh)
     local = packed_fused_local_update(
         layout, optimizer, alpha=alpha if schedule is not None else 0.0)
     if schedule is None:

@@ -126,7 +126,8 @@ def make_protocol(name: str, dp: int, *, topology: str = "dissemination",
                   packed_layout: BucketLayout | None = None,
                   seed: int = 0, wire_dtype: str = "fp32",
                   gossip_subset: float = 1.0, wire_seed: int = 0,
-                  group: Optional[ReplicaGroup] = None) -> Protocol:
+                  group: Optional[ReplicaGroup] = None,
+                  mesh=None) -> Protocol:
     """Protocol over ``dp`` replicas. The gossip protocols at dp > 1 build
     the schedule and the engine: the packed bucket engine with
     ``packed_layout``, else the per-leaf one (``mode`` and ``mix_impl``
@@ -134,7 +135,9 @@ def make_protocol(name: str, dp: int, *, topology: str = "dissemination",
     schedule for its averaging period. ``staleness`` is gossip_async's
     ring depth k; ``drop_rate`` and ``drop_seed`` drive its
     ``exchange_ok`` drop injection. ``group``: the replica group when this
-    process holds one replica (None: the replicas are stacked)."""
+    process holds one replica (None: the replicas are stacked). ``mesh``
+    (a ``mesh_spec.MeshSpec``) reaches the packed engines, which check a
+    shard-local layout against it."""
     if name not in PROTOCOLS:
         raise ValueError(f"unknown protocol {name!r}; options {PROTOCOLS}")
     if name == "gossip_async" and staleness < 1:
@@ -171,12 +174,12 @@ def make_protocol(name: str, dp: int, *, topology: str = "dissemination",
     else:
         if name == "gossip":
             mix = make_packed_gossip_mix(schedule, packed_layout, alpha=alpha,
-                                         wire=wire, group=group)
+                                         wire=wire, group=group, mesh=mesh)
         else:
             mix = make_packed_async_gossip_mix(
                 schedule, packed_layout, alpha=alpha, staleness=staleness,
                 drop_rate=drop_rate, drop_seed=drop_seed, wire=wire,
-                group=group)
+                group=group, mesh=mesh)
         period = wire_period(schedule,
                              wire_subset_of(wire, packed_layout.num_buckets))
     return Protocol(name=name, dp=dp, schedule=schedule, _mix=mix,

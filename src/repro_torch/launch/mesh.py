@@ -1,7 +1,14 @@
-"""One process per replica rank over ``torch.distributed``.
+"""The smoke mesh, and one process per replica rank over
+``torch.distributed``.
 
-Port of ``repro/launch/mesh.py`` (``make_smoke_mesh``'s data axis). The
-reference runs its replicas as the devices of one mesh and exchanges with
+Port of ``repro/launch/mesh.py`` (``make_smoke_mesh``).
+``make_smoke_mesh(data, model, pod)`` returns the mesh's description
+(``mesh_spec.MeshSpec``: the reference's axis names and order, no
+devices), which ``train.sharding.make_distribution`` turns into the
+distribution plan; on one device its replicas are stacked and its
+in-replica axes pick the shard-local bucket layout.
+
+The reference runs its replicas as the devices of one mesh and exchanges with
 ``ppermute`` inside ``shard_map``. Here a replica is a process: each holds
 one replica (a leading replica axis of size 1 on every tensor), and the
 three primitives that reach the other replicas run over the process group
@@ -33,9 +40,19 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.replica_group import ReplicaGroup
+from repro_torch.mesh_spec import MeshSpec
 
-__all__ = ["ReplicaGroup", "init_replica_group", "destroy_replica_group",
-           "world_from_env"]
+__all__ = ["ReplicaGroup", "make_smoke_mesh", "init_replica_group",
+           "destroy_replica_group", "world_from_env"]
+
+
+def make_smoke_mesh(data: int = 1, model: int = 1, pod: int = 1) -> MeshSpec:
+    """The mesh (data, model), or (pod, data, model) with ``pod > 1``: the
+    pod axis is the hierarchical (fsdp-mode) gossip domain."""
+    if pod > 1:
+        return MeshSpec(("pod", "data", "model"),
+                        (int(pod), int(data), int(model)))
+    return MeshSpec(("data", "model"), (int(data), int(model)))
 
 
 def world_from_env() -> int:

@@ -12,16 +12,27 @@ launcher always reduces the model, ``--smoke`` or not (``model_config``).
 ``--gossip-subset`` and ``--wire-seed`` (a compressed wire needs
 ``--packed``).
 
-``--smoke-mesh 1,DP,1`` runs DP replicas: stacked on the one device, or,
-when ``WORLD_SIZE`` > 1 (``torchrun``), one replica per process over
-``torch.distributed`` (gloo with ``--device cpu``, NCCL on
-``cuda:LOCAL_RANK``), DP equal to the world size; only rank 0 prints.
-``POD > 1``, ``MODEL > 1`` and ``--multi-pod`` raise
-``NotImplementedError`` naming their ROADMAP item, and so does
-``--checkpoint`` with one process per rank.
+``--smoke-mesh POD,DATA,MODEL`` builds the distribution plan
+``make_distribution(make_smoke_mesh(DATA, MODEL, pod=POD),
+cfg.dist_mode)`` as the reference does; its ``dp`` replicas (pod x data in
+``replica`` mode, pod in ``fsdp``) are stacked on the one device, and
+``--packed`` runs the shard-local bucket layout when the plan shards
+inside a replica (``MODEL > 1``, or fsdp's data axis); the final JSON line
+prints ``num_shards``. Without ``--packed``, ``MODEL > 1`` runs the
+per-leaf engine unchanged (on one device the model axis is only
+placement). ``--multi-pod`` is accepted and ignored: the reference ignores
+it on one device, where it always takes the smoke mesh.
+
+When ``WORLD_SIZE`` > 1 (``torchrun``) the DP replicas run one per
+process over ``torch.distributed`` (gloo with ``--device cpu``, NCCL on
+``cuda:LOCAL_RANK``), DP equal to the world size; only rank 0 prints. A
+plan that shards inside a replica raises ``NotImplementedError`` there
+(ROADMAP A.12b), and so does ``--checkpoint`` (ROADMAP A.1).
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --smoke --packed --smoke-mesh 1,2,2 --steps 8 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
 """
@@ -36,10 +47,12 @@ from repro_torch.checkpoint import (checkpoint_exists, read_manifest,
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data import ShardedTokenDataset
 from repro_torch.launch.mesh import (destroy_replica_group,
-                                     init_replica_group, world_from_env)
+                                     init_replica_group, make_smoke_mesh,
+                                     world_from_env)
 from repro_torch.models import reduced
 from repro_torch.optim import scale_lr_sqrt_p, sgd, step_decay
-from repro_torch.train import Trainer, init_train_state, make_train_step_bundle
+from repro_torch.train import (Trainer, init_train_state, make_distribution,
+                               make_train_step_bundle)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -75,10 +88,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "anyway: its replicas share one device, and the "
                     "reference reduces on one device)")
     ap.add_argument("--smoke-mesh", default="1,1,1", metavar="POD,DATA,MODEL",
-                    help="DATA replicas, stacked on the one device or one "
-                    "per process under torchrun; POD and MODEL must be 1 "
-                    "in this slice")
-    ap.add_argument("--multi-pod", action="store_true")
+                    help="the mesh the distribution plan runs over: its "
+                    "replicas stacked on the one device (or one per "
+                    "process under torchrun), its in-replica axes the "
+                    "shard-local bucket layout under --packed")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="ignored on one device, as in the reference")
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--resume", action="store_true",
@@ -111,44 +126,44 @@ def lr_schedule(args: argparse.Namespace, dp: int):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "multi-pod meshes (ROADMAP A.12) are not ported yet")
-
-    pod, dp, model = (int(x) for x in args.smoke_mesh.split(","))
-    if pod > 1 or model > 1:
-        raise NotImplementedError(
-            "pod > 1 and model > 1 need multi-device meshes (ROADMAP A.12); "
-            "this slice runs DATA replicas only")
+    pod, data, model = (int(x) for x in args.smoke_mesh.split(","))
+    dist = make_distribution(make_smoke_mesh(data, model, pod=pod),
+                             model_config(args).dist_mode)
     world = world_from_env()
     if world > 1:
-        if world != dp:
-            raise ValueError(f"--smoke-mesh gives {dp} replicas but "
+        if world != dist.dp:
+            raise ValueError(f"--smoke-mesh gives {dist.dp} replicas but "
                              f"WORLD_SIZE is {world}")
+        if dist.shard_axes:
+            raise NotImplementedError(
+                f"one process per rank with in-replica shards (axes "
+                f"{dist.shard_axes}) is not ported yet (ROADMAP A.12b: "
+                "in-pod FSDP on a DeviceMesh)")
         if args.checkpoint:
             raise NotImplementedError(
                 "checkpoints of one process per rank are not ported yet "
                 "(ROADMAP A.1)")
         group = init_replica_group(args.device)
         try:
-            _run(args, dp, group.device, group.rank == 0, group)
+            _run(args, dist, group.device, group.rank == 0, group)
         finally:
             destroy_replica_group()
     else:
-        _run(args, dp, args.device, True)
+        _run(args, dist, args.device, True)
 
 
-def _run(args, dp: int, device, report: bool, group=None) -> None:
+def _run(args, dist, device, report: bool, group=None) -> None:
     cfg = model_config(args)
+    dp = dist.dp
     opt = sgd(lr_schedule(args, dp), momentum=0.9)
     bundle = make_train_step_bundle(
-        cfg, opt, dp=dp, protocol=args.protocol, topology=args.topology,
+        cfg, opt, dist=dist, protocol=args.protocol, topology=args.topology,
         num_rotations=args.num_rotations, gossip_packed=args.packed,
         staleness=args.staleness, drop_rate=args.drop_timeout,
         drop_seed=args.drop_seed, wire_dtype=args.wire_dtype,
         gossip_subset=args.gossip_subset, wire_seed=args.wire_seed,
         fused_update=args.fused_update, device=device, group=group)
-    state = init_train_state(cfg, opt, dp=dp, packed=args.packed,
+    state = init_train_state(cfg, opt, dist=dist, packed=args.packed,
                              layout=bundle.layout, seed=0, device=device,
                              inbox=bundle.protocol.staleness,
                              wire=bundle.wire, group=group)
@@ -172,7 +187,9 @@ def _run(args, dp: int, device, report: bool, group=None) -> None:
     if report:
         print(json.dumps({"arch": cfg.name, "protocol": args.protocol,
                           "packed": args.packed, "fused": bundle.fused,
-                          "dp": dp, "staleness": bundle.protocol.staleness,
+                          "dp": dp, "num_shards": (bundle.layout.num_shards
+                                                   if bundle.layout else 1),
+                          "staleness": bundle.protocol.staleness,
                           "wire_dtype": args.wire_dtype,
                           "gossip_subset": args.gossip_subset,
                           "final_loss": hist[-1]["loss"],

@@ -30,14 +30,17 @@ NEG_INF = -1e30
 def attn_init(d_model: int, spec: AttnSpec, dtype=torch.float32):
     H, K, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     assert H % K == 0, (H, K)
-    p = {"wq": dense_param(d_model, (H, hd), dtype=dtype),
-         "wk": dense_param(d_model, (K, hd), dtype=dtype),
-         "wv": dense_param(d_model, (K, hd), dtype=dtype),
-         "wo": Param((H, hd, d_model), scale=1.0 / math.sqrt(H * hd),
-                     dtype=dtype)}
+    p = {"wq": dense_param(d_model, (H, hd), "embed", ("heads", "head_dim"),
+                           dtype=dtype),
+         "wk": dense_param(d_model, (K, hd), "embed",
+                           ("kv_heads", "head_dim"), dtype=dtype),
+         "wv": dense_param(d_model, (K, hd), "embed",
+                           ("kv_heads", "head_dim"), dtype=dtype),
+         "wo": Param((H, hd, d_model), ("heads", "head_dim", "embed"),
+                     scale=1.0 / math.sqrt(H * hd), dtype=dtype)}
     if spec.qk_norm:  # Qwen3-style per-head RMSNorm on q and k
-        p["q_norm"] = Param((hd,), init="ones", dtype=dtype)
-        p["k_norm"] = Param((hd,), init="ones", dtype=dtype)
+        p["q_norm"] = Param((hd,), ("head_dim",), init="ones", dtype=dtype)
+        p["k_norm"] = Param((hd,), ("head_dim",), init="ones", dtype=dtype)
     return p
 
 

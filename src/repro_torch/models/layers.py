@@ -2,13 +2,14 @@
 
 Port of ``repro/models/layers.py`` (``Param``/``dense_param`` init rules,
 ``norm_init``/``norm_apply``, ``mlp_init``/``mlp_apply``, ``embed_init``,
-``silu``, ``dtype_of``) for the kinds the dense attention and Mamba-1
-families use: the layer norm, the parameter-free norm and the GELU MLP wait
-for the families that need them (ROADMAP A.13). Init is split in two:
-``*_init`` functions return ``ParamSpec`` trees (shape, dtype and the
-reference's distribution), and ``draw`` makes a tensor of one from a
-``torch.Generator`` (``models.transformer.lm_init`` draws the tree). The
-draws cannot reproduce ``jax.random``'s bits; parity tests bridge the
+``silu``, ``dtype_of``, ``ax``, ``ax_names``) for the kinds the dense
+attention and Mamba-1 families use: the layer norm, the parameter-free norm
+and the GELU MLP wait for the families that need them (ROADMAP A.13). Init
+is split in two: ``*_init`` functions return ``ParamSpec`` trees (shape,
+dtype, the reference's distribution and its logical-axes annotation, which
+``train.sharding`` maps onto mesh axes), and ``draw`` makes a tensor of one
+from a ``torch.Generator`` (``models.transformer.lm_init`` draws the tree).
+The draws cannot reproduce ``jax.random``'s bits; parity tests bridge the
 reference's weights in (``checkpoint/bridge.py``).
 
 Every weight carries a leading replica axis ``(dp, ...)`` and activations
@@ -24,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["ParamSpec", "Param", "draw", "dense_param", "dtype_of", "silu",
+           "ax", "ax_names",
            "norm_init", "norm_apply", "mlp_init", "mlp_apply", "embed_init",
            "per_replica", "replica_matmul"]
 
@@ -33,26 +35,44 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def ax(*names) -> str:
+    """A logical-axes annotation as one string, one comma-separated segment
+    per dim ("embed,heads,head_dim"; an empty segment is an unannotated
+    dim), as the reference encodes it."""
+    return ",".join("" if n is None else str(n) for n in names)
+
+
+def ax_names(annotation: str) -> Tuple[Optional[str], ...]:
+    return tuple(n if n else None for n in annotation.split(","))
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """One parameter leaf before it is drawn (see ``draw`` for the kinds)."""
+    """One parameter leaf before it is drawn (see ``draw`` for the kinds).
+    ``axes`` is its logical-axes annotation (``ax``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
     init: str = "normal"  # "normal" | "ones" | "zeros" | "dt_bias" | "A_log"
     scale: float = 1.0
+    axes: str = ""
 
     def stacked(self, repeats: int) -> "ParamSpec":
-        return dataclasses.replace(self, shape=(repeats,) + self.shape)
+        """The spec under a leading repeat axis, left unannotated."""
+        return dataclasses.replace(self, shape=(repeats,) + self.shape,
+                                   axes="," + self.axes)
 
 
-def Param(shape, *, scale: Optional[float] = None, dtype=torch.float32,
+def Param(shape, axes, *, scale: Optional[float] = None, dtype=torch.float32,
           init: str = "normal") -> ParamSpec:
     """The reference's ``Param`` rule: default scale 1/sqrt(fan_in) with
-    fan_in = shape[0]."""
+    fan_in = shape[0]; ``axes`` names each dim's logical axis (or None)."""
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} differ "
+                         "in length")
     if init == "normal" and scale is None:
         scale = 1.0 / math.sqrt(max(shape[0], 1))
     return ParamSpec(tuple(shape), dtype, init,
-                     1.0 if scale is None else float(scale))
+                     1.0 if scale is None else float(scale), ax(*axes))
 
 
 def draw(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
@@ -82,11 +102,13 @@ def draw(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
                        device=device).mul_(spec.scale).to(spec.dtype)
 
 
-def dense_param(d_in: int, out_shape, *, dtype=torch.float32, scale=None):
+def dense_param(d_in: int, out_shape, in_axis, out_axes, *,
+                dtype=torch.float32, scale=None):
     """Weight (d_in, *out_shape) with fan-in init."""
     if scale is None:
         scale = 1.0 / math.sqrt(d_in)
-    return Param((d_in,) + tuple(out_shape), scale=scale, dtype=dtype)
+    return Param((d_in,) + tuple(out_shape), (in_axis,) + tuple(out_axes),
+                 scale=scale, dtype=dtype)
 
 
 def per_replica(w: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -115,7 +137,7 @@ def _check_kind(kind: str, ported: str) -> None:
 
 def norm_init(kind: str, d: int, dtype=torch.float32) -> Dict:
     _check_kind(kind, "rms")
-    return {"scale": Param((d,), init="ones", dtype=dtype)}
+    return {"scale": Param((d,), ("embed",), init="ones", dtype=dtype)}
 
 
 def norm_apply(kind: str, params: Dict, x: torch.Tensor, eps: float = 1e-6):
@@ -129,9 +151,9 @@ def norm_apply(kind: str, params: Dict, x: torch.Tensor, eps: float = 1e-6):
 # ---------------------------------------------------------------- MLP
 def mlp_init(d: int, d_ff: int, act: str, dtype=torch.float32) -> Dict:
     _check_kind(act, "swiglu")
-    return {"w_gate": dense_param(d, (d_ff,), dtype=dtype),
-            "w_in": dense_param(d, (d_ff,), dtype=dtype),
-            "w_out": dense_param(d_ff, (d,), dtype=dtype)}
+    return {"w_gate": dense_param(d, (d_ff,), "embed", ("ffn",), dtype=dtype),
+            "w_in": dense_param(d, (d_ff,), "embed", ("ffn",), dtype=dtype),
+            "w_out": dense_param(d_ff, (d,), "ffn", ("embed",), dtype=dtype)}
 
 
 def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
@@ -143,4 +165,4 @@ def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
 
 # ---------------------------------------------------------------- embedding
 def embed_init(vocab: int, d: int, dtype=torch.float32) -> ParamSpec:
-    return Param((vocab, d), scale=0.02, dtype=dtype)
+    return Param((vocab, d), ("vocab", "embed"), scale=0.02, dtype=dtype)

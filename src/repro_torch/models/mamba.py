@@ -32,16 +32,21 @@ def mamba_init(d_model: int, spec: SSMSpec, dtype=torch.float32) -> Dict:
     d_in = spec.expand * d_model
     dt_rank = spec.resolved_dt_rank(d_model)
     return {
-        "in_proj": dense_param(d_model, (2 * d_in,), dtype=dtype),
-        "conv_w": Param((spec.d_conv, d_in), scale=1.0 / math.sqrt(spec.d_conv),
-                        dtype=dtype),
-        "conv_b": Param((d_in,), init="zeros", dtype=dtype),
-        "x_proj": dense_param(d_in, (dt_rank + 2 * spec.d_state,), dtype=dtype),
-        "dt_proj": dense_param(dt_rank, (d_in,), dtype=dtype),
-        "dt_bias": Param((d_in,), init="dt_bias", dtype=dtype),
-        "A_log": Param((d_in, spec.d_state), init="A_log", dtype=dtype),
-        "D": Param((d_in,), init="ones", dtype=dtype),
-        "out_proj": dense_param(d_in, (d_model,), dtype=dtype),
+        "in_proj": dense_param(d_model, (2 * d_in,), "embed", ("inner",),
+                               dtype=dtype),
+        "conv_w": Param((spec.d_conv, d_in), (None, "inner"),
+                        scale=1.0 / math.sqrt(spec.d_conv), dtype=dtype),
+        "conv_b": Param((d_in,), ("inner",), init="zeros", dtype=dtype),
+        "x_proj": dense_param(d_in, (dt_rank + 2 * spec.d_state,), "inner",
+                              (None,), dtype=dtype),
+        "dt_proj": dense_param(dt_rank, (d_in,), None, ("inner",),
+                               dtype=dtype),
+        "dt_bias": Param((d_in,), ("inner",), init="dt_bias", dtype=dtype),
+        "A_log": Param((d_in, spec.d_state), ("inner", None), init="A_log",
+                       dtype=dtype),
+        "D": Param((d_in,), ("inner",), init="ones", dtype=dtype),
+        "out_proj": dense_param(d_in, (d_model,), "inner", ("embed",),
+                                dtype=dtype),
     }
 
 

@@ -4,7 +4,9 @@ Port of ``repro/models/transformer.py`` (``lm_init``, ``lm_apply``,
 ``_embed_lookup``, ``_unembed``) for the dense attention and Mamba-1
 families.
 ``lm_specs`` gives the param tree as ``ParamSpec``s (the reference's leaf
-paths and shapes, nothing allocated); ``lm_init`` draws it from a
+paths and shapes, nothing allocated); ``lm_axes`` their logical-axes
+annotations, the tree the reference's ``lm_init`` returns second;
+``lm_init`` draws the params from a
 ``torch.Generator`` with the reference's distributions (``layers.draw``:
 normal x fan-in scale, embedding scale 0.02, norm scales of one, Mamba's
 dt bias and A_log). ``lm_apply`` takes params
@@ -20,14 +22,14 @@ from typing import Dict
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_flatten
+from repro_torch.tree import tree_flatten, tree_map
 
 from . import blocks as B
 from .config import ModelConfig
 from .layers import (Param, draw, dtype_of, embed_init, norm_apply, norm_init,
                      replica_matmul)
 
-__all__ = ["lm_specs", "lm_init", "lm_apply"]
+__all__ = ["lm_specs", "lm_axes", "lm_init", "lm_apply"]
 
 
 def lm_specs(cfg: ModelConfig) -> Dict:
@@ -37,9 +39,15 @@ def lm_specs(cfg: ModelConfig) -> Dict:
     p["layers"], _ = B.stack_init(cfg, cfg.blocks, dtype)
     p["final_norm"] = norm_init(cfg.norm, cfg.d_model, dtype)
     if not cfg.tie_embeddings:
-        p["lm_head"] = Param((cfg.d_model, cfg.vocab),
+        p["lm_head"] = Param((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                              scale=cfg.d_model ** -0.5, dtype=dtype)
     return p
+
+
+def lm_axes(cfg: ModelConfig) -> Dict:
+    """Logical-axes annotation of every leaf of ``lm_specs(cfg)`` (a string
+    per leaf, ``layers.ax``); the stacked layer axis is unannotated."""
+    return tree_map(lambda s: s.axes, lm_specs(cfg))
 
 
 def lm_init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:

@@ -28,9 +28,14 @@ Step-dependent scalars (the learning rate, adamw's bias corrections
 order; XLA's float32 ``pow`` may differ from numpy's by an ulp or two
 (ROADMAP C).
 
-The port runs only flat (not shard-local) packed layouts, so ``Optimizer``
-carries no ``elementwise`` / ``packed_aware`` / ``fused_shard_local``
-fields yet (ROADMAP A.12).
+``Optimizer`` carries the reference's ``elementwise``, ``packed_aware``
+and ``fused_shard_local`` fields: sgd and adamw are elementwise, so they
+sweep any bucket layout; lars reads per-layer norms through the
+``PackedParams.unpack()`` view (packed-aware). On a shard-local layout the
+unpacked leaves are assembled copies, so lars's tree-level update takes
+each norm over the whole leaf and writes the results back into the
+buckets; its fused backend, whose prepass reads one bucket at a time, is
+refused there, as in the reference.
 """
 from __future__ import annotations
 
@@ -64,6 +69,15 @@ class Optimizer:
     #              layout=None) -> (p, moments), in place; partner is a
     #              wire payload or None, alpha a float or a (dp,) tensor
     fused_update: Callable | None = None
+    # True when update is elementwise per bucket or leaf, so the bucketed
+    # engines may run it over whole buckets (sgd, adamw)
+    elementwise: bool = True
+    # a non-elementwise update that reads its per-leaf norms through the
+    # ``PackedParams.unpack()`` view (lars)
+    packed_aware: bool = False
+    # False when the fused backend cannot run on shard-local layouts
+    # (lars: its norm prepass reads one bucket, a layer spans shards)
+    fused_shard_local: bool = True
 
 
 def _parts(x):
@@ -198,7 +212,15 @@ def _lars_row_scale(layout, bucket_idx: int, p, g, partner, *, alpha,
     zero, so the row sums see exactly each slot's values; the summation
     order differs from the reference's ``jnp.linalg.norm`` (and is not
     fixed on CUDA, where ``index_add_`` adds atomically), so the ratios
-    match the reference's to fp32 rounding, not bit for bit."""
+    match the reference's to fp32 rounding, not bit for bit. A shard-local
+    layout raises: a layer's pieces lie in every shard."""
+    if layout.num_shards > 1:
+        raise ValueError(
+            "lars has no fused backend for shard-local (hierarchical) "
+            "layouts: the trust ratio needs per-LAYER norms and each shard "
+            "holds only its piece of every layer; use sgd/adamw, or lars "
+            "with fused_update=False (its tree-level update reads whole "
+            "leaves through the unpack view)")
     n = int(p.shape[-1])
     rows = n // LANE
     row_map, nslots = layout.row_slots(bucket_idx, p.device)
@@ -245,10 +267,12 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
         Each norm spans
         the leaf AS GIVEN, i.e. across the stacked replica axis, exactly as
         the reference's unfused trainer computes it on its global arrays
-        (ROADMAP C); the fused backend's prepass is per replica row."""
+        (ROADMAP C); the fused backend's prepass is per replica row. On a
+        shard-local layout the leaves are assembled copies, updated and
+        then packed back into the buckets."""
         lr = sched(state["step"])
-        for p, g, m in zip(leaves(params), leaves(grads),
-                           leaves(state["mom"])):
+        ps, ms = leaves(params), leaves(state["mom"])
+        for p, g, m in zip(ps, leaves(grads), ms):
             pf, gf = p.float(), g.float()
             if weight_decay:
                 gf = gf + weight_decay * pf
@@ -256,6 +280,10 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
                            _sqrt_rn((gf * gf).sum()), **hyper)
             m.copy_(momentum * m + gf * trust)
             p.copy_((pf - lr * m).to(p.dtype))
+        if isinstance(params, PackedParams) and params.layout.hierarchical:
+            lay = params.layout
+            lay.pack_into(params.buckets, lay.treedef.unflatten(ps))
+            lay.pack_into(state["mom"].buckets, lay.treedef.unflatten(ms))
         return params, {"step": state["step"] + 1, "mom": state["mom"]}
 
     def fused_update(bucket_idx, p, g, partner, moments, *, step, alpha,
@@ -279,4 +307,5 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
         return new_p, (new_m,)
 
     return Optimizer(init, update, fused_moments=("mom",),
-                     fused_update=fused_update)
+                     fused_update=fused_update, elementwise=False,
+                     packed_aware=True, fused_shard_local=False)

@@ -438,7 +438,7 @@ def test_step_rotates_batches_under_gossip_async():
     assert state["inbox"]["t"] == 1
 
 
-def test_launcher_runs_gossip_async_wire(capsys):
+def test_launcher_runs_gossip_async_wire(capsys, monkeypatch):
     from repro_torch.launch.train import main
     main(["--smoke", "--packed", "--smoke-mesh", "1,4,1", "--steps", "2",
           "--seq-len", "8", "--global-batch", "8", "--d-model", "32",
@@ -447,5 +447,8 @@ def test_launcher_runs_gossip_async_wire(capsys):
           "--gossip-subset", "0.5", "--no-fused-update"])
     out = capsys.readouterr().out
     assert '"staleness": 2' in out and '"fused": false' in out
+    # one process per rank with in-replica shards is not ported
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        main(["--smoke", "--packed", "--multi-pod", "--device", "cpu"])
+        main(["--smoke", "--packed", "--multi-pod", "--smoke-mesh", "1,2,2",
+              "--device", "cpu"])

@@ -14,7 +14,9 @@ plain output plus 2e-5 (the final cast splits an fp32 gap below 2e-5);
 refused launches raise, and so does a call that autograd would record.
 Beside the kernels: the replica mean of ``agd`` and ``every_logp`` equals
 the CPU's bit for bit, and a state trained and saved on the card restores
-on the CPU bit for bit.
+on the CPU bit for bit; a shard-local (fsdp) layout's pack, unpack and
+packed gradient, and a fused step over its buckets, equal the CPU's bit for
+bit.
 
 Marked ``cuda``; they skip on a machine without a card. This file imports
 neither JAX nor the reference, so on a machine with a card and no JAX it
@@ -752,3 +754,91 @@ def test_leaf_engines_with_the_kernel_match_the_oracle(cuda_device, drop):
         assert all(torch.equal(ring["slots"][-1][k], wring["slots"][-1][k])
                    for k in tree)
         assert (ring["valid"] == wring["valid"]).all()
+
+
+def _shard_local_layout(dtype):
+    """Reduced qwen3's shard-local layout under fsdp on mesh (2, 2, 2):
+    dp 2 over the pods, 4 shards over (data, model)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import reduced
+    from repro_torch.train import make_distribution
+    from repro_torch.train.step import _build_packed_layout
+    cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b"), d_model=64),
+                              param_dtype=dtype, compute_dtype="float32",
+                              dist_mode="fsdp")
+    dist = make_distribution(make_smoke_mesh(2, 2, pod=2), "fsdp")
+    layout = _build_packed_layout(dist, cfg)
+    assert layout.num_shards == 4
+    return cfg, dist, layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_shard_local_pack_unpack_on_card_match_cpu(cuda_device, dtype):
+    """Pack, unpack and the packed gradient of a shard-local layout on the
+    card equal the CPU's bit for bit."""
+    from repro_torch.core import PackedParams
+    from repro_torch.models import lm_init
+    from repro_torch.tree import tree_flatten
+    cfg, dist, layout = _shard_local_layout(dtype)
+    init = lm_init(cfg, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        packed = PackedParams.pack(init, layout, lead=(dist.dp,), device=dev)
+        for b in packed.buckets:
+            b.requires_grad_(True)
+        leaves = tree_flatten(packed.unpack())[0]
+        sum((x.float() ** 2).sum() for x in leaves).backward()
+        out[str(dev)] = ([b.detach().cpu() for b in packed.buckets],
+                         [x.detach().cpu() for x in leaves],
+                         [b.grad.cpu() for b in packed.buckets])
+    ints = {2: torch.int16, 4: torch.int32}
+    for a, b in zip(*(sum(out[k], []) for k in ("cpu", str(cuda_device)))):
+        assert torch.equal(a.view(ints[a.element_size()]),
+                           b.view(ints[b.element_size()]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_name", ["sgd", "adamw"])
+def test_shard_local_fused_step_on_card_matches_cpu(cuda_device, opt_name):
+    """One synchronous fused mix+update step over the shard-local buckets
+    (dp 2) through the kernels equals the plain versions on the CPU, bit
+    for bit."""
+    from repro_torch.core import (PackedParams, build_schedule,
+                                  make_packed_fused_update)
+    from repro_torch.optim import adamw, sgd
+    cfg, dist, layout = _shard_local_layout("bfloat16")
+    opt = (adamw(1e-3, weight_decay=0.02) if opt_name == "adamw"
+           else sgd(0.1, momentum=0.9))
+    gen = torch.Generator().manual_seed(7)
+    p0 = [torch.randn(dist.dp, n, generator=gen).to(torch.bfloat16)
+          for n in layout.bucket_sizes]
+    g0 = [torch.randn(dist.dp, n, generator=gen).to(torch.bfloat16)
+          for n in layout.bucket_sizes]
+    counter = (fused_update.adamw_launches if opt_name == "adamw"
+               else fused_update.launches)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        # copies: the engine updates in place, and .to() of a CPU tensor
+        # to the CPU is the tensor itself
+        params = PackedParams([b.to(dev).clone() for b in p0], layout)
+        grads = PackedParams([b.to(dev).clone() for b in g0], layout)
+        st = opt.init(params)
+        eng = make_packed_fused_update(build_schedule(dist.dp), layout, opt,
+                                       mesh=dist.mesh)
+        before = counter.count
+        for phase in range(2):
+            params, st = eng(params, grads, st, phase)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert counter.count == before + 2 * layout.num_buckets
+        moms = [st[k].buckets for k in opt.fused_moments]
+        out[str(dev)] = [b.cpu() for b in params.buckets] + [
+            b.cpu() for m in moms for b in m]
+    ints = {2: torch.int16, 4: torch.int32}
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert torch.equal(a.view(ints[a.element_size()]),
+                           b.view(ints[b.element_size()]))

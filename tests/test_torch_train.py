@@ -194,16 +194,23 @@ def test_dp1_matches_reference_in_process():
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **TOL)
 
 
-def test_launcher_runs_and_refuses_unported_meshes(capsys):
+def test_launcher_runs_and_refuses_unported_meshes(capsys, monkeypatch):
+    """Every --smoke-mesh runs stacked on one device (POD x DATA replicas
+    in replica mode, the model axis a shard-local layout under --packed)
+    and --multi-pod is ignored there, as in the reference; one process per
+    rank with in-replica shards is refused, naming its ROADMAP entry."""
     from repro_torch.launch.train import main
-    main(["--smoke", "--packed", "--smoke-mesh", "1,2,1", "--steps", "2",
-          "--seq-len", "8", "--global-batch", "4", "--d-model", "32",
-          "--log-every", "0", "--device", "cpu"])
+    small = ["--steps", "2", "--seq-len", "8", "--global-batch", "4",
+             "--d-model", "32", "--log-every", "0", "--device", "cpu"]
+    main(["--smoke", "--packed", "--smoke-mesh", "1,2,1", *small])
     assert '"fused": true' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--smoke", "--packed", "--smoke-mesh", "2,2,1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--smoke", "--multi-pod", "--device", "cpu"])
+    main(["--smoke", "--packed", "--smoke-mesh", "2,2,1", *small])
+    assert '"dp": 4, "num_shards": 1' in capsys.readouterr().out
+    main(["--smoke", "--multi-pod", *small])
+    assert '"dp": 1' in capsys.readouterr().out
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12b"):
+        main(["--smoke", "--packed", "--smoke-mesh", "1,2,2", *small])
 
 
 def _on_port_fields(ref, port):
