@@ -147,6 +147,27 @@ package ``repro``. Phases, each of which fails the run on any error:
     ``gossip_mix_sim_quantized_k`` on the shard-local buckets, bit for
     bit.
 
+14. Serving (no kernel on its path: the reference's prefill runs ``_sdpa``
+    and ``ssm_assoc_scan``, its decode plain jnp; every launch count must
+    stay 0). ``[serve_qwen]``: qwen3-0.6b at full width and depth (28
+    layers, bf16, random weights from seed 0) in ``ServingEngine(max_seq=
+    32768)``, decode_32k's cache length (30 GB of KV cache at batch 8):
+    batch 8, a 512-token prompt, 32 new tokens. Two ``generate`` calls
+    (equal tokens), then prefill timed (the first call apart, the median of
+    3), decode ms per token (per-step CUDA events, median), tokens/s, peak
+    memory, the cache's GB, the decode byte bound (every param and cache
+    slot read once, the written slots and logits once) and its share, and
+    one decode step profiled (``[profile serve_qwen]``: busy ms, idle
+    share); the prefill's last-position logits against ``lm_apply``'s
+    within two bf16 ulps of the largest logit. ``[serve_mamba]``: the same
+    for falcon-mamba-7b at full width and depth (64 layers, 7.27 G params;
+    the state is O(1) per layer). ``[serve_agree]``: reduced fp32 qwen3,
+    qwen3 with a 4-slot sliding window (a 12-token prompt) and falcon-mamba:
+    prefill and each decode step's logits and every cache leaf on the card
+    against the CPU within rtol = atol = 2e-4, prefill(t[:-1]) +
+    decode(t[-1]) against ``lm_apply(t)[:, -1]`` on the card within 2e-4,
+    greedy tokens equal on card and CPU and in two calls on the card.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -187,6 +208,9 @@ KERNELS = ("gossip_mix", "gossip_mix_q", "fused_sgd", "fused_sgd_q") \
 SSM_SHAPE = (2, 4096, 8192, 16)   # falcon-mamba's scan at 2 x 4096 tokens
 EVAL_B, EVAL_S, EVAL_FORWARDS = 2, 4096, 3   # train_4k's length
 ATTN_S, ATTN_S_LONG = 4096, 32768            # and prefill_32k's
+# serving at full width: decode_32k's cache length, batch 8, a 512-token
+# prompt, 32 new tokens
+SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 8, 512, 32, 32768
 # learning rates on step_decay: the full-width paths, and the small agree
 # runs (AdamW's as the CPU tests: tests/test_torch_optim.py)
 FULL_LR = {"sgd": 0.1, "adamw": 0.01, "lars": 0.1}
@@ -898,7 +922,8 @@ def phase_flash_path(dev, S=ATTN_S, cfg=None):
                  attn_init(cfg.d_model, spec, torch.bfloat16))
     x = torch.randn((1, 1, S, cfg.d_model), generator=gen,
                     device=dev).to(torch.bfloat16)
-    q, k, v = _project_qkv(p, spec, x, torch.arange(S, device=dev)[None])
+    pos = torch.arange(S, device=dev)[None]
+    q, k, v = _project_qkv(p, spec, x, x, pos, pos)
     rep = spec.n_heads // spec.n_kv_heads
     q = q[0].transpose(1, 2).contiguous()                  # (1, H, S, hd)
     k, v = (t[0].repeat_interleave(rep, 2).transpose(1, 2).contiguous()
@@ -1018,7 +1043,7 @@ def phase_mamba_eval(dev, cfg=None, forwards=EVAL_FORWARDS, profile=True):
     return res
 
 
-def profile_forward(name, fn, step_ms) -> None:
+def profile_forward(name, fn, step_ms) -> dict:
     """One forward under torch.profiler (no_grad), device-side events only:
     busy time, the idle share against the unprofiled forward, the scan's
     share, and the largest kernels."""
@@ -1034,13 +1059,14 @@ def profile_forward(name, fn, step_ms) -> None:
     groups = {g: sum(ms for k, ms, _ in rows if g in k.lower())
               for g in ("ssm_scan_kernel", "gemm", "nvjet", "elementwise",
                         "reduce", "cat")}
-    log(f"[profile {name}] " + json.dumps({
-        "device_busy_ms": busy, "forward_ms_unprofiled": step_ms,
-        "idle_share": 1.0 - busy / step_ms, "profiled_wall_ms": wall_ms,
-        "scan_share_of_busy": groups["ssm_scan_kernel"] / busy,
-        "device_ops": sum(r[2] for r in rows),
-        "device_ms_by_kernel_name": groups}))
+    rec = {"device_busy_ms": busy, "forward_ms_unprofiled": step_ms,
+           "idle_share": 1.0 - busy / step_ms, "profiled_wall_ms": wall_ms,
+           "scan_share_of_busy": groups["ssm_scan_kernel"] / busy,
+           "device_ops": sum(r[2] for r in rows),
+           "device_ms_by_kernel_name": groups}
+    log(f"[profile {name}] " + json.dumps(rec))
     _log_top(name, rows)
+    return rec
 
 
 def phase_mamba_agree(dev, cfg=None, b=EVAL_B, seq=EVAL_S):
@@ -1082,6 +1108,219 @@ def phase_mamba_agree(dev, cfg=None, b=EVAL_B, seq=EVAL_S):
         f"{small.d_model}): card vs cpu within 2e-4={ok} "
         f"max_abs_err={_diff(got, want)}")
     assert ok, "card and CPU logits disagree"
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_flatten
+    return sum(w.numel() * w.element_size() for w in tree_flatten(tree)[0])
+
+
+def _decode_bytes(cfg, params, cache, batch: int) -> int:
+    """What one decode step must move: every param and every cache slot
+    read once (attention reads all L slots whatever the fill), the token's
+    slot of each attention layer and the whole Mamba state written once,
+    the logits written once."""
+    from repro_torch.models import segments_of
+    written = 0
+    for (pattern, R), seg in zip(segments_of(cfg.blocks), cache):
+        for spec, c in zip(pattern, seg):
+            if spec.kind == "attn":
+                k = c["kv"]["k"]
+                written += 2 * R * batch * k.shape[3] * k.shape[4] \
+                    * k.element_size()
+            else:
+                written += _tree_bytes(c)
+    logits = batch * cfg.vocab * torch.finfo(
+        params["embed"].dtype).bits // 8
+    return _tree_bytes(params) + _tree_bytes(cache) + written + logits
+
+
+def phase_serve(name, cfg, dev, *, batch=SERVE_B, prompt=SERVE_PROMPT,
+                new=SERVE_NEW, max_seq=SERVE_MAX_SEQ, profile=True):
+    """Full-width serving through ``ServingEngine``: two ``generate`` calls
+    (equal tokens, no kernel launched: the reference's serving path reaches
+    none), then prefill timed (the first call apart, the median of 3 more),
+    ``new`` decode steps timed (per-step CUDA events, median; tokens/s over
+    the loop's wall time), peak memory, the cache, the decode byte bound and
+    one decode step profiled; last, the prefill's last-position logits
+    against ``lm_apply``'s within two bf16 ulps of the largest logit."""
+    from repro_torch.models import (lm_apply, lm_cache_init, lm_decode,
+                                    lm_init, lm_prefill)
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tree import tree_flatten, tree_map
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, lm_init(cfg, seed=0, device=dev),
+                           max_seq=max_seq, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = engine.params
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, prompt)).astype(np.int32)
+    toks = torch.as_tensor(prompts, dtype=torch.int64).to(dev)
+    res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "batch": batch, "prompt": prompt, "new_tokens": new,
+           "max_seq": max_seq, "param_gb": _tree_bytes(params) / 1e9,
+           "init_s": init_s}
+    with torch.inference_mode():
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, new)
+        res["generate_first_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = engine.generate(prompts, new)
+        res["generate_s"] = time.perf_counter() - t0
+        res["launches"] = _counts()
+        res["generate_equal"] = bool(np.array_equal(out, again))
+        cache = lm_cache_init(cfg, batch, max_seq, device=dev)
+        res["cache_gb"] = _tree_bytes(cache) / 1e9
+        pre = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm_prefill(params, cfg, toks, cache)
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        res["prefill_first_ms"] = pre[0]
+        res["prefill_ms"] = statistics.median(pre[1:])
+        last = logits.float()
+        tok = logits.argmax(-1)
+        pos = torch.full((), prompt, dtype=torch.int64, device=dev)
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(new + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evs[0].record()
+        for t in range(new):
+            logits, cache = lm_decode(params, cfg, tok, cache, pos + t)
+            tok = logits.argmax(-1)
+            evs[t + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = [evs[i].elapsed_time(evs[i + 1]) for i in range(new)]
+        res["decode_ms_per_token"] = statistics.median(steps)
+        res["decode_ms_min_max"] = [min(steps), max(steps)]
+        res["decode_wall_ms_per_token"] = wall * 1e3 / new
+        res["tokens_per_s"] = batch * new / wall
+        nbytes = _decode_bytes(cfg, params, cache, batch)
+        flops = 2 * batch * sum(w.numel() for w in tree_flatten(params)[0])
+        res.update(decode_bytes_gb=nbytes / 1e9,
+                   **bound(nbytes, flops, flops / BF16_TC_FLOPS_PER_S * 1e3))
+        res["share_of_bound"] = res["bound_ms"] / res["decode_ms_per_token"]
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if profile:
+            prof = profile_forward(
+                name, lambda: lm_decode(params, cfg, tok, cache, pos + new),
+                res["decode_ms_per_token"])
+            res["device_busy_ms"] = prof["device_busy_ms"]
+            res["idle_share"] = prof["idle_share"]
+        del cache
+        torch.cuda.empty_cache()
+        full = lm_apply(tree_map(lambda w: w[None], params), cfg,
+                        toks[None])[0, :, -1].float()
+        err = _diff(last, full)
+        tol = 2 * _bf16_ulp(full.abs().max()).item()
+    res["lm_apply_max_abs_diff"] = err
+    res["lm_apply_bound"] = tol
+    log(f"[{name}] " + json.dumps(res))
+    assert res["launches"] == dict.fromkeys(KERNELS, 0), res["launches"]
+    assert res["generate_equal"], "two generate calls gave other tokens"
+    assert out.shape == (batch, new) and (out >= 0).all() \
+        and (out < cfg.vocab).all()
+    assert torch.isfinite(last).all(), "non-finite prefill logits"
+    assert err <= tol, f"prefill vs lm_apply {err} > {tol}"
+    del engine, params, full
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serve_models():
+    """The reduced fp32 models of [serve_agree]: qwen3, qwen3 with a 4-slot
+    sliding window, falcon-mamba."""
+    from repro_torch.configs import get_config, with_sliding_window
+    from repro_torch.models import reduced
+
+    def small(arch):
+        return dataclasses.replace(reduced(get_config(arch)),
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+    return {"qwen3": small("qwen3-0.6b"),
+            "qwen3-sw4": with_sliding_window(small("qwen3-0.6b"), 4),
+            "falcon-mamba": small("falcon-mamba-7b")}
+
+
+def _serve_trace(cfg, params, toks, dev, prompt, max_seq):
+    """Prefill ``toks[:, :prompt]``, then decode the rest one at a time at
+    device positions: every call's logits and caches, on the CPU."""
+    from repro_torch.models import lm_cache_init, lm_decode, lm_prefill
+    from repro_torch.tree import tree_flatten
+    def copy(c):   # a snapshot: later decode steps write the caches in place
+        return c.to("cpu", copy=True)
+
+    toks = toks.to(dev)
+    logits, cache = lm_prefill(params, cfg, toks[:, :prompt],
+                               lm_cache_init(cfg, toks.shape[0], max_seq,
+                                             device=dev))
+    trace = [(copy(logits), [copy(c) for c in tree_flatten(cache)[0]])]
+    for t in range(prompt, toks.shape[1]):
+        logits, cache = lm_decode(params, cfg, toks[:, t], cache,
+                                  torch.full((), t, device=dev))
+        trace.append((copy(logits), [copy(c) for c in tree_flatten(cache)[0]]))
+    return trace
+
+
+def phase_serve_agree(dev, batch=2, prompt=12, steps=4, max_seq=32, new=6):
+    """Reduced fp32 qwen3, qwen3 with a 4-slot window (the prompt three
+    windows long) and falcon-mamba: prefill and each decode step's logits
+    and every cache leaf on the card against the CPU within rtol = atol =
+    2e-4; prefill(t[:-1]) + decode(t[-1]) against lm_apply(t)[:, -1] on the
+    card within 2e-4; greedy tokens equal on card and CPU, and in two calls
+    on the card. No kernel runs."""
+    from repro_torch.models import (lm_apply, lm_cache_init, lm_decode,
+                                    lm_init, lm_prefill)
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tree import tree_map
+    out = {}
+    _reset_counts()
+    with torch.inference_mode():
+        for name, cfg in _serve_models().items():
+            cpu = lm_init(cfg, seed=0, device="cpu")
+            card = tree_map(lambda w: w.to(dev), cpu)
+            toks = torch.as_tensor(np.random.default_rng(1).integers(
+                0, cfg.vocab, (batch, prompt + steps)), dtype=torch.int64)
+            err, ok = 0.0, True
+            for (lw, cw), (lg, cg) in zip(
+                    _serve_trace(cfg, cpu, toks, "cpu", prompt, max_seq),
+                    _serve_trace(cfg, card, toks, dev, prompt, max_seq)):
+                for w, g in zip([lw] + cw, [lg] + cg):
+                    err = max(err, _diff(g, w))
+                    ok &= bool(torch.allclose(g, w, rtol=2e-4, atol=2e-4))
+            t = toks.to(dev)
+            full = lm_apply(tree_map(lambda w: w[None], card), cfg,
+                            t[None])[0, :, -1]
+            _, cache = lm_prefill(card, cfg, t[:, :-1],
+                                  lm_cache_init(cfg, batch, max_seq,
+                                                device=dev))
+            last, _ = lm_decode(card, cfg, t[:, -1], cache,
+                                torch.full((), t.shape[1] - 1, device=dev))
+            own = _diff(last, full)
+            prompts = toks[:, :prompt].numpy().astype(np.int32)
+            want = ServingEngine(cfg, cpu, max_seq, device="cpu").generate(
+                prompts, new)
+            eng = ServingEngine(cfg, card, max_seq, device=dev)
+            got, again = eng.generate(prompts, new), eng.generate(prompts, new)
+            out[name] = {
+                "card_vs_cpu_max_abs_err": err, "card_vs_cpu_within": ok,
+                "decode_vs_lm_apply_max_abs_err": own,
+                "decode_vs_lm_apply_within": bool(torch.allclose(
+                    last, full, rtol=2e-4, atol=2e-4)),
+                "tokens_equal_cpu": bool(np.array_equal(got, want)),
+                "tokens_equal_two_calls": bool(np.array_equal(got, again))}
+    counts = _counts()
+    log("[serve_agree] " + json.dumps({"models": out, "launches": counts}))
+    assert counts == dict.fromkeys(KERNELS, 0), counts
+    bad = {k: [c for c, v in r.items() if v is False] for k, r in out.items()}
+    assert not any(bad.values()), bad
+    return out
 
 
 def make_optimizer(name: str, steps: int, lr: float):
@@ -2121,6 +2360,11 @@ def main() -> int:
     flash_res = guard("flash_path", phase_flash_path, dev)
     mamba_res = guard("mamba_eval", phase_mamba_eval, dev)
     guard("mamba_agree", phase_mamba_agree, dev)
+    # serving (no kernel on its path): full width, then card against CPU
+    guard("serve_qwen", phase_serve, "serve_qwen", cfg, dev)
+    guard("serve_mamba", phase_serve, "serve_mamba",
+          get_config("falcon-mamba-7b"), dev)
+    guard("serve_agree", phase_serve_agree, dev)
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")

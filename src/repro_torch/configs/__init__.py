@@ -1,4 +1,5 @@
-"""Architecture registry (port of ``repro/configs/__init__.py``).
+"""Architecture registry and input shapes (port of
+``repro/configs/__init__.py``).
 
 qwen3-0.6b (the train path's) and falcon-mamba-7b (the Mamba forward's) are
 ported; the other eight configs wait for their model families (ROADMAP
@@ -6,16 +7,31 @@ A.13).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict, Tuple
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["get_config", "list_archs"]
+__all__ = ["get_config", "list_archs", "with_sliding_window", "SHAPES",
+           "LONG_CONTEXT_WINDOW"]
 
 _ARCH_MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "qwen3-0.6b": "qwen3_0_6b",
 }
+
+# (seq_len, global_batch, kind) — kind selects train_step vs serve_step.
+SHAPES: Dict[str, Tuple[int, int, str]] = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# sliding window of the sub-quadratic variant of full-attention archs on
+# long_500k
+LONG_CONTEXT_WINDOW = 8192
 
 
 def list_archs():
@@ -27,3 +43,14 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; options: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG
+
+
+def with_sliding_window(cfg: ModelConfig, window: int) -> ModelConfig:
+    """Windowed-attention variant (bounds the decode cache to O(window));
+    a no-op for blocks that are already windowed or attention-free."""
+    blocks = tuple(
+        dataclasses.replace(b, attn=dataclasses.replace(b.attn, window=window))
+        if b.kind == "attn" and b.attn.window is None else b
+        for b in cfg.blocks)
+    return dataclasses.replace(cfg, name=cfg.name + f"-sw{window}",
+                               blocks=blocks)

@@ -1,15 +1,21 @@
-"""Multi-head / grouped-query attention for the train path.
+"""Multi-head / grouped-query attention: the train path and the decode path.
 
 Port of ``repro/models/attention.py`` (``attn_init``, ``_qk_normalize``,
-``_project_qkv``, ``_sdpa``, ``causal_window_mask``, ``attn_apply``). Plain
-tensor code, as the reference's is jnp: the same einsums, the GQA key/value
-repetition to all heads, scores cast to fp32, a masked softmax. It calls no
-fused attention operator, so the comparison with the reference is like for
-like. Activations carry the replica axis first: q is (dp, b, S, H, hd)
-against weights (dp, d, H, hd).
+``_project_qkv``, ``_sdpa``, ``causal_window_mask``, ``attn_apply``,
+``cache_len``, ``attn_cache_init``, ``attn_decode``). Plain tensor code, as
+the reference's is jnp: the same einsums, the GQA key/value repetition to
+all heads, scores cast to fp32, a masked softmax. It calls no fused
+attention operator, so the comparison with the reference is like for like.
+Activations carry the replica axis first: q is (dp, b, S, H, hd) against
+weights (dp, d, H, hd), and a decode cache leaf is (dp, b, L, K, hd).
 
-Decode caches, cross-attention and MLA wait for serving and the other
-families (ROADMAP A.13, A.14).
+Decode consumes one token against a KV cache: a full cache (b, L, K, hd)
+written at ``pos``, or with a sliding window a ring buffer of ``window``
+slots written at ``pos % L``. The cache is written in place (the
+reference's jitted serve step donates it) and returned; ``pos`` may be a
+0-d device tensor, so a decode loop never reads a position back to the host.
+
+Cross-attention and MLA wait for the other families (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -22,9 +28,15 @@ from .config import AttnSpec
 from .layers import Param, dense_param, per_replica
 from .rotary import apply_rope, rope_frequencies
 
-__all__ = ["attn_init", "attn_apply", "causal_window_mask", "NEG_INF"]
+__all__ = ["attn_init", "attn_apply", "attn_decode", "attn_cache_init",
+           "cache_len", "causal_window_mask", "NEG_INF"]
 
 NEG_INF = -1e30
+
+
+def cache_len(seq_len: int, window: Optional[int]) -> int:
+    """Physical KV-cache length: ring buffer of ``window`` if windowed."""
+    return seq_len if window is None else min(seq_len, window)
 
 
 def attn_init(d_model: int, spec: AttnSpec, dtype=torch.float32):
@@ -55,33 +67,39 @@ def _rot_dim(spec: AttnSpec) -> int:
     return rd - rd % 2
 
 
-def _project_qkv(p, spec: AttnSpec, x, positions):
+def _project_qkv(p, spec: AttnSpec, x, kv_x, q_positions, kv_positions):
     q = torch.einsum("rbsd,rdhk->rbshk", x, p["wq"])
-    k = torch.einsum("rbtd,rdhk->rbthk", x, p["wk"])
-    v = torch.einsum("rbtd,rdhk->rbthk", x, p["wv"])
+    k = torch.einsum("rbtd,rdhk->rbthk", kv_x, p["wk"])
+    v = torch.einsum("rbtd,rdhk->rbthk", kv_x, p["wv"])
     if spec.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
         k = _qk_normalize(k, p["k_norm"])
     rd = _rot_dim(spec)
     if rd:
-        c, s = rope_frequencies(rd, positions, spec.rope_theta)
-        q = apply_rope(q, c, s, rd)
-        k = apply_rope(k, c, s, rd)
+        qc, qs = rope_frequencies(rd, q_positions, spec.rope_theta)
+        kc, ks = rope_frequencies(rd, kv_positions, spec.rope_theta)
+        q = apply_rope(q, qc, qs, rd)
+        k = apply_rope(k, kc, ks, rd)
     return q, k, v
 
 
 def _sdpa(q, k, v, mask, n_kv: int):
-    """q (..., S, H, hd), k/v (..., T, K, hd), mask (S, T) bool or None."""
+    """q (..., b, S, H, hd), k/v (..., b, T, K, hd), mask (b, S, T) or
+    (S, T) bool or None."""
     *lead, S, H, hd = q.shape
     T, K = k.shape[-3], n_kv
     G = H // K
+    # jnp.einsum promotes its operands: decode's fp32 q (RoPE's tables are
+    # fp32) meets the cache's keys in the param dtype (an exact upcast)
+    k = k.to(torch.promote_types(q.dtype, k.dtype))
     if G > 1:
         k = k[..., None, :].expand(*lead, T, K, G, hd).reshape(*lead, T, H, hd)
         v = v[..., None, :].expand(*lead, T, K, G, hd).reshape(*lead, T, H, hd)
     scores = torch.einsum("...shd,...thd->...hst", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
-        scores = torch.where(mask, scores,
+        m = mask[:, None] if mask.dim() == 3 else mask
+        scores = torch.where(m, scores,
                              torch.full((), NEG_INF, dtype=scores.dtype,
                                         device=scores.device))
     w = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -103,8 +121,44 @@ def attn_apply(p, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence causal self-attention over x (dp, b, S, d)."""
     S = x.shape[2]
     positions = torch.arange(S, device=x.device)[None]
-    q, k, v = _project_qkv(p, spec, x, positions)
+    q, k, v = _project_qkv(p, spec, x, x, positions, positions)
     mask = causal_window_mask(S, S, spec.window, device=x.device) \
         if spec.causal else None
     out = _sdpa(q, k, v, mask, spec.n_kv_heads)
     return torch.einsum("rbshk,rhkd->rbsd", out, p["wo"])
+
+
+# ------------------------------------------------------------- decode
+def attn_cache_init(spec: AttnSpec, batch: int, seq_len: int, dtype, *,
+                    device) -> dict:
+    L = cache_len(seq_len, spec.window)
+    shp = (batch, L, spec.n_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def attn_decode(p, spec: AttnSpec, x1: torch.Tensor, cache: dict, pos):
+    """One-token decode. x1 (dp, b, 1, d); cache leaves (dp, b, L, K, hd),
+    written in place at the token's slot; ``pos`` the current position (an
+    int or a 0-d integer tensor). Returns (y (dp, b, 1, d), cache)."""
+    B = x1.shape[1]
+    pos = torch.as_tensor(pos, device=x1.device)
+    p1 = pos.reshape(1, 1)
+    q, k1, v1 = _project_qkv(p, spec, x1, x1, p1, p1)
+    L = cache["k"].shape[2]
+    # the reference's dynamic_update_slice clamps its start into the cache
+    slot = pos % L if spec.window is not None else pos.clamp(0, L - 1)
+    at = slot.reshape(1).long()
+    cache["k"].index_copy_(2, at, k1.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, at, v1.to(cache["v"].dtype))
+    idx = torch.arange(L, device=x1.device)
+    if spec.window is None:
+        valid = idx <= pos
+    else:
+        # ring buffer: valid slots were written within the last L steps
+        # (a floor-mod: ``%`` on tensors takes the divisor's sign)
+        age = (slot - idx) % L
+        valid = age < torch.clamp(pos + 1, max=L)
+    mask = valid[None, None, :].expand(B, 1, L)
+    out = _sdpa(q, cache["k"], cache["v"], mask, spec.n_kv_heads)
+    return torch.einsum("rbshk,rhkd->rbsd", out, p["wo"]), cache

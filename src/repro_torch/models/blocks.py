@@ -1,9 +1,12 @@
 """Residual blocks and the depth stacker.
 
 Port of ``repro/models/blocks.py`` (``segments_of``, ``block_init``,
-``block_apply``, ``stack_init``, ``stack_apply``) for attention and Mamba-1
-blocks. A block is pre-norm residual: ``h += mixer(norm1(h))`` (attention
-or the Mamba mixer) then, if ``d_ff``, ``h += mlp(norm2(h))``.
+``block_apply``, ``stack_init``, ``stack_apply``, and serving's
+``block_cache_init``, ``block_decode``, ``_cache_write_seq``,
+``block_prefill``, ``stack_cache_init``, ``stack_decode``,
+``stack_prefill``) for attention and Mamba-1 blocks. A block is pre-norm
+residual: ``h += mixer(norm1(h))`` (attention or the Mamba mixer) then, if
+``d_ff``, ``h += mlp(norm2(h))``.
 ``ssm_scan_impl`` reaches every Mamba mixer's ``scan_impl``. MLA, MoE and
 cross-attention blocks wait for their families (ROADMAP A.13).
 
@@ -11,7 +14,10 @@ The param tree keeps the reference's leaf paths and shapes: a list over
 segments, each a list over pattern positions of block params stacked on a
 leading repeat axis (the reference scans over it). With the replica axis in
 front a stacked leaf is ``(dp, R, ...)``; ``stack_apply`` loops over the
-repeats in Python where the reference runs ``lax.scan``.
+repeats in Python where the reference runs ``lax.scan``. Decode caches have
+the same tree: ``stack_cache_init`` returns one replica's, leaves
+``(R, b, ...)``; ``stack_decode`` and ``stack_prefill`` take them with the
+replica axis, ``(dp, R, b, ...)``, and write each layer's view in place.
 """
 from __future__ import annotations
 
@@ -24,10 +30,12 @@ from repro_torch.tree import tree_flatten, tree_map
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from .config import BlockSpec, ModelConfig
-from .layers import mlp_apply, mlp_init, norm_apply, norm_init
+from .layers import (mlp_apply, mlp_init, norm_apply, norm_init, per_replica,
+                     replica_matmul, silu)
 
 __all__ = ["segments_of", "block_init", "block_apply", "stack_init",
-           "stack_apply"]
+           "stack_apply", "block_cache_init", "block_decode", "block_prefill",
+           "stack_cache_init", "stack_decode", "stack_prefill"]
 
 
 def segments_of(blocks: Sequence[BlockSpec]) -> List[Tuple[Tuple[BlockSpec, ...], int]]:
@@ -75,12 +83,105 @@ def block_apply(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     else:
         h = h + mamba_mod.mamba_apply(p["mixer"], spec.ssm, cfg.d_model, x,
                                       scan_impl=ssm_scan_impl)
+    return _ffn(p, cfg, spec, h)
+
+
+def _ffn(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor):
     if spec.d_ff:
         x2 = norm_apply(cfg.norm, p["norm2"], h)
         h = h + mlp_apply(p["ff"], x2, spec.mlp_act)
     return h
 
 
+# ----------------------------------------------------------------- caches
+def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                     seq_len: int, dtype, *, device) -> Dict:
+    _check_kind(spec)
+    if spec.kind == "attn":
+        return {"kv": attn_mod.attn_cache_init(spec.attn, batch, seq_len,
+                                               dtype, device=device)}
+    return {"ssm": mamba_mod.mamba_state_init(spec.ssm, cfg.d_model, batch,
+                                              dtype, device=device)}
+
+
+def block_decode(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
+                 cache: Dict, pos) -> Tuple[torch.Tensor, Dict]:
+    """One token through one block; h (dp, b, 1, d), the cache written in
+    place."""
+    _check_kind(spec)
+    x = norm_apply(cfg.norm, p["norm1"], h)
+    new_cache = dict(cache)
+    if spec.kind == "attn":
+        y, new_cache["kv"] = attn_mod.attn_decode(p["mixer"], spec.attn, x,
+                                                  cache["kv"], pos)
+    else:
+        y, new_cache["ssm"] = mamba_mod.mamba_decode(
+            p["mixer"], spec.ssm, cfg.d_model, x, cache["ssm"])
+    return _ffn(p, cfg, spec, h + y), new_cache
+
+
+def _cache_write_seq(cache_arr: torch.Tensor, full: torch.Tensor,
+                     axis: int = 1) -> torch.Tensor:
+    """Write a full prefill sequence (positions 0..S-1 along ``axis``) into
+    a decode cache of length L, in place, and return the cache. If L < S
+    (sliding-window ring buffer), keep the last L positions at their ring
+    slots (pos % L); else write at the front."""
+    L, S = cache_arr.shape[axis], full.shape[axis]
+    full = full.to(cache_arr.dtype)
+    if S <= L:
+        cache_arr.narrow(axis, 0, S).copy_(full)
+    else:
+        tail = full.narrow(axis, S - L, L)
+        cache_arr.copy_(torch.roll(tail, (S - L) % L, axis))
+    return cache_arr
+
+
+def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
+                  cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward over h (dp, b, S, d) that also fills this
+    block's decode cache (serving's prefill), with the reference's
+    arithmetic: ``_sdpa`` and ``ssm_assoc_scan``, no kernel. Windowed layers
+    keep the trailing window in their ring buffer; full-attention layers
+    need S <= the cache length."""
+    _check_kind(spec)
+    S = h.shape[2]
+    x = norm_apply(cfg.norm, p["norm1"], h)
+    new_cache = dict(cache)
+    if spec.kind == "attn":
+        a, m = spec.attn, p["mixer"]
+        pos = torch.arange(S, device=h.device)[None]
+        q, k, v = attn_mod._project_qkv(m, a, x, x, pos, pos)
+        new_cache["kv"] = {"k": _cache_write_seq(cache["kv"]["k"], k, 2),
+                           "v": _cache_write_seq(cache["kv"]["v"], v, 2)}
+        mask = attn_mod.causal_window_mask(S, S, a.window, device=h.device)
+        out = attn_mod._sdpa(q, k, v, mask, a.n_kv_heads)
+        h = h + torch.einsum("rbshk,rhkd->rbsd", out, m["wo"])
+    else:
+        s, m, st = spec.ssm, p["mixer"], cache["ssm"]
+        xz = replica_matmul(x, m["in_proj"])
+        xi_pre, z = xz.chunk(2, dim=-1)
+        xi = silu(mamba_mod._conv_causal(xi_pre, m["conv_w"], m["conv_b"]))
+        dA, dBx, C = mamba_mod._ssm_inputs(m, s, xi,
+                                           s.resolved_dt_rank(cfg.d_model))
+        shape = dA.shape
+        hs = mamba_mod.ssm_assoc_scan(dA.flatten(0, 1),
+                                      dBx.flatten(0, 1)).view(shape)
+        del dA, dBx
+        # the conv state carries the PRE-conv tail (what decode's window
+        # needs); a prompt shorter than d_conv - 1 leaves a shorter tail,
+        # as in the reference, which decode then refuses
+        tail = xi_pre[:, :, -(s.d_conv - 1):]
+        conv = (st["conv"].copy_(tail) if tail.shape == st["conv"].shape
+                else tail.to(st["conv"].dtype))
+        new_cache["ssm"] = {"h": st["h"].copy_(hs[:, :, -1]), "conv": conv}
+        y = torch.einsum("rbsdn,rbsn->rbsd", hs, C.float()).to(x.dtype)
+        del hs
+        y = (y + per_replica(m["D"], 4) * xi) * silu(z)
+        h = h + replica_matmul(y, m["out_proj"])
+    return _ffn(p, cfg, spec, h), new_cache
+
+
+# ----------------------------------------------------------------- stacker
 def stack_init(cfg: ModelConfig, blocks: Sequence[BlockSpec], dtype):
     """ParamSpec tree: list over segments, each a list over pattern
     positions of block specs stacked on a leading repeat axis."""
@@ -107,3 +208,59 @@ def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor,
                 h = block_apply(bp_r, cfg, spec, h,
                                 ssm_scan_impl=ssm_scan_impl)
     return h
+
+
+def stack_cache_init(cfg: ModelConfig, segs, batch: int, seq_len: int, dtype,
+                     *, device) -> List:
+    """One replica's decode caches: per segment, per pattern position, the
+    block's cache stacked on a leading repeat axis, all zeros."""
+    return [[tree_map(lambda c: c.new_zeros((R,) + tuple(c.shape)),
+                      block_cache_init(cfg, spec, batch, seq_len, dtype,
+                                       device=device))
+             for spec in pattern] for pattern, R in segs]
+
+
+def _layers(tree, R: int):
+    """The R per-layer trees of views ``leaf[:, r]`` of a stacked tree."""
+    leaves, treedef = tree_flatten(tree)
+    views = [w.unbind(1) for w in leaves]
+    return [treedef.unflatten([v[r] for v in views]) for r in range(R)]
+
+
+def stack_decode(params, cfg: ModelConfig, segs, h: torch.Tensor, caches,
+                 pos):
+    """Every layer's one-token decode; params (dp, R, ...), caches
+    (dp, R, b, ...) written in place through each layer's view."""
+    for (pattern, R), seg_p, seg_c in zip(segs, params, caches):
+        per_pos = [(_layers(bp, R), _layers(bc, R))
+                   for bp, bc in zip(seg_p, seg_c)]
+        for r in range(R):
+            for spec, (ps, cs) in zip(pattern, per_pos):
+                h, _ = block_decode(ps[r], cfg, spec, h, cs[r], pos)
+    return h, caches
+
+
+def stack_prefill(params, cfg: ModelConfig, segs, h: torch.Tensor, caches):
+    """Every layer's prefill; the caches (dp, R, b, ...) are filled in place
+    through each layer's view, except a leaf whose layers returned other
+    tensors (the short Mamba conv tail), which is stacked anew."""
+    new_caches = []
+    for (pattern, R), seg_p, seg_c in zip(segs, params, caches):
+        per_pos = [(_layers(bp, R), _layers(bc, R))
+                   for bp, bc in zip(seg_p, seg_c)]
+        outs = [[] for _ in pattern]
+        for r in range(R):
+            for i, (spec, (ps, cs)) in enumerate(zip(pattern, per_pos)):
+                h, nc = block_prefill(ps[r], cfg, spec, h, cs[r])
+                outs[i].append(nc)
+        seg_new = []
+        for bc, (_, cs), layer_outs in zip(seg_c, per_pos, outs):
+            leaves, treedef = tree_flatten(bc)
+            given = [tree_flatten(c)[0] for c in cs]
+            got = [tree_flatten(c)[0] for c in layer_outs]
+            seg_new.append(treedef.unflatten([
+                w if all(g[j] is o[j] for g, o in zip(given, got))
+                else torch.stack([o[j] for o in got], dim=1)
+                for j, w in enumerate(leaves)]))
+        new_caches.append(seg_new)
+    return h, new_caches

@@ -1,8 +1,9 @@
-"""Mamba-1 selective SSM mixer, the full-sequence path (falcon-mamba
-[arXiv:2410.05355]).
+"""Mamba-1 selective SSM mixer (falcon-mamba [arXiv:2410.05355]): the
+full-sequence path and the one-token decode path.
 
 Port of ``repro/models/mamba.py`` (``mamba_init``, ``_conv_causal``,
-``_ssm_inputs``, ``ssm_assoc_scan``, ``ssm_scan_ref``, ``mamba_apply``).
+``_ssm_inputs``, ``ssm_assoc_scan``, ``ssm_scan_ref``, ``mamba_apply``,
+``mamba_state_init``, ``mamba_decode``).
 Activations carry the replica axis first, ``(dp, b, S, d)``, against
 weights ``(dp, ...)``; a scan implementation sees ``(dp * b, S, D, N)``.
 ``mamba_apply``'s default scan is ``ssm_assoc_scan``, a log-depth scan in
@@ -10,8 +11,10 @@ plain PyTorch that autograd differentiates (the train path); the scoring
 path passes ``scan_impl=repro_torch.kernels.ssm_scan``, the CUDA kernel,
 which is forward-only as the reference's Pallas kernel is.
 
-The decode path (``mamba_decode``, ``mamba_state_init``) and the chunked jnp
-scan wait for serving and long-sequence training (ROADMAP A.13, A.14).
+Decode carries O(1) state per layer: ``h`` (b, d_inner, d_state) in fp32
+and ``conv``, the last ``d_conv - 1`` pre-conv inputs (b, d_conv - 1,
+d_inner) in the param dtype; ``mamba_decode`` writes both in place. The
+chunked jnp scan waits for long-sequence training (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from repro_torch.kernels.ref import ssm_scan_ref
 from .config import SSMSpec
 from .layers import Param, dense_param, per_replica, replica_matmul, silu
 
-__all__ = ["mamba_init", "mamba_apply", "ssm_scan_ref", "ssm_assoc_scan"]
+__all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_state_init",
+           "ssm_scan_ref", "ssm_assoc_scan"]
 
 
 def mamba_init(d_model: int, spec: SSMSpec, dtype=torch.float32) -> Dict:
@@ -144,3 +148,38 @@ def mamba_apply(p, spec: SSMSpec, d_model: int, x: torch.Tensor,
     y = y + per_replica(p["D"], 4) * xi
     y = y * silu(z)
     return replica_matmul(y, p["out_proj"])
+
+
+def mamba_state_init(spec: SSMSpec, d_model: int, batch: int, dtype, *,
+                     device) -> Dict:
+    d_in = spec.expand * d_model
+    return {"h": torch.zeros((batch, d_in, spec.d_state), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, spec.d_conv - 1, d_in), dtype=dtype,
+                                device=device)}
+
+
+def mamba_decode(p, spec: SSMSpec, d_model: int, x1: torch.Tensor,
+                 state: Dict):
+    """One-token recurrent step. x1 (dp, b, 1, d); state leaves (dp, b, ...)
+    written in place. Returns (y (dp, b, 1, d), state)."""
+    if state["conv"].shape[2] != spec.d_conv - 1:
+        # a prefill prompt shorter than d_conv - 1 leaves a short tail; the
+        # reference's decode then fails on its conv einsum likewise
+        raise ValueError(f"conv state holds {state['conv'].shape[2]} inputs, "
+                         f"decode needs d_conv - 1 = {spec.d_conv - 1}")
+    dt_rank = spec.resolved_dt_rank(d_model)
+    xz = replica_matmul(x1, p["in_proj"])
+    xi, z = xz.chunk(2, dim=-1)
+    conv_in = torch.cat([state["conv"], xi], dim=2)             # (dp,b,K,Di)
+    xi = silu(torch.einsum("rbkd,rkd->rbd", conv_in, p["conv_w"])
+              + per_replica(p["conv_b"], 3))[:, :, None]
+    dA, dBx, C = _ssm_inputs(p, spec, xi, dt_rank)
+    h = dA[:, :, 0] * state["h"] + dBx[:, :, 0]                 # (dp,b,Di,N)
+    y = torch.einsum("rbdn,rbn->rbd", h, C[:, :, 0].float()).to(
+        x1.dtype)[:, :, None]
+    y = y + per_replica(p["D"], 4) * xi
+    y = y * silu(z)
+    state["h"].copy_(h)
+    state["conv"].copy_(conv_in[:, :, 1:])
+    return replica_matmul(y, p["out_proj"]), state

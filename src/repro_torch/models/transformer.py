@@ -1,7 +1,8 @@
 """Decoder-only language model with tied or untied unembedding.
 
 Port of ``repro/models/transformer.py`` (``lm_init``, ``lm_apply``,
-``_embed_lookup``, ``_unembed``) for the dense attention and Mamba-1
+``_embed_lookup``, ``_unembed``, and serving's ``lm_cache_init``,
+``lm_decode``, ``lm_prefill``) for the dense attention and Mamba-1
 families.
 ``lm_specs`` gives the param tree as ``ParamSpec``s (the reference's leaf
 paths and shapes, nothing allocated); ``lm_axes`` their logical-axes
@@ -12,8 +13,14 @@ normal x fan-in scale, embedding scale 0.02, norm scales of one, Mamba's
 dt bias and A_log). ``lm_apply`` takes params
 with a leading replica axis and tokens ``(dp, b, S)``.
 
-The encoder, vision, MTP, decode and prefill paths wait for their model
-families and serving (ROADMAP A.13, A.14).
+The serving functions take one replica as the reference's do: params
+without a replica axis, caches in ``lm_cache_init``'s tree (leaves
+``(R, b, ...)``), ``pos`` a scalar (an int or a 0-d device tensor). They
+view every leaf as ``(1, ...)`` for the model code, run without autograd,
+and write the caches in place (the reference's serve step donates them).
+
+The encoder, vision and MTP paths wait for their model families (ROADMAP
+A.13).
 """
 from __future__ import annotations
 
@@ -29,7 +36,11 @@ from .config import ModelConfig
 from .layers import (Param, draw, dtype_of, embed_init, norm_apply, norm_init,
                      replica_matmul)
 
-__all__ = ["lm_specs", "lm_axes", "lm_init", "lm_apply"]
+_NOT_PORTED = ("image_embeds and audio_frames feed the vision and encoder "
+               "families, which are not ported yet (ROADMAP A.13)")
+
+__all__ = ["lm_specs", "lm_axes", "lm_init", "lm_apply", "lm_cache_init",
+           "lm_decode", "lm_prefill"]
 
 
 def lm_specs(cfg: ModelConfig) -> Dict:
@@ -68,6 +79,16 @@ def _embed_lookup(p, tokens: torch.Tensor) -> torch.Tensor:
     return emb.float()[rep, tokens].to(emb.dtype)
 
 
+def _embed_gather(p, tokens: torch.Tensor) -> torch.Tensor:
+    """Serving's token gather: ``_embed_lookup`` without its fp32 staging of
+    the whole table (a copy per call in PyTorch, which XLA fuses away). A
+    bf16 -> fp32 -> bf16 round trip is exact, so the rows are the same
+    bits."""
+    emb = p["embed"]
+    rep = torch.arange(emb.shape[0], device=tokens.device)[:, None, None]
+    return emb[rep, tokens]
+
+
 def _unembed(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return replica_matmul(h, p["embed"].transpose(1, 2))
@@ -84,3 +105,46 @@ def lm_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
                       ssm_scan_impl=ssm_scan_impl)
     h = norm_apply(cfg.norm, p["final_norm"], h)
     return _unembed(p, cfg, h)
+
+
+# ===================================================================== serve
+def _one_replica(tree):
+    """Every leaf viewed as (1, ...): the model code's replica axis."""
+    return tree_map(lambda w: w.unsqueeze(0), tree)
+
+
+def lm_cache_init(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
+                  device="cuda"):
+    """Zero decode caches for ``batch`` sequences of up to ``seq_len``
+    positions, in the reference's tree (dtype: the param dtype)."""
+    dtype = dtype or dtype_of(cfg.param_dtype)
+    return B.stack_cache_init(cfg, B.segments_of(cfg.blocks), batch, seq_len,
+                              dtype, device=resolve_device(device))
+
+
+@torch.no_grad()
+def lm_decode(p, cfg: ModelConfig, token: torch.Tensor, caches, pos):
+    """One decode step: token (B,), pos scalar -> (logits (B, V), caches),
+    the caches written in place."""
+    p1 = _one_replica(p)
+    h = _embed_gather(p1, token[None, :, None])                 # (1,B,1,d)
+    h, _ = B.stack_decode(p1["layers"], cfg, B.segments_of(cfg.blocks), h,
+                          _one_replica(caches), pos)
+    h = norm_apply(cfg.norm, p1["final_norm"], h)
+    return _unembed(p1, cfg, h)[0, :, 0], caches
+
+
+@torch.no_grad()
+def lm_prefill(p, cfg: ModelConfig, tokens: torch.Tensor, caches,
+               image_embeds=None, audio_frames=None):
+    """Process a full prompt (B, S), filling the decode caches; returns
+    (last-position logits (B, V), caches)."""
+    if image_embeds is not None or audio_frames is not None:
+        raise NotImplementedError(_NOT_PORTED)
+    p1 = _one_replica(p)
+    h = _embed_gather(p1, tokens[None])
+    h, caches = B.stack_prefill(p1["layers"], cfg, B.segments_of(cfg.blocks),
+                                h, _one_replica(caches))
+    h = norm_apply(cfg.norm, p1["final_norm"], h)
+    return (_unembed(p1, cfg, h[:, :, -1])[0],
+            tree_map(lambda c: c[0], caches))

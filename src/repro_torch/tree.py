@@ -55,62 +55,64 @@ class TreeDef:
         """Leaves of ``tree`` in this structure's order (``tree`` must have
         this structure, its leaves may be anything)."""
         out: List[Any] = []
-
-        def walk(s, x):
-            if s == _LEAF:
-                out.append(x)
-                return
-            kind, kids = s
-            if kind == "none":
-                return
-            if kind == "dict":
-                if not isinstance(x, dict) or sorted(x) != [k for k, _ in kids]:
-                    raise ValueError("tree does not match the layout's structure")
-                for k, sub in kids:
-                    walk(sub, x[k])
-                return
-            if not isinstance(x, (list, tuple)) or len(x) != len(kids):
-                raise ValueError("tree does not match the layout's structure")
-            for sub, v in zip(kids, x):
-                walk(sub, v)
-
-        walk(self._s, tree)
+        _flatten_into(self._s, tree, out)
         return out
 
     def unflatten(self, leaves: Sequence[Any]):
-        it = iter(leaves)
-
-        def build(s):
-            if s == _LEAF:
-                return next(it)
-            kind, kids = s
-            if kind == "none":
-                return None
-            if kind == "dict":
-                return {k: build(sub) for k, sub in kids}
-            vals = [build(sub) for sub in kids]
-            return tuple(vals) if kind == "tuple" else vals
-
-        return build(self._s)
+        return _build(self._s, iter(leaves))
 
     def paths(self) -> List[Tuple[Any, ...]]:
         """Key path of every leaf, in leaf order."""
         out: List[Tuple[Any, ...]] = []
-
-        def walk(s, prefix):
-            if s == _LEAF:
-                out.append(prefix)
-                return
-            kind, kids = s
-            if kind == "dict":
-                for k, sub in kids:
-                    walk(sub, prefix + (k,))
-            elif kind != "none":
-                for i, sub in enumerate(kids):
-                    walk(sub, prefix + (i,))
-
-        walk(self._s, ())
+        _paths_into(self._s, (), out)
         return out
+
+
+# Module-level recursions: a nested function that calls itself sits in a
+# reference cycle with its closure, which would keep the leaves it captured
+# (a decode cache of tens of GB) alive until the cycle collector runs.
+def _flatten_into(s, x, out: List[Any]) -> None:
+    if s == _LEAF:
+        out.append(x)
+        return
+    kind, kids = s
+    if kind == "none":
+        return
+    if kind == "dict":
+        if not isinstance(x, dict) or sorted(x) != [k for k, _ in kids]:
+            raise ValueError("tree does not match the layout's structure")
+        for k, sub in kids:
+            _flatten_into(sub, x[k], out)
+        return
+    if not isinstance(x, (list, tuple)) or len(x) != len(kids):
+        raise ValueError("tree does not match the layout's structure")
+    for sub, v in zip(kids, x):
+        _flatten_into(sub, v, out)
+
+
+def _build(s, it):
+    if s == _LEAF:
+        return next(it)
+    kind, kids = s
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(sub, it) for k, sub in kids}
+    vals = [_build(sub, it) for sub in kids]
+    return tuple(vals) if kind == "tuple" else vals
+
+
+def _paths_into(s, prefix: Tuple[Any, ...], out: List) -> None:
+    if s == _LEAF:
+        out.append(prefix)
+        return
+    kind, kids = s
+    if kind == "dict":
+        for k, sub in kids:
+            _paths_into(sub, prefix + (k,), out)
+    elif kind != "none":
+        for i, sub in enumerate(kids):
+            _paths_into(sub, prefix + (i,), out)
 
 
 def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:

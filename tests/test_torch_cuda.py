@@ -16,7 +16,10 @@ Beside the kernels: the replica mean of ``agd`` and ``every_logp`` equals
 the CPU's bit for bit, and a state trained and saved on the card restores
 on the CPU bit for bit; a shard-local (fsdp) layout's pack, unpack and
 packed gradient, and a fused step over its buckets, equal the CPU's bit for
-bit.
+bit. Serving (no kernel on its path): prefill and decode of reduced fp32
+qwen3, qwen3 with a 4-slot window and falcon-mamba on the card against the
+CPU (logits and every cache leaf within rtol = atol = 2e-4, greedy tokens
+equal), and two ``generate`` calls on the card giving equal tokens.
 
 Marked ``cuda``; they skip on a machine without a card. This file imports
 neither JAX nor the reference, so on a machine with a card and no JAX it
@@ -842,3 +845,67 @@ def test_shard_local_fused_step_on_card_matches_cpu(cuda_device, opt_name):
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         assert torch.equal(a.view(ints[a.element_size()]),
                            b.view(ints[b.element_size()]))
+
+
+SERVE_MODELS = [("qwen3-0.6b", None), ("qwen3-0.6b", 4),
+                ("falcon-mamba-7b", None)]
+SERVE_IDS = ["qwen3", "qwen3-sw4", "falcon-mamba"]
+
+
+def _serve_cfg(arch, window):
+    import dataclasses
+    from repro_torch.configs import get_config, with_sliding_window
+    from repro_torch.models import reduced
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              param_dtype="float32", compute_dtype="float32")
+    return cfg if window is None else with_sliding_window(cfg, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,window", SERVE_MODELS, ids=SERVE_IDS)
+def test_serving_on_card_matches_cpu(cuda_device, arch, window):
+    """Prefill 12 tokens, then 4 decode steps at device positions: logits
+    and every cache leaf on the card against the CPU after each call;
+    greedy tokens from the engine equal on both."""
+    from repro_torch.models import lm_cache_init, lm_decode, lm_init, lm_prefill
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tree import tree_flatten, tree_map
+    cfg = _serve_cfg(arch, window)
+    cpu = lm_init(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda w: w.to(dev), cpu)
+        t = toks.to(dev)
+        logits, cache = lm_prefill(p, cfg, t[:, :12],
+                                   lm_cache_init(cfg, 2, 32, device=dev))
+        # snapshots: later decode steps write the caches in place
+        out = [x.to("cpu", copy=True)
+               for x in [logits] + tree_flatten(cache)[0]]
+        for i in range(12, 16):
+            logits, cache = lm_decode(p, cfg, t[:, i], cache,
+                                      torch.full((), i, device=dev))
+            out += [x.to("cpu", copy=True)
+                    for x in [logits] + tree_flatten(cache)[0]]
+        runs[str(dev)] = out
+    for a, b in zip(runs["cpu"], runs[str(cuda_device)]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+    prompts = toks[:, :8].numpy()
+    want = ServingEngine(cfg, cpu, 32, device="cpu").generate(prompts, 6)
+    got = ServingEngine(cfg, cpu, 32, device=cuda_device).generate(prompts, 6)
+    assert (got == want).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,window", SERVE_MODELS, ids=SERVE_IDS)
+def test_generate_on_card_is_repeatable(cuda_device, arch, window):
+    from repro_torch.models import lm_init
+    from repro_torch.serve import ServingEngine
+    cfg = _serve_cfg(arch, window)
+    eng = ServingEngine(cfg, lm_init(cfg, seed=2, device=cuda_device), 64,
+                        device=cuda_device)
+    prompts = torch.randint(0, cfg.vocab, (3, 9),
+                            generator=torch.Generator().manual_seed(3)).numpy()
+    first = eng.generate(prompts, 8)
+    assert first.shape == (3, 8) and (first == eng.generate(prompts, 8)).all()
