@@ -1,9 +1,11 @@
 """Architecture registry and input shapes (port of
 ``repro/configs/__init__.py``).
 
-qwen3-0.6b (the train path's) and falcon-mamba-7b (the Mamba forward's) are
-ported; the other eight configs wait for their model families (ROADMAP
-A.13).
+Six of the reference's ten archs are registered: the dense attention
+members (qwen3-0.6b, olmo-1b, stablelm-1.6b, internlm2-20b and
+llava-next-mistral-7b with its vision stub) and falcon-mamba-7b. whisper-base
+waits for the encoder-decoder family (ROADMAP A.13c), kimi-k2 and jamba for
+MoE (A.13d), deepseek-v3 for MLA (A.13e).
 """
 from __future__ import annotations
 
@@ -13,12 +15,25 @@ from typing import Dict, Tuple
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["get_config", "list_archs", "with_sliding_window", "SHAPES",
+__all__ = ["get_config", "list_archs", "NOT_PORTED", "with_sliding_window", "SHAPES",
            "LONG_CONTEXT_WINDOW"]
 
 _ARCH_MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "olmo-1b": "olmo_1b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "internlm2-20b": "internlm2_20b",
+}
+
+# the reference's archs whose families are not ported yet, and the ROADMAP
+# item that ports each
+NOT_PORTED = {
+    "whisper-base": "A.13c",
+    "kimi-k2-1t-a32b": "A.13d",
+    "jamba-v0.1-52b": "A.13d",
+    "deepseek-v3-671b": "A.13e",
 }
 
 # (seq_len, global_batch, kind) — kind selects train_step vs serve_step.
@@ -39,6 +54,10 @@ def list_archs():
 
 
 def get_config(name: str) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP {NOT_PORTED[name]}); "
+            f"ported: {list_archs()}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; options: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")

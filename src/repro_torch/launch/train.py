@@ -7,7 +7,9 @@ follows the reference's rule (``src/repro/launch/train.py:104``): it
 trains the reduced fp32 variant of ``--arch`` (``--d-model`` wide) under
 ``--smoke`` or whenever the process sees one device, so the port's
 launcher always reduces the model, ``--smoke`` or not (``model_config``).
-``--protocol gossip_async`` takes ``--staleness``, ``--drop-timeout`` and
+Per-layer remat is on as the reference's rule has it
+(``src/repro/launch/train.py:131``): off under ``--smoke`` or with one
+rank. ``--protocol gossip_async`` takes ``--staleness``, ``--drop-timeout`` and
 ``--drop-seed``; both gossip protocols take ``--wire-dtype``,
 ``--gossip-subset`` and ``--wire-seed`` (a compressed wire needs
 ``--packed``).
@@ -162,7 +164,8 @@ def _run(args, dist, device, report: bool, group=None) -> None:
         staleness=args.staleness, drop_rate=args.drop_timeout,
         drop_seed=args.drop_seed, wire_dtype=args.wire_dtype,
         gossip_subset=args.gossip_subset, wire_seed=args.wire_seed,
-        fused_update=args.fused_update, device=device, group=group)
+        fused_update=args.fused_update, device=device, group=group,
+        remat=not (args.smoke or world_from_env() <= 1))
     state = init_train_state(cfg, opt, dist=dist, packed=args.packed,
                              layout=bundle.layout, seed=0, device=device,
                              inbox=bundle.protocol.staleness,

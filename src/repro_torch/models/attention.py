@@ -15,7 +15,9 @@ slots written at ``pos % L``. The cache is written in place (the
 reference's jitted serve step donates it) and returned; ``pos`` may be a
 0-d device tensor, so a decode loop never reads a position back to the host.
 
-Cross-attention and MLA wait for the other families (ROADMAP A.13).
+Partial rotary (``rope_frac`` < 1, stablelm-2) rotates the first
+``_rot_dim`` dims of each head. Cross-attention and MLA wait for their
+families (ROADMAP A.13c, A.13e).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 
 from .config import AttnSpec
-from .layers import Param, dense_param, per_replica
+from .layers import Param, dense_param, per_replica, weight_einsum
 from .rotary import apply_rope, rope_frequencies
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "attn_cache_init",
@@ -68,9 +70,9 @@ def _rot_dim(spec: AttnSpec) -> int:
 
 
 def _project_qkv(p, spec: AttnSpec, x, kv_x, q_positions, kv_positions):
-    q = torch.einsum("rbsd,rdhk->rbshk", x, p["wq"])
-    k = torch.einsum("rbtd,rdhk->rbthk", kv_x, p["wk"])
-    v = torch.einsum("rbtd,rdhk->rbthk", kv_x, p["wv"])
+    q = weight_einsum("rbsd,rdhk->rbshk", x, p["wq"])
+    k = weight_einsum("rbtd,rdhk->rbthk", kv_x, p["wk"])
+    v = weight_einsum("rbtd,rdhk->rbthk", kv_x, p["wv"])
     if spec.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
         k = _qk_normalize(k, p["k_norm"])
@@ -125,7 +127,7 @@ def attn_apply(p, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
     mask = causal_window_mask(S, S, spec.window, device=x.device) \
         if spec.causal else None
     out = _sdpa(q, k, v, mask, spec.n_kv_heads)
-    return torch.einsum("rbshk,rhkd->rbsd", out, p["wo"])
+    return weight_einsum("rbshk,rhkd->rbsd", out, p["wo"])
 
 
 # ------------------------------------------------------------- decode

@@ -7,8 +7,10 @@ Port of ``repro/models/blocks.py`` (``segments_of``, ``block_init``,
 ``stack_prefill``) for attention and Mamba-1 blocks. A block is pre-norm
 residual: ``h += mixer(norm1(h))`` (attention or the Mamba mixer) then, if
 ``d_ff``, ``h += mlp(norm2(h))``.
-``ssm_scan_impl`` reaches every Mamba mixer's ``scan_impl``. MLA, MoE and
-cross-attention blocks wait for their families (ROADMAP A.13).
+``ssm_scan_impl`` reaches every Mamba mixer's ``scan_impl``; ``remat``
+checkpoints each repeat of a segment's pattern (``torch.utils.checkpoint``),
+``remat_policy="dots"`` saving the weight products' outputs. MLA, MoE and
+cross-attention blocks wait for their families (ROADMAP A.13c-e).
 
 The param tree keeps the reference's leaf paths and shapes: a list over
 segments, each a list over pattern positions of block params stacked on a
@@ -21,9 +23,13 @@ replica axis, ``(dp, R, b, ...)``, and write each layer's view in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.tree import tree_flatten, tree_map
 
@@ -31,7 +37,7 @@ from . import attention as attn_mod
 from . import mamba as mamba_mod
 from .config import BlockSpec, ModelConfig
 from .layers import (mlp_apply, mlp_init, norm_apply, norm_init, per_replica,
-                     replica_matmul, silu)
+                     replica_matmul, silu, weight_products)
 
 __all__ = ["segments_of", "block_init", "block_apply", "stack_init",
            "stack_apply", "block_cache_init", "block_decode", "block_prefill",
@@ -56,9 +62,11 @@ def segments_of(blocks: Sequence[BlockSpec]) -> List[Tuple[Tuple[BlockSpec, ...]
 
 
 def _check_kind(spec: BlockSpec) -> None:
-    if spec.kind not in ("attn", "mamba"):
+    if spec.kind == "mla":
         raise NotImplementedError(
-            f"block kind {spec.kind!r} is not ported yet (ROADMAP A.13)")
+            "MLA blocks are not ported yet (ROADMAP A.13e)")
+    if spec.kind not in ("attn", "mamba"):
+        raise ValueError(spec.kind)
 
 
 def block_init(cfg: ModelConfig, spec: BlockSpec, dtype) -> Dict:
@@ -191,22 +199,76 @@ def stack_init(cfg: ModelConfig, blocks: Sequence[BlockSpec], dtype):
     return params, segs
 
 
+_MATMULS = (torch.ops.aten.bmm.default, torch.ops.aten.mm.default)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` on the
+    port: save the products of activations with weights (the reference's
+    dots with no batch dims; here batched over the replica axis only, see
+    ``layers.weight_products``), recompute everything else, attention
+    scores and the scan included."""
+    if op in _MATMULS and weight_products():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: Optional[str]):
+    """``context_fn`` of ``torch.utils.checkpoint`` for a remat policy."""
+    if policy is None:
+        return noop_context_fn
+    if policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_weight_products)
+    if policy == "save_moe_combine":
+        raise NotImplementedError(
+            "remat_policy='save_moe_combine' saves MoE layers' combined "
+            "outputs; MoE is not ported yet (ROADMAP A.13d)")
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+def _segment_body(cfg: ModelConfig, pattern, per_pos, ssm_scan_impl):
+    """One repeat of a segment's pattern as a function of its input and the
+    repeat's weight views. The segment is bound here, not read through the
+    caller's loop variables: a checkpointed repeat reruns this function in
+    backward, after the loop has moved on to later segments."""
+    def body(hh, *ws):
+        i = 0
+        for spec, (treedef, n, _) in zip(pattern, per_pos):
+            hh = block_apply(treedef.unflatten(ws[i:i + n]), cfg, spec, hh,
+                             ssm_scan_impl=ssm_scan_impl)
+            i += n
+        return hh
+    return body
+
+
 def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor,
-                ssm_scan_impl=None) -> torch.Tensor:
+                ssm_scan_impl=None, remat: bool = False,
+                remat_policy: Optional[str] = None) -> torch.Tensor:
     """Run every layer; stacked leaves are (dp, R, ...) and layer r of a
     segment reads the r-th view of ``leaf.unbind(1)``. One unbind per leaf,
     not one index per layer: backward then stacks the R layer gradients in
-    one pass instead of adding R leaf-sized zero-padded ones."""
+    one pass instead of adding R leaf-sized zero-padded ones.
+
+    ``remat=True`` checkpoints each repeat of the pattern (the reference's
+    scan body) with ``torch.utils.checkpoint(use_reentrant=False)``, its
+    weight views passed as inputs: backward recomputes the repeat from its
+    input instead of saving its internals for the whole depth. Remat
+    changes no value. ``remat_policy="dots"`` saves the weight products'
+    outputs (``_save_weight_products``); ``"save_moe_combine"`` needs MoE
+    (ROADMAP A.13d)."""
+    context_fn = _remat_context(remat_policy) if remat else None
     for (pattern, R), seg_p in zip(segs, params):
         per_pos = []
         for bp in seg_p:
             leaves, treedef = tree_flatten(bp)
-            per_pos.append((treedef, [w.unbind(1) for w in leaves]))
+            per_pos.append((treedef, len(leaves), [w.unbind(1) for w in leaves]))
+        body = _segment_body(cfg, pattern, per_pos, ssm_scan_impl)
         for r in range(R):
-            for spec, (treedef, layers) in zip(pattern, per_pos):
-                bp_r = treedef.unflatten([ws[r] for ws in layers])
-                h = block_apply(bp_r, cfg, spec, h,
-                                ssm_scan_impl=ssm_scan_impl)
+            ws = [views[r] for _, _, layers in per_pos for views in layers]
+            h = (checkpoint(body, h, *ws, use_reentrant=False,
+                            context_fn=context_fn) if remat
+                 else body(h, *ws))
     return h
 
 

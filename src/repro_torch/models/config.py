@@ -1,9 +1,10 @@
-"""Model configuration schema for the dense attention and Mamba-1 families.
+"""Model configuration schema for the dense attention, vision-stub and
+Mamba-1 families.
 
 Port of ``repro/models/config.py`` (``AttnSpec``, ``SSMSpec``,
-``BlockSpec``, ``ModelConfig``, ``reduced``). The MLA, MoE, encoder and
-vision fields wait for the other model families (ROADMAP A.13); a config
-that needs them cannot be expressed here.
+``BlockSpec``, ``VisionStubSpec``, ``ModelConfig``, ``reduced``). The MLA
+and MoE fields, the encoder and the audio stub wait for their families
+(ROADMAP A.13c-e); a config that needs them cannot be expressed here.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-__all__ = ["AttnSpec", "SSMSpec", "BlockSpec", "ModelConfig", "reduced"]
+__all__ = ["AttnSpec", "SSMSpec", "BlockSpec", "VisionStubSpec",
+           "ModelConfig", "reduced"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +24,7 @@ class AttnSpec:
     n_kv_heads: int
     head_dim: int
     qk_norm: bool = False
-    rope_frac: float = 1.0
+    rope_frac: float = 1.0          # stablelm-2 uses 0.25 (partial rotary)
     rope_theta: float = 10000.0
     window: Optional[int] = None
     causal: bool = True
@@ -50,7 +52,15 @@ class BlockSpec:
     attn: Optional[AttnSpec] = None
     ssm: Optional[SSMSpec] = None
     d_ff: int = 0
-    mlp_act: str = "swiglu"         # only "swiglu" is ported
+    mlp_act: str = "swiglu"         # "swiglu" | "gelu"
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionStubSpec:
+    """The VLM vision tower is a stub: inputs are precomputed patch
+    embeddings (B, n_image_tokens, d_model). llava-next's anyres tiling is
+    the token count (base 576 + 4 tiles x 576)."""
+    n_image_tokens: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +69,9 @@ class ModelConfig:
     d_model: int
     vocab: int
     blocks: Tuple[BlockSpec, ...]
-    norm: str = "rms"               # only "rms" is ported
+    norm: str = "rms"               # "rms" | "ln" | "nonparam" (olmo)
     tie_embeddings: bool = False
+    vision: Optional[VisionStubSpec] = None     # llava
     max_seq: int = 8192
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -85,7 +96,7 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
             vocab: int = 512) -> ModelConfig:
     """Smoke-test variant of the same family, as the reference's
     ``reduced``: <= 2 layers, 4 heads, d_ff = 2 * d_model, d_state 8 and
-    dt_rank d_model // 16, tiny vocab."""
+    dt_rank d_model // 16, 8 image tokens, tiny vocab."""
     heads = 4
     head_dim = d_model // heads
     blocks = [dataclasses.replace(
@@ -97,6 +108,8 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
         for b in cfg.blocks[:n_layers]]
     while len(blocks) < n_layers:
         blocks.append(blocks[-1])
+    vision = VisionStubSpec(n_image_tokens=8) if cfg.vision is not None \
+        else None
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", d_model=d_model,
-                               vocab=vocab, blocks=tuple(blocks), max_seq=256,
-                               dist_mode="replica")
+                               vocab=vocab, blocks=tuple(blocks), vision=vision,
+                               max_seq=256, dist_mode="replica")

@@ -1,11 +1,10 @@
-"""Shared layers: parameter specs, the RMS norm, the SwiGLU MLP, embedding.
+"""Shared layers: parameter specs, the norms, the MLPs, embedding.
 
 Port of ``repro/models/layers.py`` (``Param``/``dense_param`` init rules,
-``norm_init``/``norm_apply``, ``mlp_init``/``mlp_apply``, ``embed_init``,
-``silu``, ``dtype_of``, ``ax``, ``ax_names``) for the kinds the dense
-attention and Mamba-1 families use: the layer norm, the parameter-free norm
-and the GELU MLP wait for the families that need them (ROADMAP A.13). Init
-is split in two: ``*_init`` functions return ``ParamSpec`` trees (shape,
+``norm_init``/``norm_apply`` for ``"rms"``, ``"ln"`` and ``"nonparam"``,
+``mlp_init``/``mlp_apply`` for ``"swiglu"`` and ``"gelu"``, ``embed_init``,
+``silu``, ``gelu``, ``dtype_of``, ``ax``, ``ax_names``). Init is split in
+two: ``*_init`` functions return ``ParamSpec`` trees (shape,
 dtype, the reference's distribution and its logical-axes annotation, which
 ``train.sharding`` maps onto mesh axes), and ``draw`` makes a tensor of one
 from a ``torch.Generator`` (``models.transformer.lm_init`` draws the tree).
@@ -18,6 +17,8 @@ out as a batch dimension.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -25,9 +26,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["ParamSpec", "Param", "draw", "dense_param", "dtype_of", "silu",
-           "ax", "ax_names",
+           "gelu", "ax", "ax_names",
            "norm_init", "norm_apply", "mlp_init", "mlp_apply", "embed_init",
-           "per_replica", "replica_matmul"]
+           "per_replica", "replica_matmul", "weight_einsum",
+           "weight_products"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -117,49 +119,104 @@ def per_replica(w: torch.Tensor, ndim: int) -> torch.Tensor:
     return w.view((w.shape[0],) + (1,) * (ndim - w.dim()) + tuple(w.shape[1:]))
 
 
+# Set while a product of activations with a weight runs: remat's "dots"
+# policy (``blocks.stack_apply``) saves exactly those products' outputs.
+_WEIGHT_PRODUCT = contextvars.ContextVar("weight_product", default=False)
+
+
+@contextlib.contextmanager
+def _weight_product():
+    token = _WEIGHT_PRODUCT.set(True)
+    try:
+        yield
+    finally:
+        _WEIGHT_PRODUCT.reset(token)
+
+
+def weight_products() -> bool:
+    """True inside a weight product (``replica_matmul``,
+    ``weight_einsum``)."""
+    return _WEIGHT_PRODUCT.get()
+
+
 def replica_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (dp, *mid, d) @ w (dp, d, f) -> (dp, *mid, f): one batched product
     over the replica axis."""
     dp, d = x.shape[0], x.shape[-1]
-    out = torch.bmm(x.reshape(dp, -1, d), w)
+    with _weight_product():
+        out = torch.bmm(x.reshape(dp, -1, d), w)
     return out.view(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def weight_einsum(equation: str, x: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(equation, x, w)`` for a product with a weight ``w``
+    (the attention projections)."""
+    with _weight_product():
+        return torch.einsum(equation, x, w)
 
 
 def silu(x):
     return x * torch.sigmoid(x)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` in its op order: the tanh
+    approximation, its constants rounded to x's dtype as jnp rounds them."""
+    c = float(torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype))
+    k = float(torch.tensor(0.044715, dtype=x.dtype))
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
 # ---------------------------------------------------------------- norms
-def _check_kind(kind: str, ported: str) -> None:
-    if kind != ported:
-        raise NotImplementedError(f"{kind!r} is not ported yet (ROADMAP A.13)")
-
-
 def norm_init(kind: str, d: int, dtype=torch.float32) -> Dict:
-    _check_kind(kind, "rms")
-    return {"scale": Param((d,), ("embed",), init="ones", dtype=dtype)}
+    """rms: a learnable scale; ln: scale and bias; nonparam: no params
+    (OLMo-1B's non-parametric LayerNorm [arXiv:2402.00838])."""
+    if kind == "nonparam":
+        return {}
+    if kind == "rms":
+        return {"scale": Param((d,), ("embed",), init="ones", dtype=dtype)}
+    if kind == "ln":
+        return {"scale": Param((d,), ("embed",), init="ones", dtype=dtype),
+                "bias": Param((d,), ("embed",), init="zeros", dtype=dtype)}
+    raise ValueError(kind)
 
 
 def norm_apply(kind: str, params: Dict, x: torch.Tensor, eps: float = 1e-6):
-    _check_kind(kind, "rms")
     xf = x.float()
-    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    y = y * per_replica(params["scale"], x.dim()).float()
+    if kind == "rms":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        y = y * per_replica(params["scale"], x.dim()).float()
+    else:  # ln / nonparam; the variance is jnp.var's, the mean square of
+        # the deviations
+        mu = xf.mean(-1, keepdim=True)
+        dev = xf - mu
+        y = dev * torch.rsqrt((dev * dev).mean(-1, keepdim=True) + eps)
+        if kind == "ln":
+            y = (y * per_replica(params["scale"], x.dim()).float()
+                 + per_replica(params["bias"], x.dim()).float())
     return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------- MLP
 def mlp_init(d: int, d_ff: int, act: str, dtype=torch.float32) -> Dict:
-    _check_kind(act, "swiglu")
-    return {"w_gate": dense_param(d, (d_ff,), "embed", ("ffn",), dtype=dtype),
-            "w_in": dense_param(d, (d_ff,), "embed", ("ffn",), dtype=dtype),
-            "w_out": dense_param(d_ff, (d,), "ffn", ("embed",), dtype=dtype)}
+    p = {}
+    if act == "swiglu":
+        p["w_gate"] = dense_param(d, (d_ff,), "embed", ("ffn",), dtype=dtype)
+    p["w_in"] = dense_param(d, (d_ff,), "embed", ("ffn",), dtype=dtype)
+    p["w_out"] = dense_param(d_ff, (d,), "ffn", ("embed",), dtype=dtype)
+    return p
 
 
 def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    _check_kind(act, "swiglu")
     h = replica_matmul(x, params["w_in"])
-    h = silu(replica_matmul(x, params["w_gate"])) * h
+    if act == "swiglu":
+        h = silu(replica_matmul(x, params["w_gate"])) * h
+    elif act == "gelu":
+        h = gelu(h)
+    else:
+        raise ValueError(act)
     return replica_matmul(h, params["w_out"])
 
 

@@ -2,19 +2,21 @@
 full-sequence path and the one-token decode path.
 
 Port of ``repro/models/mamba.py`` (``mamba_init``, ``_conv_causal``,
-``_ssm_inputs``, ``ssm_assoc_scan``, ``ssm_scan_ref``, ``mamba_apply``,
+``_ssm_inputs``, ``ssm_assoc_scan``, ``ssm_scan_chunked_jnp`` as
+``ssm_scan_chunked_torch``, ``ssm_scan_ref``, ``mamba_apply``,
 ``mamba_state_init``, ``mamba_decode``).
 Activations carry the replica axis first, ``(dp, b, S, d)``, against
 weights ``(dp, ...)``; a scan implementation sees ``(dp * b, S, D, N)``.
 ``mamba_apply``'s default scan is ``ssm_assoc_scan``, a log-depth scan in
-plain PyTorch that autograd differentiates (the train path); the scoring
-path passes ``scan_impl=repro_torch.kernels.ssm_scan``, the CUDA kernel,
-which is forward-only as the reference's Pallas kernel is.
+plain PyTorch that autograd differentiates (the train path);
+``ssm_scan_chunked_torch`` is the same scan chunk by chunk, the reference's
+long-sequence train scan; the scoring path passes
+``scan_impl=repro_torch.kernels.ssm_scan``, the CUDA kernel, which is
+forward-only as the reference's Pallas kernel is.
 
 Decode carries O(1) state per layer: ``h`` (b, d_inner, d_state) in fp32
 and ``conv``, the last ``d_conv - 1`` pre-conv inputs (b, d_conv - 1,
-d_inner) in the param dtype; ``mamba_decode`` writes both in place. The
-chunked jnp scan waits for long-sequence training (ROADMAP A.13).
+d_inner) in the param dtype; ``mamba_decode`` writes both in place.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from .config import SSMSpec
 from .layers import Param, dense_param, per_replica, replica_matmul, silu
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_state_init",
-           "ssm_scan_ref", "ssm_assoc_scan"]
+           "ssm_scan_ref", "ssm_assoc_scan", "ssm_scan_chunked_torch"]
 
 
 def mamba_init(d_model: int, spec: SSMSpec, dtype=torch.float32) -> Dict:
@@ -127,6 +129,27 @@ def ssm_assoc_scan(dA: torch.Tensor, dBx: torch.Tensor,
         dBx = torch.cat([dBx[:, :1] + dA[:, :1] * h0[:, None], dBx[:, 1:]],
                         dim=1)
     return _assoc(dA, dBx)[1]
+
+
+def ssm_scan_chunked_torch(dA: torch.Tensor, dBx: torch.Tensor,
+                           chunk: int = 256) -> torch.Tensor:
+    """The reference's ``ssm_scan_chunked_jnp``: a loop over S / chunk
+    chunks carrying the state ``h``, the associative scan only within a
+    chunk (``ssm_assoc_scan(a, b, h0=h)``, the body of the reference's
+    ``lax.scan``, from a zero state). Plain PyTorch, differentiable; the
+    associative scan over the whole sequence when ``S % chunk`` or
+    ``S <= chunk``, as the reference."""
+    B, S, D, N = dA.shape
+    if S % chunk or S <= chunk:
+        return ssm_assoc_scan(dA, dBx)
+    h = dA.new_zeros((B, D, N))
+    hs = []
+    for c in range(0, S, chunk):
+        hc = ssm_assoc_scan(dA[:, c:c + chunk], dBx[:, c:c + chunk], h0=h)
+        hs.append(hc)
+        # a copy: the next chunk's autograd then keeps (B, D, N), not hc
+        h = hc[:, -1].clone()
+    return torch.cat(hs, dim=1)
 
 
 def mamba_apply(p, spec: SSMSpec, d_model: int, x: torch.Tensor,

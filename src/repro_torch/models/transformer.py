@@ -2,8 +2,8 @@
 
 Port of ``repro/models/transformer.py`` (``lm_init``, ``lm_apply``,
 ``_embed_lookup``, ``_unembed``, and serving's ``lm_cache_init``,
-``lm_decode``, ``lm_prefill``) for the dense attention and Mamba-1
-families.
+``lm_decode``, ``lm_prefill``) for the dense attention, vision-stub (llava)
+and Mamba-1 families.
 ``lm_specs`` gives the param tree as ``ParamSpec``s (the reference's leaf
 paths and shapes, nothing allocated); ``lm_axes`` their logical-axes
 annotations, the tree the reference's ``lm_init`` returns second;
@@ -11,7 +11,10 @@ annotations, the tree the reference's ``lm_init`` returns second;
 ``torch.Generator`` with the reference's distributions (``layers.draw``:
 normal x fan-in scale, embedding scale 0.02, norm scales of one, Mamba's
 dt bias and A_log). ``lm_apply`` takes params
-with a leading replica axis and tokens ``(dp, b, S)``.
+with a leading replica axis and tokens ``(dp, b, S)``. A VLM's image
+embeddings (the vision tower is a stub: precomputed patch embeddings) are
+prepended to the token embeddings, cast to their dtype, and the image
+positions' logits are dropped.
 
 The serving functions take one replica as the reference's do: params
 without a replica axis, caches in ``lm_cache_init``'s tree (leaves
@@ -19,12 +22,12 @@ without a replica axis, caches in ``lm_cache_init``'s tree (leaves
 view every leaf as ``(1, ...)`` for the model code, run without autograd,
 and write the caches in place (the reference's serve step donates them).
 
-The encoder, vision and MTP paths wait for their model families (ROADMAP
-A.13).
+The encoder (audio) and MTP paths wait for their model families (ROADMAP
+A.13c, A.13e).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -36,8 +39,8 @@ from .config import ModelConfig
 from .layers import (Param, draw, dtype_of, embed_init, norm_apply, norm_init,
                      replica_matmul)
 
-_NOT_PORTED = ("image_embeds and audio_frames feed the vision and encoder "
-               "families, which are not ported yet (ROADMAP A.13)")
+_NOT_PORTED = ("audio_frames feed the encoder-decoder family, which is not "
+               "ported yet (ROADMAP A.13c)")
 
 __all__ = ["lm_specs", "lm_axes", "lm_init", "lm_apply", "lm_cache_init",
            "lm_decode", "lm_prefill"]
@@ -95,16 +98,34 @@ def _unembed(p, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return replica_matmul(h, p["lm_head"])
 
 
+def _with_image(cfg: ModelConfig, h: torch.Tensor, image_embeds):
+    """h (dp, b, S, d) with the image embeddings (dp, b, Ni, d) prepended,
+    cast to h's dtype; a config without the vision stub ignores them, as
+    the reference does."""
+    if cfg.vision is None or image_embeds is None:
+        return h
+    return torch.cat([image_embeds.to(h.dtype), h], dim=2)
+
+
 def lm_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
-             ssm_scan_impl=None) -> torch.Tensor:
-    """Logits (dp, b, S, V) for tokens (dp, b, S). ``ssm_scan_impl``
+             image_embeds: Optional[torch.Tensor] = None,
+             ssm_scan_impl=None, remat: bool = False,
+             remat_policy: Optional[str] = None) -> torch.Tensor:
+    """Logits (dp, b, S, V) over the text positions of tokens (dp, b, S).
+    A VLM (``cfg.vision``) needs ``image_embeds`` (dp, b, Ni, d): they are
+    prepended and their positions' logits dropped. ``ssm_scan_impl``
     replaces every Mamba layer's scan (e.g. ``repro_torch.kernels.ssm_scan``,
-    the CUDA kernel, for scoring)."""
-    h = _embed_lookup(p, tokens)
+    the CUDA kernel, for scoring); ``remat`` and ``remat_policy`` checkpoint
+    the layers (``blocks.stack_apply``)."""
+    if cfg.vision is not None and image_embeds is None:
+        raise ValueError(f"{cfg.name} has a vision stub: pass image_embeds")
+    h = _with_image(cfg, _embed_lookup(p, tokens), image_embeds)
+    n_img = h.shape[2] - tokens.shape[2]
     h = B.stack_apply(p["layers"], cfg, B.segments_of(cfg.blocks), h,
-                      ssm_scan_impl=ssm_scan_impl)
+                      ssm_scan_impl=ssm_scan_impl, remat=remat,
+                      remat_policy=remat_policy)
     h = norm_apply(cfg.norm, p["final_norm"], h)
-    return _unembed(p, cfg, h)
+    return _unembed(p, cfg, h[:, :, n_img:] if n_img else h)
 
 
 # ===================================================================== serve
@@ -138,11 +159,13 @@ def lm_decode(p, cfg: ModelConfig, token: torch.Tensor, caches, pos):
 def lm_prefill(p, cfg: ModelConfig, tokens: torch.Tensor, caches,
                image_embeds=None, audio_frames=None):
     """Process a full prompt (B, S), filling the decode caches; returns
-    (last-position logits (B, V), caches)."""
-    if image_embeds is not None or audio_frames is not None:
+    (last-position logits (B, V), caches). A VLM's ``image_embeds``
+    (B, Ni, d) come first: the caches then hold Ni + S positions."""
+    if audio_frames is not None:
         raise NotImplementedError(_NOT_PORTED)
     p1 = _one_replica(p)
-    h = _embed_gather(p1, tokens[None])
+    h = _with_image(cfg, _embed_gather(p1, tokens[None]),
+                    None if image_embeds is None else image_embeds[None])
     h, caches = B.stack_prefill(p1["layers"], cfg, B.segments_of(cfg.blocks),
                                 h, _one_replica(caches))
     h = norm_apply(cfg.norm, p1["final_norm"], h)

@@ -1,7 +1,7 @@
 """Batched serving from the command line: prefill a batch of prompts, then
 greedy-decode, through ``ServingEngine`` (port of
-``examples/serve_batched.py``; the reference's VLM and audio stub inputs
-wait for their families, ROADMAP A.13).
+``examples/serve_batched.py``, with its VLM stub flow: seeded image
+embeddings for llava; the audio stub waits for its family, ROADMAP A.13c).
 
     PYTHONPATH=src python -m repro_torch.serve [--arch ARCH] [--device cpu]
 
@@ -16,7 +16,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm_init, reduced
 from repro_torch.serve import ServingEngine
@@ -30,22 +30,24 @@ def main(argv=None) -> None:
     ap.add_argument("--new-tokens", type=int, default=24)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.arch not in list_archs():
-        raise NotImplementedError(
-            f"arch {args.arch!r} is not ported yet (ROADMAP A.13); ported: "
-            f"{list_archs()}")
+    base = get_config(args.arch)   # an unported arch raises naming A.13c-e
     dev = resolve_device(args.device)
 
-    cfg = dataclasses.replace(reduced(get_config(args.arch)),
-                              param_dtype="float32", compute_dtype="float32")
+    cfg = dataclasses.replace(reduced(base), param_dtype="float32",
+                              compute_dtype="float32")
     params = lm_init(cfg, seed=0, device=dev)
     engine = ServingEngine(cfg, params, max_seq=256, device=dev)
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab,
                            (args.batch, args.prompt_len)).astype(np.int32)
+    kw = {}
+    if cfg.vision is not None:
+        kw["image_embeds"] = rng.normal(
+            size=(args.batch, cfg.vision.n_image_tokens, cfg.d_model)
+        ).astype(np.float32) * 0.02
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.new_tokens)
+    out = engine.generate(prompts, args.new_tokens, **kw)
     dt = time.perf_counter() - t0
     print(f"arch={cfg.name} device={dev} batch={args.batch} "
           f"prompt={args.prompt_len} new={args.new_tokens}")

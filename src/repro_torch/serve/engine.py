@@ -37,13 +37,18 @@ class ServingEngine:
                  image_embeds: Optional[np.ndarray] = None,
                  audio_frames: Optional[np.ndarray] = None) -> np.ndarray:
         """prompts (B, S_prompt) int -> (B, max_new_tokens) int32 greedy
-        tokens."""
+        tokens. A VLM's ``image_embeds`` (B, n_image_tokens, d) are
+        prefilled ahead of the prompt, so decode starts at S + n_img."""
         B, S = prompts.shape
-        assert S + max_new_tokens <= self.max_seq, "cache too small"
+        n_img = self.cfg.vision.n_image_tokens if (
+            self.cfg.vision is not None and image_embeds is not None) else 0
+        assert S + n_img + max_new_tokens <= self.max_seq, "cache too small"
         dev = self.device
         with torch.inference_mode():
             cache = lm_cache_init(self.cfg, B, self.max_seq, device=dev)
-            pos = torch.full((), S, dtype=torch.int64, device=dev)
+            pos = torch.full((), S + n_img, dtype=torch.int64, device=dev)
+            if image_embeds is not None:
+                image_embeds = torch.as_tensor(image_embeds).to(dev)
             logits, cache = lm_prefill(
                 self.params, self.cfg,
                 torch.as_tensor(prompts, dtype=torch.int64).to(dev), cache,

@@ -28,8 +28,8 @@ from repro_torch.tree import tree_flatten, tree_map
 __all__ = ["cache_axes", "make_decode_step", "make_prefill_step",
            "ServeBundle"]
 
-_NOT_PORTED = ("image and audio inputs feed the vision and encoder families, "
-               "which are not ported yet (ROADMAP A.13)")
+_NOT_PORTED = ("audio inputs feed the encoder-decoder family, which is not "
+               "ported yet (ROADMAP A.13c)")
 
 
 def _block_cache_axes(spec: BlockSpec) -> Dict:
@@ -93,17 +93,21 @@ def make_prefill_step(cfg: ModelConfig, dist: Distribution, *,
                       param_shapes: Any, param_axes: Any,
                       cache_shapes: Any, with_image: bool = False,
                       with_audio: bool = False) -> ServeBundle:
-    """step(params, cache, tokens (B,S)) -> (last-position logits, filled
-    cache)."""
-    if with_image or with_audio:
+    """step(params, cache, tokens (B,S) [, image_embeds (B,Ni,d)]) ->
+    (last-position logits, filled cache)."""
+    if with_audio:
         raise NotImplementedError(_NOT_PORTED)
     param_specs, cache_specs = _param_and_cache_specs(
         cfg, dist, param_shapes, param_axes, cache_shapes)
 
-    def step(params, cache, tokens):
-        return lm_prefill(params, cfg, tokens, cache)
+    def step(params, cache, tokens, *extra):
+        image = extra[0] if with_image else None
+        return lm_prefill(params, cfg, tokens, cache, image_embeds=image)
 
-    in_specs = (dist.leaf_spec((_batch(cache_shapes), 1), "batch,", False),)
+    batch = _batch(cache_shapes)
+    in_specs = [dist.leaf_spec((batch, 1), "batch,", False)]
+    if with_image:
+        in_specs.append(dist.leaf_spec((batch, 1, 1), "batch,,", False))
     return ServeBundle(step_fn=step, param_specs=param_specs,
-                       cache_specs=cache_specs, in_specs=in_specs,
+                       cache_specs=cache_specs, in_specs=tuple(in_specs),
                        dist=dist, cfg=cfg)

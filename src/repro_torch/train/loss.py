@@ -1,14 +1,14 @@
 """Next-token cross entropy, per replica.
 
 Port of ``repro/train/loss.py`` (``cross_entropy``, ``make_loss_fn``) for
-models without MoE or MTP heads. The reference's loss is per replica under a
-``vmap``; here it is a vector over the leading replica axis, and the train
-step back-propagates its sum, which gives every replica exactly the
-gradient of its own loss.
+models without MoE or MTP heads (ROADMAP A.13d-e). The reference's loss is
+per replica under a ``vmap``; here it is a vector over the leading replica
+axis, and the train step back-propagates its sum, which gives every replica
+exactly the gradient of its own loss.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,15 +27,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (lse - gold).flatten(1).mean(1)
 
 
-def make_loss_fn(cfg: ModelConfig, ssm_scan_impl=None):
+def make_loss_fn(cfg: ModelConfig, ssm_scan_impl=None, remat: bool = False,
+                 remat_policy: Optional[str] = None):
     """``loss_fn(params, batch) -> (loss (dp,), metrics)`` for params with a
-    leading replica axis and ``batch["tokens"]`` of shape (dp, b, S+1).
-    ``ssm_scan_impl`` replaces the Mamba layers' scan (``lm_apply``)."""
+    leading replica axis and ``batch["tokens"]`` of shape (dp, b, S+1), plus
+    ``batch["image_embeds"]`` (dp, b, Ni, d) for a VLM. ``ssm_scan_impl``
+    replaces the Mamba layers' scan; ``remat`` and ``remat_policy``
+    checkpoint the layers (``lm_apply``)."""
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
         logits = lm_apply(params, cfg, tokens[..., :-1],
-                          ssm_scan_impl=ssm_scan_impl)
+                          image_embeds=batch.get("image_embeds"),
+                          ssm_scan_impl=ssm_scan_impl, remat=remat,
+                          remat_policy=remat_policy)
         ce = cross_entropy(logits, tokens[..., 1:])
         return ce, {"ce": ce, "loss": ce}
 

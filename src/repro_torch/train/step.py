@@ -247,6 +247,9 @@ def make_train_step_bundle(
     fused_update: Optional[bool] = None,
     mix_impl: Optional[Callable] = None,
     rotate_samples: Optional[bool] = None,
+    remat: bool = True,
+    remat_policy: Optional[str] = None,
+    ssm_scan_impl: Optional[Callable] = None,
     seed: int = 0,
     device="cuda",
     group: Optional[ReplicaGroup] = None,
@@ -265,9 +268,15 @@ def make_train_step_bundle(
     and ``drop_seed`` configure gossip_async's ring; ``wire_dtype``,
     ``gossip_subset`` and ``wire_seed`` the gossip wire.
     ``rotate_samples`` (default: on for the gossip protocols) ring-rotates
-    the batch shards after each step (§4.5.2). ``group`` runs one replica
-    per process (a ``core.replica_group.ReplicaGroup`` of dp ranks; None:
-    the dp replicas stacked on ``device``)."""
+    the batch shards after each step (§4.5.2). ``remat`` (default on, as
+    the reference's) checkpoints each layer group and ``remat_policy``
+    ("dots") saves its weight products (``models.blocks.stack_apply``): the
+    same values, less activation memory, more time. ``ssm_scan_impl``
+    replaces the Mamba layers' scan (e.g.
+    ``models.mamba.ssm_scan_chunked_torch``, the long-sequence train scan).
+    ``group`` runs one replica per process (a
+    ``core.replica_group.ReplicaGroup`` of dp ranks; None: the dp replicas
+    stacked on ``device``)."""
     dev = resolve_device(device)
     dp = _resolve_dp(dp, dist, group)
     local_rows(dp, group)
@@ -330,7 +339,8 @@ def make_train_step_bundle(
                 proto.schedule if gossiping else None, layout, optimizer,
                 alpha=gossip_alpha if gossiping else 0.0, wire=proto.wire,
                 group=group, mesh=mesh)
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, ssm_scan_impl=ssm_scan_impl, remat=remat,
+                           remat_policy=remat_policy)
     if rotate_samples is None:
         rotate_samples = protocol in ("gossip", "gossip_async")
     shuffle = (make_ring_shuffle(dp, group) if rotate_samples and dp > 1

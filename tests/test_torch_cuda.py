@@ -19,7 +19,9 @@ packed gradient, and a fused step over its buckets, equal the CPU's bit for
 bit. Serving (no kernel on its path): prefill and decode of reduced fp32
 qwen3, qwen3 with a 4-slot window and falcon-mamba on the card against the
 CPU (logits and every cache leaf within rtol = atol = 2e-4, greedy tokens
-equal), and two ``generate`` calls on the card giving equal tokens.
+equal), and two ``generate`` calls on the card giving equal tokens. The
+smoke script's profile rows, summed from the profiler's raw events, equal
+``key_averages()``'s on a small profile.
 
 Marked ``cuda``; they skip on a machine without a card. This file imports
 neither JAX nor the reference, so on a machine with a card and no JAX it
@@ -909,3 +911,40 @@ def test_generate_on_card_is_repeatable(cuda_device, arch, window):
                             generator=torch.Generator().manual_seed(3)).numpy()
     first = eng.generate(prompts, 8)
     assert first.shape == (3, 8) and (first == eng.generate(prompts, 8)).all()
+
+
+@pytest.mark.cuda
+def test_profile_rows_from_raw_events_equal_key_averages(cuda_device):
+    """``chip_smoke._device_rows`` sums the profiler's raw device events by
+    kernel name; on a small profile (products, an activation and the fused
+    sweep) its rows equal ``key_averages()``'s: the same kernels, launch
+    counts and device time."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(512, 512, device=cuda_device, generator=gen)
+    p, g, m, b = (torch.randn(4, 1 << 16, device=cuda_device, generator=gen)
+                  for _ in range(4))
+    fused_sgd_1d(p, g, b, m, lr=0.1)        # built before the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            a = torch.tanh(a @ a * 1e-2)
+            fused_sgd_1d(p, g, b, m, lr=0.1)
+        torch.cuda.synchronize()
+    raw = {k: (ms, n) for k, ms, n in cs._device_rows(prof)}
+    avg = {e.key: (e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    assert raw and raw.keys() == avg.keys()
+    assert any("sgd" in k for k in raw)
+    for k, (ms, n) in raw.items():
+        assert n == avg[k][1], k
+        assert abs(ms - avg[k][0]) <= 1e-9 + 1e-9 * ms, (k, ms, avg[k])

@@ -401,9 +401,9 @@ def test_engine_and_prefill_refuse_what_is_not_ported():
     from repro_torch.models import lm_init
     params = lm_init(cfg, seed=0, device="cpu")
     eng = ServingEngine(cfg, params, max_seq=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(NotImplementedError, match="A.13c"):
         eng.generate(_tokens(cfg, 1, 4), 2,
-                     image_embeds=np.zeros((1, 2, cfg.d_model), np.float32))
+                     audio_frames=np.zeros((1, 2, cfg.d_model), np.float32))
     with pytest.raises(AssertionError, match="cache too small"):
         eng.generate(_tokens(cfg, 1, 30), 3)
     if not torch.cuda.is_available():
@@ -474,10 +474,10 @@ def test_serve_step_specs_equal_the_references(arch, shape, mode):
                            param_axes=lm_axes(cfg), cache_shapes=cache)
     logits, _ = dec.step_fn(params, cache, toks[:, -1], torch.tensor(6))
     assert logits.shape == (4, cfg.vocab)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    with pytest.raises(NotImplementedError, match="A.13c"):
         make_prefill_step(cfg, dist, param_shapes=lm_specs(cfg),
                           param_axes=lm_axes(cfg), cache_shapes=cache,
-                          with_image=True)
+                          with_audio=True)
 
 
 # ----------------------------------------------------------- configs
@@ -536,8 +536,8 @@ def test_serve_cli_runs_on_cpu():
 
 
 def test_serve_cli_refuses_unported_arch_and_needs_a_card():
-    with pytest.raises(NotImplementedError, match="A.13"):
-        serve_main(["--arch", "olmo-1b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A.13c"):
+        serve_main(["--arch", "whisper-base", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve_main([])
