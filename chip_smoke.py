@@ -204,6 +204,35 @@ package ``repro``. Phases, each of which fails the run on any error:
     the CPU under ``[agree]``'s rule; the four dense members served on both
     within 1e-5 with equal greedy tokens.
 
+16. The encoder-decoder family and routed MoE, each a depth-cut or full
+    config at full width with random bf16 weights from seed 0, each body
+    CPU-callable (``dense_train_run``, ``serve_run``, ``eval_run``,
+    ``jamba_train_run``, ``jamba_remat_pair``, ``combine_check``,
+    ``dense_agree_run``). ``[whisper_train]``: whisper-base at full width
+    and depth (6 + 6 layers) on ``[dense_train]``'s path, dp 4, 4 x 448
+    tokens a replica with seeded 0.02 x N(0, 1) audio frames (1,500 a
+    sequence; ``_stub_trainer_cls``), 8 steps, counted, profiled, then the
+    sweep on the largest replica-stacked bucket at alpha 0.5.
+    ``[serve_whisper]``: batch 8, 1,500 frames, a 16-token prompt, 64 new
+    tokens, ``max_seq`` 448 (``serve_run``; the encoder's share of the
+    prefill timed alone). ``[jamba_eval]``: jamba at full width, one
+    hybrid unit (8 layers: 7 Mamba, attention at 4, 4 MoE), scored on 1 x
+    4,096 tokens through the scan kernel (7 launches a forward), then
+    ``ssm_scan`` against its plain loop at (1, 4096, 8192, 16).
+    ``[serve_jamba]``: the same 8 layers served at batch 4, a 512-token
+    prompt, 32 new tokens, ``max_seq`` 4,096. ``[jamba_train]``: jamba at
+    2 layers (Mamba + MLP, Mamba + MoE), dp 2 on mesh (2, 1, 1) in its
+    fsdp mode, 1 x 1,024 tokens a replica, remat, the chunked scan (256),
+    3 steps, counted and profiled; then plain remat against
+    ``remat_policy="save_moe_combine"`` under deterministic algorithms
+    (peak, ms/step, params bit-equal) and the sweep on the largest
+    replica-stacked bucket at alpha 0.5. ``[serve_kimi]``: kimi-k2 at one
+    layer (384 experts, top-8, a shared expert), a 1,024-token prompt, 16
+    new tokens, batch 1, ``moe_dropped_frac`` over the prompt, and the
+    k = 8 combine recorded on the card against the CPU's on the same
+    inputs, bit for bit. ``[encdec_moe_agree]``: reduced fp32 whisper
+    (with frames), jamba and kimi-k2 under ``[dense_agree]``'s rule.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -1026,57 +1055,74 @@ def _replica_params(cfg, dev):
     return tree_map(lambda w: w[None], lm_init(cfg, seed=0, device=dev))
 
 
-def phase_mamba_eval(dev, cfg=None, forwards=EVAL_FORWARDS, profile=True):
-    """Score falcon-mamba-7b at full width and depth through make_loss_fn
-    with the ssm_scan kernel as its scan, under no_grad: the first forward
-    and the steady ones, peak memory, launches (64 per forward), loss."""
-    from repro_torch.configs import get_config
+def eval_run(cfg, dev, *, forwards=EVAL_FORWARDS, b=EVAL_B, seq=EVAL_S):
+    """Score ``cfg`` through make_loss_fn with the ssm_scan kernel as its
+    scan, under no_grad: the first forward and the steady ones, peak memory
+    (None off the card), launches, loss, ``moe_aux`` and
+    ``moe_dropped_frac``. Returns the record and the steady forward."""
     from repro_torch.kernels import ssm_scan
     from repro_torch.train import make_loss_fn
     from repro_torch.tree import tree_flatten
-    cfg = cfg or get_config("falcon-mamba-7b")
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak(dev)
     t0 = time.perf_counter()
     params = _replica_params(cfg, dev)
-    torch.cuda.synchronize()
+    _sync(dev)
     init_s = time.perf_counter() - t0
     leaves, _ = tree_flatten(params)
-    n_params = sum(w.numel() for w in leaves)
-    batch = _eval_batch(cfg, dev)
+    batch = _eval_batch(cfg, dev, b, seq)
     loss_fn = make_loss_fn(cfg, ssm_scan_impl=ssm_scan)
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if _on_card(dev) else 0
+    _reset_peak(dev)
     times, losses = [], []
     with torch.no_grad():
-        torch.cuda.synchronize()
+        _sync(dev)
         _reset_counts()
         for _ in range(forwards):
             t0 = time.perf_counter()
-            loss, _ = loss_fn(params, batch)
+            loss, metrics = loss_fn(params, batch)
             losses.append(float(loss[0]))   # reads the loss back: a sync
             times.append((time.perf_counter() - t0) * 1e3)
         counts = _counts()
     tokens = batch["tokens"].shape[1] * (batch["tokens"].shape[2] - 1)
     steady = sum(times[1:]) / len(times[1:])
-    want = dict.fromkeys(KERNELS, 0)
-    want["ssm_scan"] = forwards * cfg.n_layers
-    res = {"layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab, "params": n_params,
-           "param_gb": sum(w.numel() * w.element_size() for w in leaves) / 1e9,
+    peak = _peak_gb(dev)
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "mamba_layers": sum(k.kind == "mamba" for k in cfg.blocks),
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "params": sum(w.numel() for w in leaves),
+           "param_gb": _tree_bytes(params) / 1e9,
            "tokens_per_forward": tokens, "forwards": forwards,
            "init_s": init_s, "first_forward_ms": times[0],
            "ms_per_forward": steady, "tokens_per_s": tokens / steady * 1e3,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "peak_extra_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "peak_mem_gb": peak,
+           "peak_extra_gb": None if peak is None else peak - base / 1e9,
            "losses": losses, "launches": counts,
-           "ssm_scan_launches_per_forward": counts["ssm_scan"] / forwards}
-    log("[mamba_eval] " + json.dumps(res))
-    assert counts == want, (counts, want)
+           "ssm_scan_launches_per_forward": counts["ssm_scan"] / forwards,
+           **{k: float(metrics[k][0]) for k in ("ce", "moe_aux",
+                                                "moe_dropped_frac")}}
+    return res, lambda: loss_fn(params, batch)
+
+
+def phase_mamba_eval(dev, cfg=None, forwards=EVAL_FORWARDS, profile=True,
+                     b=EVAL_B, seq=EVAL_S, name="mamba_eval"):
+    """falcon-mamba-7b at full width and depth (or ``cfg``) scored on the
+    card (``eval_run``): ssm_scan launches one per Mamba layer and forward
+    (64 for falcon-mamba), loss within 1 of ln(vocab), one forward
+    profiled."""
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config("falcon-mamba-7b")
+    res, forward = eval_run(cfg, dev, forwards=forwards, b=b, seq=seq)
+    want = dict(dict.fromkeys(KERNELS, 0),
+                ssm_scan=forwards * res["mamba_layers"])
+    log(f"[{name}] " + json.dumps(res))
+    assert res["launches"] == want, (res["launches"], want)
+    losses = res["losses"]
     assert all(math.isfinite(x) for x in losses), losses
     assert abs(losses[0] - math.log(cfg.vocab)) <= 1.0, losses[0]
     if profile:
-        profile_forward("mamba_eval", lambda: loss_fn(params, batch), steady)
-    del params, batch
+        res["profile"] = profile_forward(name, forward,
+                                         res["ms_per_forward"])
+    del forward
     torch.cuda.empty_cache()
     return res
 
@@ -1094,9 +1140,11 @@ def profile_forward(name, fn, step_ms) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = _device_rows(prof)
     busy = sum(r[1] for r in rows)
+    # sort: the MoE dispatch's sorts; index: its gathers (dispatch and
+    # combine) beside the embedding's
     groups = {g: sum(ms for k, ms, _ in rows if g in k.lower())
               for g in ("ssm_scan_kernel", "gemm", "nvjet", "elementwise",
-                        "reduce", "cat")}
+                        "reduce", "cat", "sort", "index")}
     rec = {"device_busy_ms": busy, "forward_ms_unprofiled": step_ms,
            "idle_share": 1.0 - busy / step_ms, "profiled_wall_ms": wall_ms,
            "scan_share_of_busy": groups["ssm_scan_kernel"] / busy,
@@ -1122,8 +1170,8 @@ def phase_mamba_agree(dev, cfg=None, b=EVAL_B, seq=EVAL_S):
     params = _replica_params(short, dev)
     tok = _eval_batch(short, dev, b, seq)["tokens"][..., :-1]
     with torch.no_grad():
-        got = lm_apply(params, short, tok, ssm_scan_impl=ssm_scan)
-        want = lm_apply(params, short, tok, ssm_scan_impl=ssm_scan_ref)
+        got, _ = lm_apply(params, short, tok, ssm_scan_impl=ssm_scan)
+        want, _ = lm_apply(params, short, tok, ssm_scan_impl=ssm_scan_ref)
     torch.cuda.synchronize()
     eq = torch.equal(got, want)
     log(f"[mamba_agree] {SHORT_LAYERS} layers full width, logits "
@@ -1138,9 +1186,9 @@ def phase_mamba_agree(dev, cfg=None, b=EVAL_B, seq=EVAL_S):
     cpu_params = _replica_params(small, "cpu")
     tok = _eval_batch(small, "cpu", 2, 64)["tokens"][..., :-1]
     with torch.no_grad():
-        want = lm_apply(cpu_params, small, tok, ssm_scan_impl=ssm_scan)
+        want, _ = lm_apply(cpu_params, small, tok, ssm_scan_impl=ssm_scan)
         got = lm_apply(tree_map(lambda w: w.to(dev), cpu_params), small,
-                       tok.to(dev), ssm_scan_impl=ssm_scan).cpu()
+                       tok.to(dev), ssm_scan_impl=ssm_scan)[0].cpu()
     ok = bool(torch.allclose(got, want, rtol=2e-4, atol=2e-4))
     log(f"[mamba_agree] reduced fp32 ({small.n_layers} layers, d "
         f"{small.d_model}): card vs cpu within 2e-4={ok} "
@@ -1204,27 +1252,37 @@ def _marker(dev):
     return time.perf_counter, lambda a, b: (b - a) * 1e3
 
 
-def _image_embeds(cfg, batch: int, seed: int = 1):
-    """Seeded stub patch embeddings (normal x 0.02) for a VLM, else None."""
-    if cfg.vision is None:
-        return None
-    return (np.random.default_rng(seed).standard_normal(
-        (batch, cfg.vision.n_image_tokens, cfg.d_model), dtype=np.float32)
-        * np.float32(0.02))
+def _stub_inputs(cfg, batch: int, seed: int = 1) -> dict:
+    """Seeded stub inputs (normal x 0.02, numpy) of the config's frontends:
+    a VLM's patch embeddings (batch, n_image_tokens, d) as
+    ``image_embeds``, an enc-dec model's frame embeddings (batch, n_frames,
+    d) as ``audio_frames``; none for a text-only model."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, stub, n in (("image_embeds", cfg.vision, "n_image_tokens"),
+                         ("audio_frames", cfg.encoder, "n_frames")):
+        if stub is not None:
+            out[key] = rng.standard_normal(
+                (batch, getattr(stub, n), cfg.d_model),
+                dtype=np.float32) * np.float32(0.02)
+    return out
 
 
 def serve_run(cfg, dev, *, batch=SERVE_B, prompt=SERVE_PROMPT, new=SERVE_NEW,
-              max_seq=SERVE_MAX_SEQ, profile=None):
-    """Serving through ``ServingEngine`` (with seeded image embeddings for
-    a VLM, prefilled ahead of the prompt): two ``generate`` calls, then
-    prefill timed (the first call apart, the median of 3 more), ``new``
-    decode steps timed (per-step marks, median; tokens/s over the loop's
-    wall time), peak memory, the cache, the decode byte bound; last, the
-    prefill's last-position logits against ``lm_apply``'s. ``profile(fn,
-    step_ms)`` (the card's) profiles one decode step. Returns the record
-    and the generated tokens."""
-    from repro_torch.models import (lm_apply, lm_cache_init, lm_decode,
-                                    lm_init, lm_prefill)
+              max_seq=SERVE_MAX_SEQ, profile=None, combine_check=None):
+    """Serving through ``ServingEngine`` (with the config's seeded stub
+    inputs: a VLM's image embeddings, prefilled ahead of the prompt; an
+    enc-dec model's audio frames, which the prefill's encoder reads): two
+    ``generate`` calls, then prefill timed (the first call apart, the
+    median of 3 more; an encoder's share timed alone), ``new`` decode steps
+    timed (per-step marks, median; tokens/s over the loop's wall time),
+    peak memory, the cache, the decode byte bound; last, the prefill's
+    last-position logits against ``lm_apply``'s (and an MoE model's aux
+    over the prompt). ``profile(fn, step_ms)`` (the card's) profiles one
+    decode step; ``combine_check(params, toks)`` runs after the timed
+    windows. Returns the record and the generated tokens."""
+    from repro_torch.models import (encode_audio, lm_apply, lm_cache_init,
+                                    lm_decode, lm_init, lm_prefill)
     from repro_torch.serve import ServingEngine
     from repro_torch.tree import tree_flatten, tree_map
     _reset_peak(dev)
@@ -1237,21 +1295,23 @@ def serve_run(cfg, dev, *, batch=SERVE_B, prompt=SERVE_PROMPT, new=SERVE_NEW,
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab, (batch, prompt)).astype(np.int32)
     toks = torch.as_tensor(prompts, dtype=torch.int64).to(dev)
-    image = _image_embeds(cfg, batch)
-    img = None if image is None else torch.from_numpy(image).to(dev)
-    n_img = 0 if image is None else image.shape[1]
+    stubs = _stub_inputs(cfg, batch)
+    on_dev = {k: torch.from_numpy(v).to(dev) for k, v in stubs.items()}
+    n_img = stubs["image_embeds"].shape[1] if "image_embeds" in stubs else 0
     res = {"layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
            "batch": batch, "prompt": prompt, "image_tokens": n_img,
+           "audio_frames": (stubs["audio_frames"].shape[1]
+                            if "audio_frames" in stubs else 0),
            "new_tokens": new, "max_seq": max_seq,
            "param_gb": _tree_bytes(params) / 1e9, "init_s": init_s}
     mark, elapsed = _marker(dev)
     with torch.inference_mode():
         _reset_counts()
         t0 = time.perf_counter()
-        out = engine.generate(prompts, new, image_embeds=image)
+        out = engine.generate(prompts, new, **stubs)
         res["generate_first_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        again = engine.generate(prompts, new, image_embeds=image)
+        again = engine.generate(prompts, new, **stubs)
         res["generate_s"] = time.perf_counter() - t0
         res["launches"] = _counts()
         res["generate_equal"] = bool(np.array_equal(out, again))
@@ -1261,12 +1321,23 @@ def serve_run(cfg, dev, *, batch=SERVE_B, prompt=SERVE_PROMPT, new=SERVE_NEW,
         for _ in range(4):
             _sync(dev)
             t0 = time.perf_counter()
-            logits, cache = lm_prefill(params, cfg, toks, cache,
-                                       image_embeds=img)
+            logits, cache = lm_prefill(params, cfg, toks, cache, **on_dev)
             _sync(dev)
             pre.append((time.perf_counter() - t0) * 1e3)
         res["prefill_first_ms"] = pre[0]
         res["prefill_ms"] = statistics.median(pre[1:])
+        if "audio_frames" in on_dev:   # the encoder's share of the prefill
+            enc = []
+            for _ in range(3):
+                _sync(dev)
+                t0 = time.perf_counter()
+                encode_audio(tree_map(lambda w: w[None], params), cfg,
+                             on_dev["audio_frames"][None])
+                _sync(dev)
+                enc.append((time.perf_counter() - t0) * 1e3)
+            res["prefill_encoder_ms"] = statistics.median(enc)
+            res["prefill_decoder_ms"] = res["prefill_ms"] - statistics.median(
+                enc)
         last = logits.float()
         tok = logits.argmax(-1)
         pos = torch.full((), prompt + n_img, dtype=torch.int64, device=dev)
@@ -1299,9 +1370,14 @@ def serve_run(cfg, dev, *, batch=SERVE_B, prompt=SERVE_PROMPT, new=SERVE_NEW,
         del cache
         if _on_card(dev):
             torch.cuda.empty_cache()
-        full = lm_apply(tree_map(lambda w: w[None], params), cfg, toks[None],
-                        image_embeds=None if img is None else img[None]
-                        )[0, :, -1].float()
+        if combine_check is not None:
+            res["combine_check"] = combine_check(params, toks)
+        full, aux = lm_apply(tree_map(lambda w: w[None], params), cfg,
+                             toks[None], **{k: v[None]
+                                            for k, v in on_dev.items()})
+        full = full[0, :, -1].float()
+        if any(b.moe is not None for b in cfg.blocks):
+            res.update({k: float(v[0]) for k, v in aux.items()})
         res["lm_apply_max_abs_diff"] = _diff(last, full)
         res["lm_apply_bound"] = 2 * _bf16_ulp(full.abs().max()).item()
         res["prefill_logits_finite"] = bool(torch.isfinite(last).all())
@@ -1344,22 +1420,22 @@ def _serve_models():
             "falcon-mamba": small("falcon-mamba-7b")}
 
 
-def _serve_trace(cfg, params, toks, dev, prompt, max_seq, image=None):
-    """Prefill ``toks[:, :prompt]`` (after ``image``, a VLM's embeddings),
-    then decode the rest one at a time at device positions: every call's
-    logits and caches, on the CPU."""
+def _serve_trace(cfg, params, toks, dev, prompt, max_seq, stubs=None):
+    """Prefill ``toks[:, :prompt]`` (with ``stubs``, the config's stub
+    inputs: a VLM's embeddings come first), then decode the rest one at a
+    time at device positions: every call's logits and caches, on the
+    CPU."""
     from repro_torch.models import lm_cache_init, lm_decode, lm_prefill
     from repro_torch.tree import tree_flatten
     def copy(c):   # a snapshot: later decode steps write the caches in place
         return c.to("cpu", copy=True)
 
     toks = toks.to(dev)
-    n_img = 0
-    if image is not None:
-        image, n_img = torch.from_numpy(image).to(dev), image.shape[1]
+    stubs = {k: torch.from_numpy(v).to(dev) for k, v in (stubs or {}).items()}
+    n_img = stubs["image_embeds"].shape[1] if "image_embeds" in stubs else 0
     logits, cache = lm_prefill(params, cfg, toks[:, :prompt],
                                lm_cache_init(cfg, toks.shape[0], max_seq,
-                                             device=dev), image_embeds=image)
+                                             device=dev), **stubs)
     trace = [(copy(logits), [copy(c) for c in tree_flatten(cache)[0]])]
     for t in range(prompt, toks.shape[1]):
         logits, cache = lm_decode(params, cfg, toks[:, t], cache,
@@ -1396,7 +1472,7 @@ def phase_serve_agree(dev, batch=2, prompt=12, steps=4, max_seq=32, new=6):
                     ok &= bool(torch.allclose(g, w, rtol=2e-4, atol=2e-4))
             t = toks.to(dev)
             full = lm_apply(tree_map(lambda w: w[None], card), cfg,
-                            t[None])[0, :, -1]
+                            t[None])[0][0, :, -1]
             _, cache = lm_prefill(card, cfg, t[:, :-1],
                                   lm_cache_init(cfg, batch, max_seq,
                                                 device=dev))
@@ -1443,8 +1519,9 @@ def _train(cfg, *, fused, steps, dev, params=None, dp=DP, seq=SEQ,
     ``remat_policy`` and ``ssm_scan_impl``); ``dist`` (a distribution plan)
     replaces ``dp`` and picks the shard-local layout when it shards inside
     a replica. ``remat`` is off unless asked for (the bundle's default is
-    on): the paths of earlier slices were measured without it. A VLM's
-    Trainer feeds seeded image embeddings (``_image_trainer_cls``)."""
+    on): the paths of earlier slices were measured without it. A VLM's or
+    an enc-dec model's Trainer feeds the seeded stub inputs
+    (``_stub_trainer_cls``)."""
     from repro_torch.data import ShardedTokenDataset
     from repro_torch.train import (Trainer, init_train_state,
                                    make_train_step_bundle)
@@ -1460,25 +1537,28 @@ def _train(cfg, *, fused, steps, dev, params=None, dp=DP, seq=SEQ,
                              wire=bundle.wire, **size)
     ds = ShardedTokenDataset(cfg.vocab, seq, n_shards=bundle.dp,
                              batch_per_shard=per_replica)
-    cls = Trainer if cfg.vision is None else _image_trainer_cls()
+    cls = (Trainer if cfg.vision is None and cfg.encoder is None
+           else _stub_trainer_cls())
     return bundle, cls(bundle, state, ds, log_every=0)
 
 
-def _image_trainer_cls():
+def _stub_trainer_cls():
     from repro_torch.train import Trainer
 
-    class ImageTrainer(Trainer):
-        """The Trainer with a VLM's stub image embeddings in every batch:
-        seeded by the step, (dp, b, n_image_tokens, d), normal x 0.02."""
+    class StubTrainer(Trainer):
+        """The Trainer with the config's stub inputs in every batch (a
+        VLM's image embeddings, an enc-dec model's audio frames): seeded by
+        the step, (dp, b, n, d), normal x 0.02."""
 
         def _batch(self, step: int):
             batch = super()._batch(step)
             dp, b = batch["tokens"].shape[:2]
-            emb = _image_embeds(self.bundle.cfg, dp * b, seed=step)
-            batch["image_embeds"] = torch.from_numpy(emb).view(
-                (dp, b) + emb.shape[1:]).to(self.bundle.device)
+            for k, v in _stub_inputs(self.bundle.cfg, dp * b,
+                                     seed=step).items():
+                batch[k] = torch.from_numpy(v).view(
+                    (dp, b) + v.shape[1:]).to(self.bundle.device)
             return batch
-    return ImageTrainer
+    return StubTrainer
 
 
 def _counters():
@@ -2519,31 +2599,34 @@ def dense_train_run(cfg, dev, *, dp=DP, seq=SEQ, per_replica=PER_REPLICA,
                      per_replica=per_replica, gossip_alpha=GOSSIP_ALPHA)
 
 
-def phase_dense_train(dev, archs=("olmo-1b", "stablelm-1.6b")):
-    """olmo-1b and stablelm-1.6b at full width and depth on ``[main]``'s
-    cell: ``fused_sgd`` launches = steps x buckets, losses, peak, profiled
-    like ``[main]``; then, outside the counted run, the sweep on the
-    largest replica-stacked bucket's size with a partner at the path's
-    alpha against its plain version (``sweep_check``)."""
+def phase_dense_train(dev, archs=("olmo-1b", "stablelm-1.6b"),
+                      tag="dense_train", **sizes):
+    """olmo-1b and stablelm-1.6b (or ``archs``) at full width and depth on
+    ``[main]``'s cell (or ``sizes``): ``fused_sgd`` launches = steps x
+    buckets, losses, peak, profiled like ``[main]``; then, outside the
+    counted run, the sweep on the largest replica-stacked bucket's size
+    with a partner at the path's alpha against its plain version
+    (``sweep_check``)."""
     from repro_torch.configs import get_config
     out = {}
+    steps = sizes.get("steps", MAIN_STEPS)
     for arch in archs:
         cfg = get_config(arch)
-        rec, bundle, tr = dense_train_run(cfg, dev)
+        rec, bundle, tr = dense_train_run(cfg, dev, **sizes)
         want = dict(dict.fromkeys(KERNELS, 0),
-                    fused_sgd=MAIN_STEPS * bundle.layout.num_buckets)
+                    fused_sgd=steps * bundle.layout.num_buckets)
         rec["expected_launches"] = want
-        log("[dense_train] " + json.dumps(rec))
+        log(f"[{tag}] " + json.dumps(rec))
         assert rec["launches"] == want, (arch, rec["launches"], want)
         assert all(math.isfinite(v) for v in rec["losses"]), arch
         assert abs(rec["losses"][0] - math.log(cfg.vocab)) <= 1.0, arch
         assert _finite_buckets(tr), f"{arch}: non-finite parameters"
-        rec["profile"] = profile_step(f"dense_train {arch}", tr)
+        rec["profile"] = profile_step(f"{tag} {arch}", tr)
         n = bundle.dp * max(bundle.layout.bucket_sizes)
         del tr, bundle
         torch.cuda.empty_cache()
         sweep = sweep_check(dev, n, lr=FULL_LR["sgd"], alpha=GOSSIP_ALPHA)
-        log(f"[dense_train] {arch} fused_sgd on the largest bucket's size: "
+        log(f"[{tag}] {arch} fused_sgd on the largest bucket's size: "
             + json.dumps(sweep))
         assert sweep["partner"] and sweep["whole"]["equal"] \
             and sweep["tail"]["equal"], (arch, sweep)
@@ -2572,18 +2655,21 @@ def _dense_models(chunk: int = 8):
     return dense
 
 
-def dense_agree_run(dev, *, steps=SHORT_STEPS, seq=16, per_replica=2,
+def dense_agree_run(dev, *, models=None, steps=SHORT_STEPS, seq=16,
+                    per_replica=2,
                     serve=dict(batch=2, prompt=12, steps=4, max_seq=32,
                                new=6)):
-    """Each of ``_dense_models`` trained from one init at dp = DP (sync
-    fused sgd) on the CPU and on ``dev``: losses and buckets of both; the
-    dense members also served on both (prefill and each decode step's
-    logits and caches, greedy tokens of ``ServingEngine``)."""
+    """Each of ``models`` (name -> (config, the bundle's extra arguments);
+    default ``_dense_models()``) trained from one init at dp = DP (sync
+    fused sgd) on the CPU and on ``dev``: losses and buckets of both; each
+    model with no extra arguments also served on both (prefill and each
+    decode step's logits and caches, greedy tokens of ``ServingEngine``),
+    with its stub inputs."""
     from repro_torch.models import lm_init
     from repro_torch.serve import ServingEngine
     from repro_torch.tree import tree_map
     out = {}
-    for name, (cfg, kw) in _dense_models().items():
+    for name, (cfg, kw) in (models or _dense_models()).items():
         init = lm_init(cfg, seed=0, device="cpu")
         runs = {}
         for d in ("cpu", dev):
@@ -2601,27 +2687,27 @@ def dense_agree_run(dev, *, steps=SHORT_STEPS, seq=16, per_replica=2,
             toks = torch.as_tensor(np.random.default_rng(1).integers(
                 0, cfg.vocab, (s["batch"], s["prompt"] + s["steps"])),
                 dtype=torch.int64)
-            image = _image_embeds(cfg, s["batch"])
+            stubs = _stub_inputs(cfg, s["batch"])
             card = tree_map(lambda w: w.to(dev), init)
             with torch.inference_mode():
                 traces = [_serve_trace(cfg, p, toks, d, s["prompt"],
-                                       s["max_seq"], image)
+                                       s["max_seq"], stubs)
                           for p, d in ((init, "cpu"), (card, dev))]
                 prompts = toks[:, :s["prompt"]].numpy().astype(np.int32)
                 tokens = [ServingEngine(cfg, p, s["max_seq"], device=d)
-                          .generate(prompts, s["new"], image_embeds=image)
+                          .generate(prompts, s["new"], **stubs)
                           for p, d in ((init, "cpu"), (card, dev))]
             rec["serve"] = {"traces": traces, "tokens": tokens}
         out[name] = rec
     return out
 
 
-def phase_dense_agree(dev):
+def phase_dense_agree(dev, models=None, tag="dense_agree"):
     """``dense_agree_run`` held on the card: train trajectories within
     ``[agree]``'s rule (rtol = atol = 2e-4), serving within 1e-5 with
     equal greedy tokens."""
     res = {}
-    for name, rec in dense_agree_run(dev).items():
+    for name, rec in dense_agree_run(dev, models=models).items():
         r = {"train": _assert_agree(name, "sgd", {}, SHORT_STEPS,
                                     rec["train"]["cpu"],
                                     rec["train"]["card"])}
@@ -2633,12 +2719,169 @@ def phase_dense_agree(dev):
             r["serve"] = {"card_vs_cpu_max_abs_err": err,
                           "tokens_equal_cpu": bool(np.array_equal(got,
                                                                   want))}
-        log(f"[dense_agree] {name}: " + json.dumps(r))
+        log(f"[{tag}] {name}: " + json.dumps(r))
         assert "serve" not in r or (r["serve"]["card_vs_cpu_max_abs_err"]
                                     <= 1e-5 and r["serve"]
                                     ["tokens_equal_cpu"]), (name, r)
         res[name] = r
     return res
+
+
+# ------------------------------- the encoder-decoder and routed-MoE family
+WHISPER_TRAIN = dict(dp=DP, seq=448, per_replica=4, steps=MAIN_STEPS)
+WHISPER_SERVE = dict(batch=8, prompt=16, new=64, max_seq=448)
+JAMBA_UNIT = 8          # one hybrid unit: 7 Mamba layers, attention at 4
+JAMBA_EVAL = dict(b=1, seq=4096, forwards=3)
+JAMBA_SERVE = dict(batch=4, prompt=512, new=32, max_seq=4096)
+JAMBA_TRAIN = dict(dp=2, seq=1024, per_replica=1, steps=3, chunk=256)
+JAMBA_SSM_SHAPE = (1, 4096, 8192, 16)   # jamba's scan at 1 x 4096 tokens
+KIMI_SERVE = dict(batch=1, prompt=1024, new=16, max_seq=2048)
+
+
+def _depth(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers (a depth cut, widths kept)."""
+    return dataclasses.replace(cfg, blocks=cfg.blocks[:n])
+
+
+def jamba_train_run(cfg, dev, *, dp, seq, per_replica, steps, chunk,
+                    remat_policy=None):
+    """jamba training as ``[hier_fsdp]`` runs an fsdp config: the plan of
+    mesh (dp, 1, 1) in the config's mode (dp gossip replicas over the
+    pods), sync gossip at ``GOSSIP_ALPHA``, packed fused sgd, remat on
+    (``remat_policy``), the chunked scan."""
+    rec, bundle, tr = train_run(
+        cfg, dev, steps=steps, dp=dp, seq=seq, per_replica=per_replica,
+        dist=_plan(dp, 1, 1, cfg.dist_mode), gossip_alpha=GOSSIP_ALPHA,
+        remat=True, remat_policy=remat_policy, ssm_scan_impl=_chunked(chunk))
+    rec.update(scan=f"chunked {chunk}", dist_mode=cfg.dist_mode,
+               bucket_sizes_max=max(bundle.layout.bucket_sizes))
+    return rec, bundle, tr
+
+
+def jamba_remat_pair(cfg, dev, *, dp, seq, per_replica, chunk, steps=2):
+    """Plain remat and ``remat_policy="save_moe_combine"`` from one init
+    under deterministic algorithms, ``steps`` each: their records and
+    whether the params after the steps are bit-equal."""
+    out, params = {}, {}
+    with _deterministic():
+        for policy in (None, "save_moe_combine"):
+            rec, bundle, tr = jamba_train_run(
+                cfg, dev, dp=dp, seq=seq, per_replica=per_replica,
+                steps=steps, chunk=chunk, remat_policy=policy)
+            out[policy or "remat"] = {
+                k: rec[k] for k in ("peak_mem_gb", "ms_per_step",
+                                    "first_step_ms", "losses")}
+            params[policy] = [b.detach().cpu()
+                              for b in tr.state["params"].buckets]
+            del tr, bundle
+            if _on_card(dev):
+                torch.cuda.empty_cache()
+    out["params_bit_equal"] = all(_same_bits(a, b) for a, b in zip(
+        params[None], params["save_moe_combine"]))
+    return out
+
+
+def phase_jamba_train(dev, cfg=None, layers=2, sizes=JAMBA_TRAIN):
+    """jamba at full width, ``layers`` layers (Mamba + MLP, Mamba + MoE),
+    dp 2 on mesh (2, 1, 1) in its fsdp mode, remat on, the chunked scan:
+    ``fused_sgd`` launches = steps x buckets, losses, peak, one step
+    profiled; then plain remat against save_moe_combine (peak, ms/step,
+    params bit-equal); then the sweep on the largest replica-stacked
+    bucket with a partner at alpha 0.5 (``sweep_check``)."""
+    from repro_torch.configs import get_config
+    cfg = _depth(cfg or get_config("jamba-v0.1-52b"), layers)
+    rec, bundle, tr = jamba_train_run(cfg, dev, **sizes)
+    want = dict(dict.fromkeys(KERNELS, 0),
+                fused_sgd=sizes["steps"] * bundle.layout.num_buckets)
+    rec["expected_launches"] = want
+    log("[jamba_train] " + json.dumps(rec))
+    assert rec["launches"] == want, (rec["launches"], want)
+    assert all(math.isfinite(v) for v in rec["losses"]), "non-finite loss"
+    assert abs(rec["losses"][0] - math.log(cfg.vocab)) <= 1.0, rec["losses"]
+    assert _finite_buckets(tr), "non-finite parameters"
+    rec["profile"] = profile_step("jamba_train", tr, min_steps=1)
+    n = bundle.dp * rec["bucket_sizes_max"]
+    del tr, bundle
+    torch.cuda.empty_cache()
+    pair = jamba_remat_pair(cfg, dev, **{k: sizes[k] for k in (
+        "dp", "seq", "per_replica", "chunk")})
+    log("[jamba_train] remat against save_moe_combine: " + json.dumps(pair))
+    assert pair["params_bit_equal"], "save_moe_combine changed the params"
+    rec["save_moe_combine"] = pair
+    sweep = sweep_check(dev, n, lr=FULL_LR["sgd"], alpha=GOSSIP_ALPHA)
+    log("[jamba_train] fused_sgd on the largest bucket's size: "
+        + json.dumps(sweep))
+    assert sweep["partner"] and sweep["whole"]["equal"] \
+        and sweep["tail"]["equal"], sweep
+    rec["sweep"] = sweep
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_jamba_eval(dev, cfg=None):
+    """jamba at full width, one hybrid unit (8 layers: 7 Mamba, 4 MoE),
+    scored through the ssm_scan kernel (``phase_mamba_eval``: 7 launches a
+    forward); then, outside the counted run, ssm_scan against its plain
+    loop bit for bit at jamba's scan shape."""
+    from repro_torch.configs import get_config
+    cfg = _depth(cfg or get_config("jamba-v0.1-52b"), JAMBA_UNIT)
+    res = phase_mamba_eval(dev, cfg, name="jamba_eval", **JAMBA_EVAL)
+    res["check_ssm"] = phase_check_ssm(dev, shapes=(JAMBA_SSM_SHAPE,))
+    return res
+
+
+def combine_check(cfg, dev):
+    """``combine(params, toks)``: one prefill of ``toks`` with the MoE
+    combine's inputs recorded (the first MoE layer's weighted slot outputs
+    and inverse table), then the combine on the CPU on copies of them
+    against the card's output, bit for bit (kimi's k = 8 in bf16: the add
+    order is fixed, no atomics)."""
+    from repro_torch.models import lm_cache_init, lm_prefill
+    from repro_torch.models import moe as moe_mod
+
+    def run(params, toks):
+        seen, real = [], moe_mod._combine
+
+        def record(ye, inv):
+            out = real(ye, inv)
+            if not seen:
+                seen.append((ye.cpu(), inv.cpu(), out.cpu()))
+            return out
+        moe_mod._combine = record
+        try:
+            lm_prefill(params, cfg, toks, lm_cache_init(
+                cfg, toks.shape[0], toks.shape[1], device=dev))
+        finally:
+            moe_mod._combine = real
+        ye, inv, got = seen[0]
+        want = real(ye, inv)
+        return {"slots": ye.shape[1], "tokens": inv.shape[1],
+                "top_k": inv.shape[2], "dtype": str(ye.dtype)[6:],
+                "bit_equal": _same_bits(got, want),
+                "max_abs_err": _diff(got.float(), want.float())}
+    return run
+
+
+def phase_serve_moe(name, cfg, dev, **sizes):
+    """``phase_serve`` on an MoE model, with its aux over the prompt and,
+    where the combine adds 3 or more slots, ``combine_check``."""
+    if max(b.moe.top_k for b in cfg.blocks if b.moe is not None) > 2:
+        sizes["combine_check"] = combine_check(cfg, dev)
+    res = phase_serve(name, cfg, dev, **sizes)
+    assert 0.0 <= res["moe_dropped_frac"] <= 1.0, res
+    if "combine_check" in res:
+        assert res["combine_check"]["bit_equal"], res["combine_check"]
+    return res
+
+
+def _encdec_moe_models():
+    """[encdec_moe_agree]'s reduced fp32 models: whisper, jamba, kimi-k2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+    return {a: (dataclasses.replace(reduced(get_config(a)),
+                                    param_dtype="float32",
+                                    compute_dtype="float32"), {})
+            for a in ("whisper-base", "jamba-v0.1-52b", "kimi-k2-1t-a32b")}
 
 
 def main() -> int:
@@ -2842,6 +3085,21 @@ def main() -> int:
     guard("serve_internlm2", phase_serve, "serve_internlm2",
           get_config("internlm2-20b"), dev, **INTERNLM2_SERVE)
     guard("dense_agree", phase_dense_agree, dev)
+    # the encoder-decoder and routed-MoE family
+    whisper_res = guard("whisper_train", phase_dense_train, dev,
+                        archs=("whisper-base",), tag="whisper_train",
+                        **WHISPER_TRAIN)
+    guard("serve_whisper", phase_serve, "serve_whisper",
+          get_config("whisper-base"), dev, **WHISPER_SERVE)
+    jamba_eval_res = guard("jamba_eval", phase_jamba_eval, dev)
+    guard("serve_jamba", phase_serve_moe, "serve_jamba",
+          _depth(get_config("jamba-v0.1-52b"), JAMBA_UNIT), dev,
+          **JAMBA_SERVE)
+    jamba_train_res = guard("jamba_train", phase_jamba_train, dev)
+    guard("serve_kimi", phase_serve_moe, "serve_kimi",
+          _depth(get_config("kimi-k2-1t-a32b"), 1), dev, **KIMI_SERVE)
+    guard("encdec_moe_agree", phase_dense_agree, dev,
+          models=_encdec_moe_models(), tag="encdec_moe_agree")
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")
@@ -2906,9 +3164,15 @@ def main() -> int:
         "hier_fsdp": hier_fsdp_res["launches"]["fused_sgd"],
         "mamba_train": mamba_train_res["launches"]["fused_sgd"],
         **{f"dense_train {a}": r["launches"]["fused_sgd"]
-           for a, r in dense_res.items()}}
+           for a, r in dense_res.items()},
+        "whisper_train": whisper_res["whisper-base"]["launches"]["fused_sgd"],
+        "jamba_train": jamba_train_res["launches"]["fused_sgd"]}
     big = mamba_train_res["big_bucket"]
-    sweeps = [big] + [r["sweep"] for r in dense_res.values()]
+    sweeps_by_path = {
+        **{f"dense_train {a}": r["sweep"] for a, r in dense_res.items()},
+        "whisper_train": whisper_res["whisper-base"]["sweep"],
+        "jamba_train": jamba_train_res["sweep"]}
+    sweeps = [big] + list(sweeps_by_path.values())
     by_name["fused_sgd"].update(
         max_abs_err=max([err["fused_sgd"]] + [
             sw[t]["max_abs_err"] for sw in sweeps for t in ("whole", "tail")]),
@@ -2917,18 +3181,25 @@ def main() -> int:
         max_abs_err_by_path={
             "mamba_train": max(big["whole"]["max_abs_err"],
                                big["tail"]["max_abs_err"]),
-            **{f"dense_train {a}": max(r["sweep"]["whole"]["max_abs_err"],
-                                       r["sweep"]["tail"]["max_abs_err"])
-               for a, r in dense_res.items()}},
+            **{p: max(sw["whole"]["max_abs_err"], sw["tail"]["max_abs_err"])
+               for p, sw in sweeps_by_path.items()}},
         sweep_elements_by_path={
             "mamba_train": big["n"],
-            **{f"dense_train {a}": r["sweep"]["n"]
-               for a, r in dense_res.items()}})
+            **{p: sw["n"] for p, sw in sweeps_by_path.items()}})
     by_name["fused_sgd_q"]["launches_by_path"] = {
         "async_wire": async_res["launches"]["fused_sgd_q"],
         "hier_fsdp": hier_fsdp_res["launches"]["fused_sgd_q"]}
-    by_name["ssm_scan"]["launches_per_forward"] = \
-        mamba_res["ssm_scan_launches_per_forward"]
+    scan = by_name["ssm_scan"]
+    scan["launches_per_forward"] = mamba_res["ssm_scan_launches_per_forward"]
+    scan["launches_by_path"] = {
+        "mamba_eval": mamba_res["launches"]["ssm_scan"],
+        "jamba_eval": jamba_eval_res["launches"]["ssm_scan"]}
+    scan["launches_per_forward_by_path"] = {
+        "mamba_eval": mamba_res["ssm_scan_launches_per_forward"],
+        "jamba_eval": jamba_eval_res["ssm_scan_launches_per_forward"]}
+    scan["max_abs_err_jamba_shape"] = jamba_eval_res["check_ssm"]["ssm_scan"]
+    scan["max_abs_err"] = max(scan["max_abs_err"],
+                              scan["max_abs_err_jamba_shape"])
     flash = by_name["flash_attention"]
     flash.update(max_abs_err_bf16=err["flash_attention_bf16"],
                  **timing["flash_attention_bf16"])

@@ -1,11 +1,11 @@
 """Architecture registry and input shapes (port of
 ``repro/configs/__init__.py``).
 
-Six of the reference's ten archs are registered: the dense attention
+Nine of the reference's ten archs are registered: the dense attention
 members (qwen3-0.6b, olmo-1b, stablelm-1.6b, internlm2-20b and
-llava-next-mistral-7b with its vision stub) and falcon-mamba-7b. whisper-base
-waits for the encoder-decoder family (ROADMAP A.13c), kimi-k2 and jamba for
-MoE (A.13d), deepseek-v3 for MLA (A.13e).
+llava-next-mistral-7b with its vision stub), falcon-mamba-7b, whisper-base
+(encoder-decoder, audio stub), and the routed-MoE members kimi-k2 and jamba
+(with Mamba). deepseek-v3 waits for MLA and MTP (ROADMAP A.13e).
 """
 from __future__ import annotations
 
@@ -25,14 +25,14 @@ _ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
     "llava-next-mistral-7b": "llava_next_mistral_7b",
     "internlm2-20b": "internlm2_20b",
+    "whisper-base": "whisper_base",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 # the reference's archs whose families are not ported yet, and the ROADMAP
 # item that ports each
 NOT_PORTED = {
-    "whisper-base": "A.13c",
-    "kimi-k2-1t-a32b": "A.13d",
-    "jamba-v0.1-52b": "A.13d",
     "deepseek-v3-671b": "A.13e",
 }
 

@@ -14,6 +14,11 @@ rank. ``--protocol gossip_async`` takes ``--staleness``, ``--drop-timeout`` and
 ``--gossip-subset`` and ``--wire-seed`` (a compressed wire needs
 ``--packed``).
 
+``--arch whisper-base`` is refused: the launcher and the Trainer feed
+tokens only, as the reference's do, and an enc-dec model's loss needs
+audio frames (the reference's ``lm_apply`` asserts them). Train it through
+``make_train_step_bundle`` with batches that carry ``audio_frames``.
+
 ``--smoke-mesh POD,DATA,MODEL`` builds the distribution plan
 ``make_distribution(make_smoke_mesh(DATA, MODEL, pod=POD),
 cfg.dist_mode)`` as the reference does; its ``dp`` replicas (pod x data in
@@ -112,9 +117,16 @@ def model_config(args: argparse.Namespace):
     """The model the launcher trains: the reference reduces ``--arch`` to
     its fp32 smoke variant under ``--smoke`` or on one device
     (``src/repro/launch/train.py:104-107``), and the port always runs on
-    one device."""
-    return dataclasses.replace(reduced(get_config(args.arch),
-                                       d_model=args.d_model),
+    one device. An enc-dec arch is refused: its loss needs audio frames,
+    which the token pipeline does not carry."""
+    cfg = get_config(args.arch)
+    if cfg.encoder is not None:
+        raise ValueError(
+            f"--arch {args.arch} is an encoder-decoder model whose loss needs "
+            "audio_frames; the launcher feeds tokens only (as the "
+            "reference's): train it through make_train_step_bundle with "
+            "batches that carry audio_frames")
+    return dataclasses.replace(reduced(cfg, d_model=args.d_model),
                                param_dtype="float32", compute_dtype="float32")
 
 

@@ -1,4 +1,5 @@
-"""Multi-head / grouped-query attention: the train path and the decode path.
+"""Multi-head / grouped-query attention and enc-dec cross-attention: the
+train path and the decode path.
 
 Port of ``repro/models/attention.py`` (``attn_init``, ``_qk_normalize``,
 ``_project_qkv``, ``_sdpa``, ``causal_window_mask``, ``attn_apply``,
@@ -16,8 +17,11 @@ reference's jitted serve step donates it) and returned; ``pos`` may be a
 0-d device tensor, so a decode loop never reads a position back to the host.
 
 Partial rotary (``rope_frac`` < 1, stablelm-2) rotates the first
-``_rot_dim`` dims of each head. Cross-attention and MLA wait for their
-families (ROADMAP A.13c, A.13e).
+``_rot_dim`` dims of each head; ``rope_frac`` 0 (whisper's encoder and
+cross-attention) rotates none. Cross-attention (``AttnSpec.cross``) takes
+its keys and values from the encoder's output ``memory``, unmasked and
+unrotated; its decode reads them from the cache (``memory_kv``, filled by
+prefill) and writes nothing. MLA waits for deepseek-v3 (ROADMAP A.13e).
 """
 from __future__ import annotations
 
@@ -77,7 +81,7 @@ def _project_qkv(p, spec: AttnSpec, x, kv_x, q_positions, kv_positions):
         q = _qk_normalize(q, p["q_norm"])
         k = _qk_normalize(k, p["k_norm"])
     rd = _rot_dim(spec)
-    if rd:
+    if rd and not spec.cross:
         qc, qs = rope_frequencies(rd, q_positions, spec.rope_theta)
         kc, ks = rope_frequencies(rd, kv_positions, spec.rope_theta)
         q = apply_rope(q, qc, qs, rd)
@@ -119,13 +123,23 @@ def causal_window_mask(S: int, T: int, window: Optional[int],
     return m
 
 
-def attn_apply(p, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal self-attention over x (dp, b, S, d)."""
+def attn_apply(p, spec: AttnSpec, x: torch.Tensor,
+               memory: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention over x (dp, b, S, d): causal (optionally
+    windowed) self-attention, or with ``spec.cross`` cross-attention over
+    ``memory`` (dp, b, T, d), unmasked."""
     S = x.shape[2]
-    positions = torch.arange(S, device=x.device)[None]
-    q, k, v = _project_qkv(p, spec, x, x, positions, positions)
-    mask = causal_window_mask(S, S, spec.window, device=x.device) \
-        if spec.causal else None
+    kv_x = memory if spec.cross else x
+    T = kv_x.shape[2]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None]
+    kv_positions = (torch.arange(T, device=x.device)[None] if spec.cross
+                    else positions)
+    q, k, v = _project_qkv(p, spec, x, kv_x, positions, kv_positions)
+    mask = None
+    if spec.causal and not spec.cross:
+        mask = causal_window_mask(S, T, spec.window, device=x.device)
     out = _sdpa(q, k, v, mask, spec.n_kv_heads)
     return weight_einsum("rbshk,rhkd->rbsd", out, p["wo"])
 
@@ -139,10 +153,22 @@ def attn_cache_init(spec: AttnSpec, batch: int, seq_len: int, dtype, *,
             "v": torch.zeros(shp, dtype=dtype, device=device)}
 
 
-def attn_decode(p, spec: AttnSpec, x1: torch.Tensor, cache: dict, pos):
+def attn_decode(p, spec: AttnSpec, x1: torch.Tensor, cache: dict, pos,
+                memory_kv=None):
     """One-token decode. x1 (dp, b, 1, d); cache leaves (dp, b, L, K, hd),
     written in place at the token's slot; ``pos`` the current position (an
-    int or a 0-d integer tensor). Returns (y (dp, b, 1, d), cache)."""
+    int or a 0-d integer tensor). Returns (y (dp, b, 1, d), cache).
+
+    A cross-attention layer reads ``memory_kv`` = (k_mem, v_mem), each
+    (dp, b, F, K, hd), unmasked, and returns ``cache`` untouched. Its
+    queries need no position, so prefill runs it over all S positions."""
+    if spec.cross:
+        k, v = memory_kv
+        q = weight_einsum("rbsd,rdhk->rbshk", x1, p["wq"])
+        if spec.qk_norm:
+            q = _qk_normalize(q, p["q_norm"])
+        out = _sdpa(q, k, v, None, spec.n_kv_heads)
+        return torch.einsum("rbshk,rhkd->rbsd", out, p["wo"]), cache
     B = x1.shape[1]
     pos = torch.as_tensor(pos, device=x1.device)
     p1 = pos.reshape(1, 1)

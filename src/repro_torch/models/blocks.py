@@ -1,16 +1,21 @@
 """Residual blocks and the depth stacker.
 
-Port of ``repro/models/blocks.py`` (``segments_of``, ``block_init``,
-``block_apply``, ``stack_init``, ``stack_apply``, and serving's
-``block_cache_init``, ``block_decode``, ``_cache_write_seq``,
-``block_prefill``, ``stack_cache_init``, ``stack_decode``,
-``stack_prefill``) for attention and Mamba-1 blocks. A block is pre-norm
-residual: ``h += mixer(norm1(h))`` (attention or the Mamba mixer) then, if
-``d_ff``, ``h += mlp(norm2(h))``.
+Port of ``repro/models/blocks.py`` (``AUX_KEYS``, ``segments_of``,
+``block_init``, ``_zero_aux``, ``block_apply``, ``stack_init``,
+``stack_apply``, and serving's ``block_cache_init``, ``block_decode``,
+``_cache_write_seq``, ``block_prefill``, ``stack_cache_init``,
+``stack_decode``, ``stack_prefill``) for attention and Mamba-1 blocks. A
+block is pre-norm residual: ``h += mixer(norm1(h))`` (attention or the
+Mamba mixer); in an enc-dec decoder ``h += cross(norm_x(h), memory)``;
+then ``h += moe(norm2(h))`` or, if ``d_ff``, ``h += mlp(norm2(h))``.
+``block_apply`` returns ``(h, aux)``: the MoE layer's ``moe_aux`` and
+``moe_dropped_frac`` per replica (zeros without MoE), which
+``stack_apply`` sums over every layer.
 ``ssm_scan_impl`` reaches every Mamba mixer's ``scan_impl``; ``remat``
 checkpoints each repeat of a segment's pattern (``torch.utils.checkpoint``),
-``remat_policy="dots"`` saving the weight products' outputs. MLA, MoE and
-cross-attention blocks wait for their families (ROADMAP A.13c-e).
+``remat_policy="dots"`` saving the weight products' outputs and
+``"save_moe_combine"`` each MoE layer's combined output. MLA blocks wait
+for deepseek-v3 (ROADMAP A.13e).
 
 The param tree keeps the reference's leaf paths and shapes: a list over
 segments, each a list over pattern positions of block params stacked on a
@@ -19,7 +24,10 @@ front a stacked leaf is ``(dp, R, ...)``; ``stack_apply`` loops over the
 repeats in Python where the reference runs ``lax.scan``. Decode caches have
 the same tree: ``stack_cache_init`` returns one replica's, leaves
 ``(R, b, ...)``; ``stack_decode`` and ``stack_prefill`` take them with the
-replica axis, ``(dp, R, b, ...)``, and write each layer's view in place.
+replica axis, ``(dp, R, b, ...)``, and write each layer's view in place. A
+cross-attention layer's cache also holds the encoder's keys and values
+(``mem_k``, ``mem_v``: ``(b, n_frames, K, hd)``), which
+``transformer.lm_prefill`` fills and decode only reads.
 """
 from __future__ import annotations
 
@@ -35,13 +43,16 @@ from repro_torch.tree import tree_flatten, tree_map
 
 from . import attention as attn_mod
 from . import mamba as mamba_mod
+from . import moe as moe_mod
 from .config import BlockSpec, ModelConfig
 from .layers import (mlp_apply, mlp_init, norm_apply, norm_init, per_replica,
                      replica_matmul, silu, weight_products)
 
 __all__ = ["segments_of", "block_init", "block_apply", "stack_init",
            "stack_apply", "block_cache_init", "block_decode", "block_prefill",
-           "stack_cache_init", "stack_decode", "stack_prefill"]
+           "stack_cache_init", "stack_decode", "stack_prefill", "AUX_KEYS"]
+
+AUX_KEYS = ("moe_aux", "moe_dropped_frac")
 
 
 def segments_of(blocks: Sequence[BlockSpec]) -> List[Tuple[Tuple[BlockSpec, ...], int]]:
@@ -76,40 +87,86 @@ def block_init(cfg: ModelConfig, spec: BlockSpec, dtype) -> Dict:
         p["mixer"] = attn_mod.attn_init(cfg.d_model, spec.attn, dtype)
     else:
         p["mixer"] = mamba_mod.mamba_init(cfg.d_model, spec.ssm, dtype)
-    if spec.d_ff:
+    if spec.cross_attn is not None:
+        p["norm_x"] = norm_init(cfg.norm, cfg.d_model, dtype)
+        p["cross"] = attn_mod.attn_init(cfg.d_model, spec.cross_attn, dtype)
+    if spec.moe is not None:
+        p["norm2"] = norm_init(cfg.norm, cfg.d_model, dtype)
+        p["ff"] = moe_mod.moe_init(cfg.d_model, spec.moe, dtype)
+    elif spec.d_ff:
         p["norm2"] = norm_init(cfg.norm, cfg.d_model, dtype)
         p["ff"] = mlp_init(cfg.d_model, spec.d_ff, spec.mlp_act, dtype)
     return p
 
 
+def _zero_aux(dp: int, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros(dp, dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
+
+
 def block_apply(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
-                ssm_scan_impl=None) -> torch.Tensor:
+                memory: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                ssm_scan_impl=None) -> Tuple[torch.Tensor, Dict]:
+    """One block over h (dp, b, S, d); ``memory`` (dp, b, F, d) feeds a
+    cross-attention layer. Returns (h, aux), aux's values (dp,) fp32."""
     _check_kind(spec)
     x = norm_apply(cfg.norm, p["norm1"], h)
     if spec.kind == "attn":
-        h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x)
+        h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x,
+                                    positions=positions)
     else:
         h = h + mamba_mod.mamba_apply(p["mixer"], spec.ssm, cfg.d_model, x,
                                       scan_impl=ssm_scan_impl)
-    return _ffn(p, cfg, spec, h)
+    if spec.cross_attn is not None:
+        xc = norm_apply(cfg.norm, p["norm_x"], h)
+        h = h + attn_mod.attn_apply(p["cross"], spec.cross_attn, xc,
+                                    memory=memory)
+    h, aux = _ffn(p, cfg, spec, h)
+    return h, aux if aux is not None else _zero_aux(h.shape[0], h.device)
 
 
 def _ffn(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor):
+    """The block's MoE or MLP sub-layer: (h, the MoE's aux or None)."""
+    if spec.moe is not None:
+        x2 = norm_apply(cfg.norm, p["norm2"], h)
+        y, m = moe_mod.moe_apply(p["ff"], spec.moe, x2)
+        return h + y, {k: m[k].float() for k in AUX_KEYS}
     if spec.d_ff:
         x2 = norm_apply(cfg.norm, p["norm2"], h)
         h = h + mlp_apply(p["ff"], x2, spec.mlp_act)
-    return h
+    return h, None
+
+
+def _cross_cached(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
+                  cache: Dict) -> torch.Tensor:
+    """Serving's cross-attention sub-layer over the cached encoder keys and
+    values (any number of query positions, no mask)."""
+    if spec.cross_attn is None:
+        return h
+    xc = norm_apply(cfg.norm, p["norm_x"], h)
+    y, _ = attn_mod.attn_decode(p["cross"], spec.cross_attn, xc, {}, 0,
+                                memory_kv=(cache["mem_k"], cache["mem_v"]))
+    return h + y
 
 
 # ----------------------------------------------------------------- caches
 def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
-                     seq_len: int, dtype, *, device) -> Dict:
+                     seq_len: int, dtype, n_frames: int = 0, *,
+                     device) -> Dict:
     _check_kind(spec)
     if spec.kind == "attn":
-        return {"kv": attn_mod.attn_cache_init(spec.attn, batch, seq_len,
+        c = {"kv": attn_mod.attn_cache_init(spec.attn, batch, seq_len, dtype,
+                                            device=device)}
+    else:
+        c = {"ssm": mamba_mod.mamba_state_init(spec.ssm, cfg.d_model, batch,
                                                dtype, device=device)}
-    return {"ssm": mamba_mod.mamba_state_init(spec.ssm, cfg.d_model, batch,
-                                              dtype, device=device)}
+    if spec.cross_attn is not None:
+        ca = spec.cross_attn
+        shp = (batch, n_frames, ca.n_kv_heads, ca.head_dim)
+        c["mem_k"] = torch.zeros(shp, dtype=dtype, device=device)
+        c["mem_v"] = torch.zeros(shp, dtype=dtype, device=device)
+    return c
 
 
 def block_decode(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
@@ -125,7 +182,8 @@ def block_decode(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     else:
         y, new_cache["ssm"] = mamba_mod.mamba_decode(
             p["mixer"], spec.ssm, cfg.d_model, x, cache["ssm"])
-    return _ffn(p, cfg, spec, h + y), new_cache
+    h = _cross_cached(p, cfg, spec, h + y, cache)
+    return _ffn(p, cfg, spec, h)[0], new_cache
 
 
 def _cache_write_seq(cache_arr: torch.Tensor, full: torch.Tensor,
@@ -150,7 +208,8 @@ def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     block's decode cache (serving's prefill), with the reference's
     arithmetic: ``_sdpa`` and ``ssm_assoc_scan``, no kernel. Windowed layers
     keep the trailing window in their ring buffer; full-attention layers
-    need S <= the cache length."""
+    need S <= the cache length. Cross-attention reads the cached encoder
+    keys and values (``attn_decode`` over all S positions, unmasked)."""
     _check_kind(spec)
     S = h.shape[2]
     x = norm_apply(cfg.norm, p["norm1"], h)
@@ -186,7 +245,8 @@ def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
         del hs
         y = (y + per_replica(m["D"], 4) * xi) * silu(z)
         h = h + replica_matmul(y, m["out_proj"])
-    return _ffn(p, cfg, spec, h), new_cache
+    h = _cross_cached(p, cfg, spec, h, cache)
+    return _ffn(p, cfg, spec, h)[0], new_cache
 
 
 # ----------------------------------------------------------------- stacker
@@ -213,6 +273,15 @@ def _save_weight_products(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _save_moe_combine(ctx, op, *args, **kwargs):
+    """``save_only_these_names("moe_combine")`` on the port: save each MoE
+    layer's combined output (the op ``moe.moe_combine_output`` flags),
+    recompute everything else."""
+    if moe_mod.moe_combine_output():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat_context(policy: Optional[str]):
     """``context_fn`` of ``torch.utils.checkpoint`` for a remat policy."""
     if policy is None:
@@ -221,43 +290,51 @@ def _remat_context(policy: Optional[str]):
         return functools.partial(create_selective_checkpoint_contexts,
                                  _save_weight_products)
     if policy == "save_moe_combine":
-        raise NotImplementedError(
-            "remat_policy='save_moe_combine' saves MoE layers' combined "
-            "outputs; MoE is not ported yet (ROADMAP A.13d)")
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_moe_combine)
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 
 def _segment_body(cfg: ModelConfig, pattern, per_pos, ssm_scan_impl):
-    """One repeat of a segment's pattern as a function of its input and the
-    repeat's weight views. The segment is bound here, not read through the
-    caller's loop variables: a checkpointed repeat reruns this function in
-    backward, after the loop has moved on to later segments."""
-    def body(hh, *ws):
+    """One repeat of a segment's pattern as a function of its input, the
+    running aux sums, the encoder's output and the repeat's weight views.
+    The segment is bound here, not read through the caller's loop
+    variables: a checkpointed repeat reruns this function in backward,
+    after the loop has moved on to later segments."""
+    def body(hh, aux, memory, positions, *ws):
         i = 0
         for spec, (treedef, n, _) in zip(pattern, per_pos):
-            hh = block_apply(treedef.unflatten(ws[i:i + n]), cfg, spec, hh,
-                             ssm_scan_impl=ssm_scan_impl)
+            hh, a = block_apply(treedef.unflatten(ws[i:i + n]), cfg, spec, hh,
+                                memory=memory, positions=positions,
+                                ssm_scan_impl=ssm_scan_impl)
+            aux = {k: aux[k] + a[k] for k in AUX_KEYS}
             i += n
-        return hh
+        return hh, aux
     return body
 
 
 def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor,
+                memory: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
                 ssm_scan_impl=None, remat: bool = False,
-                remat_policy: Optional[str] = None) -> torch.Tensor:
-    """Run every layer; stacked leaves are (dp, R, ...) and layer r of a
-    segment reads the r-th view of ``leaf.unbind(1)``. One unbind per leaf,
-    not one index per layer: backward then stacks the R layer gradients in
-    one pass instead of adding R leaf-sized zero-padded ones.
+                remat_policy: Optional[str] = None):
+    """Run every layer; returns (h, aux), aux's values (dp,) fp32 summed
+    over the layers in order (the reference's scan carry). Stacked leaves
+    are (dp, R, ...) and layer r of a segment reads the r-th view of
+    ``leaf.unbind(1)``. One unbind per leaf, not one index per layer:
+    backward then stacks the R layer gradients in one pass instead of
+    adding R leaf-sized zero-padded ones.
 
     ``remat=True`` checkpoints each repeat of the pattern (the reference's
     scan body) with ``torch.utils.checkpoint(use_reentrant=False)``, its
-    weight views passed as inputs: backward recomputes the repeat from its
-    input instead of saving its internals for the whole depth. Remat
-    changes no value. ``remat_policy="dots"`` saves the weight products'
-    outputs (``_save_weight_products``); ``"save_moe_combine"`` needs MoE
-    (ROADMAP A.13d)."""
+    input, the aux sums, ``memory`` and its weight views passed as inputs:
+    backward recomputes the repeat from its input instead of saving its
+    internals for the whole depth. Remat changes no value.
+    ``remat_policy="dots"`` saves the weight products' outputs
+    (``_save_weight_products``), ``"save_moe_combine"`` each MoE layer's
+    combined output (``_save_moe_combine``)."""
     context_fn = _remat_context(remat_policy) if remat else None
+    aux = _zero_aux(h.shape[0], h.device)
     for (pattern, R), seg_p in zip(segs, params):
         per_pos = []
         for bp in seg_p:
@@ -266,19 +343,19 @@ def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor,
         body = _segment_body(cfg, pattern, per_pos, ssm_scan_impl)
         for r in range(R):
             ws = [views[r] for _, _, layers in per_pos for views in layers]
-            h = (checkpoint(body, h, *ws, use_reentrant=False,
-                            context_fn=context_fn) if remat
-                 else body(h, *ws))
-    return h
+            h, aux = (checkpoint(body, h, aux, memory, positions, *ws,
+                                 use_reentrant=False, context_fn=context_fn)
+                      if remat else body(h, aux, memory, positions, *ws))
+    return h, aux
 
 
 def stack_cache_init(cfg: ModelConfig, segs, batch: int, seq_len: int, dtype,
-                     *, device) -> List:
+                     n_frames: int = 0, *, device) -> List:
     """One replica's decode caches: per segment, per pattern position, the
     block's cache stacked on a leading repeat axis, all zeros."""
     return [[tree_map(lambda c: c.new_zeros((R,) + tuple(c.shape)),
                       block_cache_init(cfg, spec, batch, seq_len, dtype,
-                                       device=device))
+                                       n_frames, device=device))
              for spec in pattern] for pattern, R in segs]
 
 

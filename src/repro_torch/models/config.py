@@ -1,10 +1,11 @@
-"""Model configuration schema for the dense attention, vision-stub and
-Mamba-1 families.
+"""Model configuration schema for the dense attention, vision-stub,
+encoder-decoder, Mamba-1 and routed-MoE families.
 
 Port of ``repro/models/config.py`` (``AttnSpec``, ``SSMSpec``,
-``BlockSpec``, ``VisionStubSpec``, ``ModelConfig``, ``reduced``). The MLA
-and MoE fields, the encoder and the audio stub wait for their families
-(ROADMAP A.13c-e); a config that needs them cannot be expressed here.
+``MoESpec``, ``BlockSpec``, ``EncoderSpec``, ``VisionStubSpec``,
+``AudioStubSpec``, ``ModelConfig``, ``reduced``). The MLA fields and the
+MTP head wait for deepseek-v3 (ROADMAP A.13e); a config that needs them
+cannot be expressed here.
 """
 from __future__ import annotations
 
@@ -12,8 +13,8 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-__all__ = ["AttnSpec", "SSMSpec", "BlockSpec", "VisionStubSpec",
-           "ModelConfig", "reduced"]
+__all__ = ["AttnSpec", "SSMSpec", "MoESpec", "BlockSpec", "EncoderSpec",
+           "VisionStubSpec", "AudioStubSpec", "ModelConfig", "reduced"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +28,8 @@ class AttnSpec:
     rope_frac: float = 1.0          # stablelm-2 uses 0.25 (partial rotary)
     rope_theta: float = 10000.0
     window: Optional[int] = None
-    causal: bool = True
+    causal: bool = True             # encoder self-attention sets False
+    cross: bool = False             # decoder cross-attention (enc-dec only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,15 +46,40 @@ class SSMSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """Top-k routed mixture of experts with optional shared expert."""
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    aux_coef: float = 0.01          # load-balance loss weight
+    router_scale: bool = True       # normalize top-k weights to sum 1
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    """One residual layer: ``kind`` "attn" (attention, then a dense (Swi)GLU
-    MLP if d_ff) or "mamba" (the Mamba-1 mixer alone: falcon-mamba has
-    d_ff = 0)."""
+    """One residual layer: ``kind`` "attn" or "mamba" (the mixer), then,
+    in an enc-dec decoder, cross-attention (``cross_attn``), then a routed
+    MoE (``moe``) or a dense (Swi)GLU MLP (``d_ff`` > 0) or neither (the
+    Mamba-1 blocks of falcon-mamba have no MLP)."""
     kind: str
     attn: Optional[AttnSpec] = None
     ssm: Optional[SSMSpec] = None
+    cross_attn: Optional[AttnSpec] = None
     d_ff: int = 0
+    moe: Optional[MoESpec] = None
     mlp_act: str = "swiglu"         # "swiglu" | "gelu"
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    """Audio encoder stack (whisper-style). The conv/mel frontend is a
+    stub: inputs are precomputed frame embeddings (B, n_frames, d)."""
+    n_layers: int
+    n_frames: int
+    attn: AttnSpec = None
+    d_ff: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +91,11 @@ class VisionStubSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class AudioStubSpec:
+    n_frames: int                   # whisper-base: 1500 post-conv frames
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     d_model: int
@@ -71,6 +103,7 @@ class ModelConfig:
     blocks: Tuple[BlockSpec, ...]
     norm: str = "rms"               # "rms" | "ln" | "nonparam" (olmo)
     tie_embeddings: bool = False
+    encoder: Optional[EncoderSpec] = None       # whisper
     vision: Optional[VisionStubSpec] = None     # llava
     max_seq: int = 8192
     param_dtype: str = "float32"
@@ -96,7 +129,9 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
             vocab: int = 512) -> ModelConfig:
     """Smoke-test variant of the same family, as the reference's
     ``reduced``: <= 2 layers, 4 heads, d_ff = 2 * d_model, d_state 8 and
-    dt_rank d_model // 16, 8 image tokens, tiny vocab."""
+    dt_rank d_model // 16, <= 4 experts (top_k <= 2, d_ff_expert =
+    2 * d_model, <= 1 shared), a 1-layer encoder over 16 frames, 8 image
+    tokens, tiny vocab."""
     heads = 4
     head_dim = d_model // heads
     blocks = [dataclasses.replace(
@@ -104,12 +139,24 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
         ssm=(dataclasses.replace(b.ssm, d_state=8,
                                  dt_rank=max(1, d_model // 16))
              if b.ssm is not None else None),
+        moe=(dataclasses.replace(b.moe, n_experts=4,
+                                 top_k=min(b.moe.top_k, 2),
+                                 d_ff_expert=2 * d_model,
+                                 n_shared=min(b.moe.n_shared, 1))
+             if b.moe is not None else None),
         d_ff=(2 * d_model if b.d_ff else 0))
         for b in cfg.blocks[:n_layers]]
     while len(blocks) < n_layers:
         blocks.append(blocks[-1])
+    encoder = None
+    if cfg.encoder is not None:
+        encoder = EncoderSpec(
+            n_layers=1, n_frames=16,
+            attn=_shrink_attn(cfg.encoder.attn, heads, head_dim),
+            d_ff=2 * d_model)
     vision = VisionStubSpec(n_image_tokens=8) if cfg.vision is not None \
         else None
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", d_model=d_model,
-                               vocab=vocab, blocks=tuple(blocks), vision=vision,
-                               max_seq=256, dist_mode="replica")
+                               vocab=vocab, blocks=tuple(blocks),
+                               encoder=encoder, vision=vision, max_seq=256,
+                               dist_mode="replica")

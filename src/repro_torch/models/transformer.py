@@ -1,9 +1,11 @@
-"""Decoder-only language model with tied or untied unembedding.
+"""Decoder-only language model with tied or untied unembedding, and the
+encoder-decoder (whisper) and vision-stub (llava) variants.
 
-Port of ``repro/models/transformer.py`` (``lm_init``, ``lm_apply``,
-``_embed_lookup``, ``_unembed``, and serving's ``lm_cache_init``,
-``lm_decode``, ``lm_prefill``) for the dense attention, vision-stub (llava)
-and Mamba-1 families.
+Port of ``repro/models/transformer.py`` (``lm_init``, ``_enc_segs``,
+``encode_audio``, ``lm_apply``, ``_embed_lookup``, ``_unembed``, and
+serving's ``lm_cache_init``, ``lm_decode``, ``lm_prefill``,
+``_fill_cross_kv``) for the dense attention, vision-stub, encoder-decoder,
+Mamba-1 and routed-MoE families.
 ``lm_specs`` gives the param tree as ``ParamSpec``s (the reference's leaf
 paths and shapes, nothing allocated); ``lm_axes`` their logical-axes
 annotations, the tree the reference's ``lm_init`` returns second;
@@ -11,19 +13,26 @@ annotations, the tree the reference's ``lm_init`` returns second;
 ``torch.Generator`` with the reference's distributions (``layers.draw``:
 normal x fan-in scale, embedding scale 0.02, norm scales of one, Mamba's
 dt bias and A_log). ``lm_apply`` takes params
-with a leading replica axis and tokens ``(dp, b, S)``. A VLM's image
+with a leading replica axis and tokens ``(dp, b, S)`` and returns
+``(logits, aux)``, aux the MoE layers' ``moe_aux`` and
+``moe_dropped_frac`` summed over the layers, each ``(dp,)``. A VLM's image
 embeddings (the vision tower is a stub: precomputed patch embeddings) are
 prepended to the token embeddings, cast to their dtype, and the image
-positions' logits are dropped.
+positions' logits are dropped. An enc-dec model's audio frames (the
+conv/mel frontend is a stub: precomputed frame embeddings ``(dp, b, F,
+d)``) run through the encoder (``encode_audio``, no remat, as the
+reference's), whose output every decoder layer's cross-attention reads.
 
 The serving functions take one replica as the reference's do: params
 without a replica axis, caches in ``lm_cache_init``'s tree (leaves
 ``(R, b, ...)``), ``pos`` a scalar (an int or a 0-d device tensor). They
 view every leaf as ``(1, ...)`` for the model code, run without autograd,
 and write the caches in place (the reference's serve step donates them).
+An enc-dec prefill runs the encoder once and writes every cross-attention
+layer's keys and values into the cache (``_fill_cross_kv``), so decode
+never runs the encoder.
 
-The encoder (audio) and MTP paths wait for their model families (ROADMAP
-A.13c, A.13e).
+The MTP head waits for deepseek-v3 (ROADMAP A.13e).
 """
 from __future__ import annotations
 
@@ -35,15 +44,12 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_flatten, tree_map
 
 from . import blocks as B
-from .config import ModelConfig
+from .config import BlockSpec, ModelConfig
 from .layers import (Param, draw, dtype_of, embed_init, norm_apply, norm_init,
-                     replica_matmul)
-
-_NOT_PORTED = ("audio_frames feed the encoder-decoder family, which is not "
-               "ported yet (ROADMAP A.13c)")
+                     per_replica, replica_matmul, weight_einsum)
 
 __all__ = ["lm_specs", "lm_axes", "lm_init", "lm_apply", "lm_cache_init",
-           "lm_decode", "lm_prefill"]
+           "lm_decode", "lm_prefill", "encode_audio"]
 
 
 def lm_specs(cfg: ModelConfig) -> Dict:
@@ -55,7 +61,23 @@ def lm_specs(cfg: ModelConfig) -> Dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = Param((cfg.d_model, cfg.vocab), ("embed", "vocab"),
                              scale=cfg.d_model ** -0.5, dtype=dtype)
+    if cfg.encoder is not None:
+        p["encoder"] = {
+            "layers": B.stack_init(cfg, _enc_blocks(cfg), dtype)[0],
+            "norm": norm_init(cfg.norm, cfg.d_model, dtype),
+            "pos": Param((cfg.encoder.n_frames, cfg.d_model), (None, "embed"),
+                         scale=0.02, dtype=dtype)}
     return p
+
+
+def _enc_blocks(cfg: ModelConfig):
+    return tuple(BlockSpec(kind="attn", attn=cfg.encoder.attn,
+                           d_ff=cfg.encoder.d_ff, mlp_act="gelu")
+                 for _ in range(cfg.encoder.n_layers))
+
+
+def _enc_segs(cfg: ModelConfig):
+    return B.segments_of(_enc_blocks(cfg))
 
 
 def lm_axes(cfg: ModelConfig) -> Dict:
@@ -107,25 +129,54 @@ def _with_image(cfg: ModelConfig, h: torch.Tensor, image_embeds):
     return torch.cat([image_embeds.to(h.dtype), h], dim=2)
 
 
+def encode_audio(p, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The whisper-style encoder over (stub) frame embeddings (dp, b, F, d):
+    cast to the compute dtype, plus the learned positions ``pos[:F]``, the
+    encoder layers (no remat), the encoder's norm."""
+    frames = frames.to(dtype_of(cfg.compute_dtype))
+    F = frames.shape[2]
+    h = frames + per_replica(p["encoder"]["pos"][:, :F], frames.dim())
+    h, _ = B.stack_apply(p["encoder"]["layers"], cfg, _enc_segs(cfg), h)
+    return norm_apply(cfg.norm, p["encoder"]["norm"], h)
+
+
+def _memory(p, cfg: ModelConfig, audio_frames):
+    """The encoder's output for an enc-dec config (which needs the frames),
+    else None: a config without an encoder ignores them, as the
+    reference's does."""
+    if cfg.encoder is None:
+        return None
+    if audio_frames is None:
+        raise ValueError(f"{cfg.name} has an audio encoder: pass "
+                         "audio_frames")
+    return encode_audio(p, cfg, audio_frames)
+
+
 def lm_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
              image_embeds: Optional[torch.Tensor] = None,
+             audio_frames: Optional[torch.Tensor] = None,
              ssm_scan_impl=None, remat: bool = False,
-             remat_policy: Optional[str] = None) -> torch.Tensor:
-    """Logits (dp, b, S, V) over the text positions of tokens (dp, b, S).
-    A VLM (``cfg.vision``) needs ``image_embeds`` (dp, b, Ni, d): they are
-    prepended and their positions' logits dropped. ``ssm_scan_impl``
-    replaces every Mamba layer's scan (e.g. ``repro_torch.kernels.ssm_scan``,
-    the CUDA kernel, for scoring); ``remat`` and ``remat_policy`` checkpoint
-    the layers (``blocks.stack_apply``)."""
+             remat_policy: Optional[str] = None):
+    """``(logits (dp, b, S, V), aux)`` over the text positions of tokens
+    (dp, b, S); aux holds ``moe_aux`` and ``moe_dropped_frac`` (dp,) fp32,
+    summed over the layers (zeros without MoE). A VLM (``cfg.vision``)
+    needs ``image_embeds`` (dp, b, Ni, d): they are prepended and their
+    positions' logits dropped. An enc-dec model (``cfg.encoder``) needs
+    ``audio_frames`` (dp, b, F, d), which feed the encoder and every
+    cross-attention layer. ``ssm_scan_impl`` replaces every Mamba layer's
+    scan (e.g. ``repro_torch.kernels.ssm_scan``, the CUDA kernel, for
+    scoring); ``remat`` and ``remat_policy`` checkpoint the decoder's
+    layers (``blocks.stack_apply``)."""
     if cfg.vision is not None and image_embeds is None:
         raise ValueError(f"{cfg.name} has a vision stub: pass image_embeds")
     h = _with_image(cfg, _embed_lookup(p, tokens), image_embeds)
     n_img = h.shape[2] - tokens.shape[2]
-    h = B.stack_apply(p["layers"], cfg, B.segments_of(cfg.blocks), h,
-                      ssm_scan_impl=ssm_scan_impl, remat=remat,
-                      remat_policy=remat_policy)
+    memory = _memory(p, cfg, audio_frames)
+    h, aux = B.stack_apply(p["layers"], cfg, B.segments_of(cfg.blocks), h,
+                           memory=memory, ssm_scan_impl=ssm_scan_impl,
+                           remat=remat, remat_policy=remat_policy)
     h = norm_apply(cfg.norm, p["final_norm"], h)
-    return _unembed(p, cfg, h[:, :, n_img:] if n_img else h)
+    return _unembed(p, cfg, h[:, :, n_img:] if n_img else h), aux
 
 
 # ===================================================================== serve
@@ -137,10 +188,13 @@ def _one_replica(tree):
 def lm_cache_init(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, *,
                   device="cuda"):
     """Zero decode caches for ``batch`` sequences of up to ``seq_len``
-    positions, in the reference's tree (dtype: the param dtype)."""
+    positions, in the reference's tree (dtype: the param dtype); an enc-dec
+    model's cross-attention layers also hold ``n_frames`` encoder keys and
+    values."""
     dtype = dtype or dtype_of(cfg.param_dtype)
+    n_frames = cfg.encoder.n_frames if cfg.encoder is not None else 0
     return B.stack_cache_init(cfg, B.segments_of(cfg.blocks), batch, seq_len,
-                              dtype, device=resolve_device(device))
+                              dtype, n_frames, device=resolve_device(device))
 
 
 @torch.no_grad()
@@ -160,14 +214,34 @@ def lm_prefill(p, cfg: ModelConfig, tokens: torch.Tensor, caches,
                image_embeds=None, audio_frames=None):
     """Process a full prompt (B, S), filling the decode caches; returns
     (last-position logits (B, V), caches). A VLM's ``image_embeds``
-    (B, Ni, d) come first: the caches then hold Ni + S positions."""
-    if audio_frames is not None:
-        raise NotImplementedError(_NOT_PORTED)
+    (B, Ni, d) come first: the caches then hold Ni + S positions. An
+    enc-dec model's ``audio_frames`` (B, F, d) run through the encoder once,
+    and every cross-attention layer's keys and values of its output go into
+    the caches."""
     p1 = _one_replica(p)
+    segs = B.segments_of(cfg.blocks)
+    caches1 = _one_replica(caches)
+    memory = _memory(p1, cfg, None if audio_frames is None
+                     else audio_frames[None])
+    if memory is not None:
+        _fill_cross_kv(p1, segs, caches1, memory)
     h = _with_image(cfg, _embed_gather(p1, tokens[None]),
                     None if image_embeds is None else image_embeds[None])
-    h, caches = B.stack_prefill(p1["layers"], cfg, B.segments_of(cfg.blocks),
-                                h, _one_replica(caches))
+    h, caches1 = B.stack_prefill(p1["layers"], cfg, segs, h, caches1)
     h = norm_apply(cfg.norm, p1["final_norm"], h)
     return (_unembed(p1, cfg, h[:, :, -1])[0],
-            tree_map(lambda c: c[0], caches))
+            tree_map(lambda c: c[0], caches1))
+
+
+def _fill_cross_kv(p, segs, caches, memory: torch.Tensor) -> None:
+    """Every cross-attention layer's keys and values of the encoder's
+    output ``memory`` (1, B, F, d), written in place into its ``mem_k`` /
+    ``mem_v`` cache leaves (1, R, B, F, K, hd)."""
+    for (pattern, R), seg_p, seg_c in zip(segs, p["layers"], caches):
+        for spec, bp, bc in zip(pattern, seg_p, seg_c):
+            if spec.cross_attn is None:
+                continue
+            for r in range(R):
+                for w, leaf in (("wk", "mem_k"), ("wv", "mem_v")):
+                    bc[leaf][:, r].copy_(weight_einsum(
+                        "rbtd,rdhk->rbthk", memory, bp["cross"][w][:, r]))

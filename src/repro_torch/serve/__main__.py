@@ -1,7 +1,7 @@
 """Batched serving from the command line: prefill a batch of prompts, then
 greedy-decode, through ``ServingEngine`` (port of
-``examples/serve_batched.py``, with its VLM stub flow: seeded image
-embeddings for llava; the audio stub waits for its family, ROADMAP A.13c).
+``examples/serve_batched.py``, with its stub flows: seeded image
+embeddings for llava, seeded audio frames for whisper).
 
     PYTHONPATH=src python -m repro_torch.serve [--arch ARCH] [--device cpu]
 
@@ -30,7 +30,7 @@ def main(argv=None) -> None:
     ap.add_argument("--new-tokens", type=int, default=24)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    base = get_config(args.arch)   # an unported arch raises naming A.13c-e
+    base = get_config(args.arch)   # deepseek-v3 raises naming A.13e
     dev = resolve_device(args.device)
 
     cfg = dataclasses.replace(reduced(base), param_dtype="float32",
@@ -45,6 +45,10 @@ def main(argv=None) -> None:
     if cfg.vision is not None:
         kw["image_embeds"] = rng.normal(
             size=(args.batch, cfg.vision.n_image_tokens, cfg.d_model)
+        ).astype(np.float32) * 0.02
+    if cfg.encoder is not None:
+        kw["audio_frames"] = rng.normal(
+            size=(args.batch, cfg.encoder.n_frames, cfg.d_model)
         ).astype(np.float32) * 0.02
     t0 = time.perf_counter()
     out = engine.generate(prompts, args.new_tokens, **kw)

@@ -38,7 +38,9 @@ class ServingEngine:
                  audio_frames: Optional[np.ndarray] = None) -> np.ndarray:
         """prompts (B, S_prompt) int -> (B, max_new_tokens) int32 greedy
         tokens. A VLM's ``image_embeds`` (B, n_image_tokens, d) are
-        prefilled ahead of the prompt, so decode starts at S + n_img."""
+        prefilled ahead of the prompt, so decode starts at S + n_img; an
+        enc-dec model's ``audio_frames`` (B, n_frames, d) run through the
+        encoder once, in prefill."""
         B, S = prompts.shape
         n_img = self.cfg.vision.n_image_tokens if (
             self.cfg.vision is not None and image_embeds is not None) else 0
@@ -49,6 +51,8 @@ class ServingEngine:
             pos = torch.full((), S + n_img, dtype=torch.int64, device=dev)
             if image_embeds is not None:
                 image_embeds = torch.as_tensor(image_embeds).to(dev)
+            if audio_frames is not None:
+                audio_frames = torch.as_tensor(audio_frames).to(dev)
             logits, cache = lm_prefill(
                 self.params, self.cfg,
                 torch.as_tensor(prompts, dtype=torch.int64).to(dev), cache,

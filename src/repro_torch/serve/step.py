@@ -28,16 +28,18 @@ from repro_torch.tree import tree_flatten, tree_map
 __all__ = ["cache_axes", "make_decode_step", "make_prefill_step",
            "ServeBundle"]
 
-_NOT_PORTED = ("audio inputs feed the encoder-decoder family, which is not "
-               "ported yet (ROADMAP A.13c)")
-
 
 def _block_cache_axes(spec: BlockSpec) -> Dict:
     _check_kind(spec)
     if spec.kind == "attn":
-        return {"kv": {"k": ",batch,kv_seq,kv_heads,",
-                       "v": ",batch,kv_seq,kv_heads,"}}
-    return {"ssm": {"h": ",batch,inner,", "conv": ",batch,,inner"}}
+        a = {"kv": {"k": ",batch,kv_seq,kv_heads,",
+                    "v": ",batch,kv_seq,kv_heads,"}}
+    else:
+        a = {"ssm": {"h": ",batch,inner,", "conv": ",batch,,inner"}}
+    if spec.cross_attn is not None:
+        a["mem_k"] = ",batch,,kv_heads,"
+        a["mem_v"] = ",batch,,kv_heads,"
+    return a
 
 
 def cache_axes(cfg: ModelConfig):
@@ -93,21 +95,26 @@ def make_prefill_step(cfg: ModelConfig, dist: Distribution, *,
                       param_shapes: Any, param_axes: Any,
                       cache_shapes: Any, with_image: bool = False,
                       with_audio: bool = False) -> ServeBundle:
-    """step(params, cache, tokens (B,S) [, image_embeds (B,Ni,d)]) ->
-    (last-position logits, filled cache)."""
-    if with_audio:
-        raise NotImplementedError(_NOT_PORTED)
+    """step(params, cache, tokens (B,S) [, image_embeds (B,Ni,d)]
+    [, audio_frames (B,F,d)]) -> (last-position logits, filled cache)."""
     param_specs, cache_specs = _param_and_cache_specs(
         cfg, dist, param_shapes, param_axes, cache_shapes)
 
     def step(params, cache, tokens, *extra):
-        image = extra[0] if with_image else None
-        return lm_prefill(params, cfg, tokens, cache, image_embeds=image)
+        kw = {}
+        i = 0
+        if with_image:
+            kw["image_embeds"] = extra[i]
+            i += 1
+        if with_audio:
+            kw["audio_frames"] = extra[i]
+        return lm_prefill(params, cfg, tokens, cache, **kw)
 
     batch = _batch(cache_shapes)
     in_specs = [dist.leaf_spec((batch, 1), "batch,", False)]
-    if with_image:
-        in_specs.append(dist.leaf_spec((batch, 1, 1), "batch,,", False))
+    for extra in (with_image, with_audio):
+        if extra:
+            in_specs.append(dist.leaf_spec((batch, 1, 1), "batch,,", False))
     return ServeBundle(step_fn=step, param_specs=param_specs,
                        cache_specs=cache_specs, in_specs=tuple(in_specs),
                        dist=dist, cfg=cfg)

@@ -1,7 +1,7 @@
-"""Next-token cross entropy, per replica.
+"""Next-token cross entropy plus the MoE load-balance aux, per replica.
 
-Port of ``repro/train/loss.py`` (``cross_entropy``, ``make_loss_fn``) for
-models without MoE or MTP heads (ROADMAP A.13d-e). The reference's loss is
+Port of ``repro/train/loss.py`` (``cross_entropy``, ``make_loss_fn``)
+without the MTP term (deepseek-v3, ROADMAP A.13e). The reference's loss is
 per replica under a ``vmap``; here it is a vector over the leading replica
 axis, and the train step back-propagates its sum, which gives every replica
 exactly the gradient of its own loss.
@@ -31,17 +31,24 @@ def make_loss_fn(cfg: ModelConfig, ssm_scan_impl=None, remat: bool = False,
                  remat_policy: Optional[str] = None):
     """``loss_fn(params, batch) -> (loss (dp,), metrics)`` for params with a
     leading replica axis and ``batch["tokens"]`` of shape (dp, b, S+1), plus
-    ``batch["image_embeds"]`` (dp, b, Ni, d) for a VLM. ``ssm_scan_impl``
+    ``batch["image_embeds"]`` (dp, b, Ni, d) for a VLM and
+    ``batch["audio_frames"]`` (dp, b, F, d) for an enc-dec model. The loss
+    is ``ce + moe_aux``; the metrics ``ce``, ``moe_aux``,
+    ``moe_dropped_frac`` and ``loss``, each (dp,). ``ssm_scan_impl``
     replaces the Mamba layers' scan; ``remat`` and ``remat_policy``
     checkpoint the layers (``lm_apply``)."""
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         tokens = batch["tokens"]
-        logits = lm_apply(params, cfg, tokens[..., :-1],
-                          image_embeds=batch.get("image_embeds"),
-                          ssm_scan_impl=ssm_scan_impl, remat=remat,
-                          remat_policy=remat_policy)
+        logits, aux = lm_apply(params, cfg, tokens[..., :-1],
+                               image_embeds=batch.get("image_embeds"),
+                               audio_frames=batch.get("audio_frames"),
+                               ssm_scan_impl=ssm_scan_impl, remat=remat,
+                               remat_policy=remat_policy)
         ce = cross_entropy(logits, tokens[..., 1:])
-        return ce, {"ce": ce, "loss": ce}
+        loss = ce + aux["moe_aux"]
+        return loss, {"ce": ce, "moe_aux": aux["moe_aux"],
+                      "moe_dropped_frac": aux["moe_dropped_frac"],
+                      "loss": loss}
 
     return loss_fn

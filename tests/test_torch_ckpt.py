@@ -418,6 +418,67 @@ def test_port_checkpoint_restores_in_reference(tmp_path, bridged, kind):
     _assert_same(_ref_flat(rest), _port_flat(state))
 
 
+@pytest.mark.parametrize("arch", ["whisper-base", "jamba-v0.1-52b"])
+def test_model_states_cross_the_packages_both_ways(tmp_path, arch):
+    """The npz + manifest format on the encoder-decoder and MoE trees
+    (``encoder.{layers,norm,pos}``, ``norm_x``, ``cross``; ``ff.{router,
+    w_gate,w_in,w_out}`` beside Mamba layers): a reduced bf16 packed sync
+    sgd state of the reference's restores in the port, and the port's,
+    trained 2 steps, restores in the reference, bit for bit."""
+    # bf16 compute too: whisper's encoder casts its frames to the compute
+    # dtype, and the port's weight products take one dtype
+    port_cfg = dataclasses.replace(reduced(get_config(arch), d_model=32),
+                                   param_dtype="bfloat16",
+                                   compute_dtype="bfloat16")
+    ref_cfg = dataclasses.replace(ref_reduced(ref_get_config(arch),
+                                              d_model=32),
+                                  param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, ref_lm_init(jax.random.key(0),
+                                                ref_cfg)[0])
+    rng = np.random.default_rng(0)
+    tree2 = jax.tree.map(lambda a: np.stack([a, (a.astype(np.float32) + 0.01
+                                                 * rng.normal(size=a.shape)
+                                                 .astype(np.float32))
+                                             .astype(a.dtype)]), tree)
+    opt = sgd(0.1, momentum=0.9)
+
+    def port_state(steps):
+        b = make_train_step_bundle(port_cfg, opt, dp=2, gossip_packed=True,
+                                   remat=False, device="cpu")
+        state = init_train_state(port_cfg, opt, dp=2, packed=True,
+                                 layout=b.layout, device="cpu",
+                                 params=params_from_numpy(
+                                     tree2, layout=b.layout, lead=(2,),
+                                     device="cpu"))
+        for s in range(steps):
+            batch = {"tokens": torch.from_numpy(np.random.default_rng(s)
+                                                .integers(0, 512, (2, 2, 9)))}
+            if port_cfg.encoder is not None:
+                batch["audio_frames"] = torch.from_numpy(
+                    np.random.default_rng(s).standard_normal(
+                        (2, 2, 16, 32)).astype(np.float32) * 0.02)
+            state, _, _ = b.step(state, batch, s, rotate=False)
+        return state
+
+    packed = RPackedParams.pack(jax.tree.map(jnp.asarray, tree2),
+                                skip_leading=1)
+    mom = RPackedParams([jnp.asarray(rng.normal(size=x.shape).astype(
+        np.float32)).astype(x.dtype) for x in packed.buckets], packed.layout)
+    ref_state = {"params": packed, "opt": {"step": jnp.int32(5), "mom": mom}}
+    d = str(tmp_path / "ref")
+    ref_save(d, ref_state, metadata={"protocol": "gossip"}, step=5)
+    rest, man = restore_state(d, port_state(0))
+    assert man["step"] == 5 and rest["opt"]["step"] == 5
+    _assert_same(_port_flat(rest), _ref_flat(ref_state))
+    trained = port_state(2)
+    d = str(tmp_path / "port")
+    save_state(d, trained, metadata={"protocol": "gossip"}, step=2)
+    back, _ = ref_restore(d, ref_state)
+    assert int(back["opt"]["step"]) == 2
+    _assert_same(_ref_flat(back), _port_flat(trained))
+
+
 # --------------------------------------------- resume determinism, dp=4
 
 RESUME = {"sync": dict(protocol="gossip"),

@@ -141,7 +141,7 @@ def test_reduced_forward_and_loss_match_reference(scan):
     p = params_from_numpy(_stack(trees), device="cpu")
     tok = torch.from_numpy(tokens)
     with torch.no_grad():
-        logits = lm_apply(p, cfg, tok[..., :-1], ssm_scan_impl=port_scan)
+        logits, _ = lm_apply(p, cfg, tok[..., :-1], ssm_scan_impl=port_scan)
         loss, metrics = make_loss_fn(cfg, ssm_scan_impl=port_scan)(
             p, {"tokens": tok})
     np.testing.assert_allclose(logits.numpy(), want_logits, rtol=1e-4,

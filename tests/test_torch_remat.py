@@ -221,9 +221,12 @@ def test_remat_on_a_two_segment_stack(third, deterministic):
 def test_unported_and_unknown_remat_policies_raise():
     _, cfg = _cfgs("qwen3-0.6b", d_model=32)
     packed, batch = _packed(cfg), _batch(cfg)
-    with pytest.raises(NotImplementedError, match="A.13d"):
-        make_loss_fn(cfg, remat=True, remat_policy="save_moe_combine")(
-            packed.unpack(), batch)
+    # save_moe_combine is ported (tests/test_torch_moe.py); without MoE it
+    # saves nothing and changes no value
+    want, _ = make_loss_fn(cfg, remat=True)(packed.unpack(), batch)
+    got, _ = make_loss_fn(cfg, remat=True, remat_policy="save_moe_combine")(
+        packed.unpack(), batch)
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="remat_policy"):
         make_loss_fn(cfg, remat=True, remat_policy="everything")(
             packed.unpack(), batch)

@@ -326,7 +326,7 @@ def test_decode_matches_own_full_forward(arch, window):
     params = lm_init(cfg, seed=3, device="cpu")
     B, S = 2, 12
     toks = _t(_tokens(cfg, B, S, seed=4)).long()
-    full = lm_apply(tree_map(lambda w: w[None], params), cfg, toks[None])
+    full, _ = lm_apply(tree_map(lambda w: w[None], params), cfg, toks[None])
     _, caches = lm_prefill(params, cfg, toks[:, :-1],
                            lm_cache_init(cfg, B, 64, device="cpu"))
     logits, _ = lm_decode(params, cfg, toks[:, -1], caches, S - 1)
@@ -401,9 +401,17 @@ def test_engine_and_prefill_refuse_what_is_not_ported():
     from repro_torch.models import lm_init
     params = lm_init(cfg, seed=0, device="cpu")
     eng = ServingEngine(cfg, params, max_seq=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.13c"):
+    # a model without an encoder ignores audio frames, as the reference's
+    # does; an enc-dec model needs them
+    np.testing.assert_array_equal(
         eng.generate(_tokens(cfg, 1, 4), 2,
-                     audio_frames=np.zeros((1, 2, cfg.d_model), np.float32))
+                     audio_frames=np.ones((1, 2, cfg.d_model), np.float32)),
+        eng.generate(_tokens(cfg, 1, 4), 2))
+    _, whisper = _cfgs("whisper-base")
+    with pytest.raises(ValueError, match="audio_frames"):
+        ServingEngine(whisper, lm_init(whisper, seed=0, device="cpu"),
+                      max_seq=32, device="cpu").generate(
+            _tokens(whisper, 1, 4), 2)
     with pytest.raises(AssertionError, match="cache too small"):
         eng.generate(_tokens(cfg, 1, 30), 3)
     if not torch.cuda.is_available():
@@ -474,10 +482,15 @@ def test_serve_step_specs_equal_the_references(arch, shape, mode):
                            param_axes=lm_axes(cfg), cache_shapes=cache)
     logits, _ = dec.step_fn(params, cache, toks[:, -1], torch.tensor(6))
     assert logits.shape == (4, cfg.vocab)
-    with pytest.raises(NotImplementedError, match="A.13c"):
-        make_prefill_step(cfg, dist, param_shapes=lm_specs(cfg),
-                          param_axes=lm_axes(cfg), cache_shapes=cache,
-                          with_audio=True)
+    # with_audio takes frames after the tokens; a model without an encoder
+    # ignores them, as the reference's does
+    audio = make_prefill_step(cfg, dist, param_shapes=lm_specs(cfg),
+                              param_axes=lm_axes(cfg), cache_shapes=cache,
+                              with_audio=True)
+    assert len(audio.in_specs) == 2
+    logits, _ = audio.step_fn(params, lm_cache_init(cfg, 4, 32, device="cpu"),
+                              toks, torch.ones(4, 3, cfg.d_model))
+    assert torch.equal(logits, want)
 
 
 # ----------------------------------------------------------- configs
@@ -494,10 +507,8 @@ def test_shapes_and_sliding_window_equal_the_references():
             assert [b.kind for b in got.blocks] == \
                 [b.kind for b in want.blocks]
             assert [b.attn and dataclasses.asdict(b.attn) for b in
-                    got.blocks] == [
-                b.attn and {k: v for k, v in dataclasses.asdict(b.attn).items()
-                            if k in dataclasses.asdict(got.blocks[0].attn)}
-                for b in want.blocks]
+                    got.blocks] == [b.attn and dataclasses.asdict(b.attn)
+                                    for b in want.blocks]
     # a window already set stays
     cfg = configs.with_sliding_window(configs.get_config("qwen3-0.6b"), 8)
     assert configs.with_sliding_window(cfg, 4).blocks[0].attn.window == 8
@@ -536,8 +547,8 @@ def test_serve_cli_runs_on_cpu():
 
 
 def test_serve_cli_refuses_unported_arch_and_needs_a_card():
-    with pytest.raises(NotImplementedError, match="A.13c"):
-        serve_main(["--arch", "whisper-base", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A.13e"):
+        serve_main(["--arch", "deepseek-v3-671b", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             serve_main([])

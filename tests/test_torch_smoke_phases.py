@@ -1,8 +1,10 @@
-"""``chip_smoke.py``'s phases of long-sequence training and the dense
-members, run here on the CPU at toy size: the same functions the card run
-calls (``mamba_train_run``, ``sweep_check``, ``mamba_remat_run``,
-``dense_train_run``, ``serve_run``, ``dense_agree_run``), with reduced fp32
-configs and the kernels' plain versions. They check the control flow,
+"""``chip_smoke.py``'s phases of long-sequence training, the dense members
+and the encoder-decoder and routed-MoE family, run here on the CPU at toy
+size: the same functions the card run calls (``mamba_train_run``,
+``sweep_check``, ``mamba_remat_run``, ``dense_train_run``, ``serve_run``,
+``dense_agree_run``, ``eval_run``, ``jamba_train_run``,
+``jamba_remat_pair``, ``combine_check``), with reduced fp32 configs and the
+kernels' plain versions. They check the control flow,
 shapes and arguments before a card call; the card-only assertions (launch
 counts, the kernel against its plain version, peaks, times) stay in the
 card wrappers. On the CPU no wrapper launches a kernel, so every count
@@ -100,13 +102,24 @@ def test_dense_train_phase(cs, arch):
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "internlm2-20b",
-                                  "qwen3-0.6b", "falcon-mamba-7b"])
+                                  "qwen3-0.6b", "falcon-mamba-7b",
+                                  "whisper-base", "jamba-v0.1-52b",
+                                  "kimi-k2-1t-a32b"])
 def test_serve_phase(cs, arch):
     cfg = _small(arch)
+    moe = any(b.moe is not None for b in cfg.blocks)
     res, out = cs.serve_run(cfg, "cpu", batch=2, prompt=12, new=4,
-                            max_seq=32)
+                            max_seq=32, combine_check=(
+                                cs.combine_check(cfg, "cpu") if moe
+                                else None))
     assert out.shape == (2, 4) and res["generate_equal"]
     assert res["image_tokens"] == (8 if cfg.vision else 0)
+    assert res["audio_frames"] == (16 if cfg.encoder else 0)
+    assert ("prefill_encoder_ms" in res) == (cfg.encoder is not None)
+    assert ("moe_dropped_frac" in res) == moe
+    if moe:
+        assert res["combine_check"]["bit_equal"]
+        assert res["combine_check"]["top_k"] == 2
     assert res["prefill_logits_finite"]
     assert res["lm_apply_max_abs_diff"] <= res["lm_apply_bound"]
     assert res["peak_mem_gb"] is None and "device_busy_ms" not in res
@@ -124,3 +137,52 @@ def test_dense_agree_phase(cs):
         if "serve" in r:
             assert r["serve"] == {"card_vs_cpu_max_abs_err": 0.0,
                                   "tokens_equal_cpu": True}
+
+
+def test_whisper_train_phase(cs):
+    """[whisper_train]'s body: the Trainer feeds seeded frames every step."""
+    cfg = _small("whisper-base")
+    rec, bundle, tr = cs.dense_train_run(cfg, "cpu", seq=16, per_replica=1,
+                                         steps=2)
+    assert rec["dp"] == cs.DP and bundle.fused
+    assert all(map(math.isfinite, rec["losses"]))
+    batch = tr._batch(0)
+    assert tuple(batch["audio_frames"].shape) == (cs.DP, 1, 16, cfg.d_model)
+    _no_launches(rec, cs)
+
+
+def test_jamba_eval_phase(cs):
+    cfg = _small("jamba-v0.1-52b")
+    res, forward = cs.eval_run(cfg, "cpu", forwards=2, b=1, seq=16)
+    assert res["mamba_layers"] == 2 and res["peak_mem_gb"] is None
+    assert all(map(math.isfinite, res["losses"]))
+    assert res["moe_aux"] > 0 and 0 <= res["moe_dropped_frac"] <= 1
+    _no_launches(res, cs)
+
+
+def test_jamba_train_phase(cs):
+    """[jamba_train]'s bodies: the counted run on the plan of mesh
+    (2, 1, 1), and plain remat against save_moe_combine bit for bit."""
+    cfg = _small("jamba-v0.1-52b")
+    sizes = dict(dp=2, seq=16, per_replica=1, chunk=8)
+    rec, bundle, tr = cs.jamba_train_run(cfg, "cpu", steps=2, **sizes)
+    assert rec["remat"] and rec["dist_mode"] == cfg.dist_mode
+    assert bundle.dp == 2 and bundle.fused
+    assert all(map(math.isfinite, rec["losses"]))
+    _no_launches(rec, cs)
+    pair = cs.jamba_remat_pair(cfg, "cpu", **sizes)
+    assert pair["params_bit_equal"]
+    assert pair["remat"]["losses"] == pair["save_moe_combine"]["losses"]
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_encdec_moe_agree_phase(cs):
+    """The card wrapper's checks themselves, CPU against CPU."""
+    res = cs.phase_dense_agree("cpu", models=cs._encdec_moe_models(),
+                               tag="encdec_moe_agree")
+    assert sorted(res) == ["jamba-v0.1-52b", "kimi-k2-1t-a32b",
+                           "whisper-base"]
+    for name, r in res.items():
+        np.testing.assert_array_equal(r["train"]["cuda"], r["train"]["cpu"])
+        assert r["serve"] == {"card_vs_cpu_max_abs_err": 0.0,
+                              "tokens_equal_cpu": True}
