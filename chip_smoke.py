@@ -233,6 +233,31 @@ package ``repro``. Phases, each of which fails the run on any error:
     inputs, bit for bit. ``[encdec_moe_agree]``: reduced fp32 whisper
     (with frames), jamba and kimi-k2 under ``[dense_agree]``'s rule.
 
+17. MLA and the MTP head: deepseek-v3 at full width (d 7168, 128 heads,
+    q_lora 1536, kv_lora 512, nope/rope 128/64, v 128, vocab 129,280, 256
+    experts top-8 and a shared one, d_ff 18,432), random bf16 weights from
+    seed 0, cut in depth (671 G params do not fit one card); no kernel
+    lies on its MLA or MoE path, and training runs ``fused_sgd``. Bodies
+    CPU-callable (``eval_run``, ``serve_run``, ``mla_cache_bytes``,
+    ``deepseek_train_run``, ``dense_agree_run``). ``[deepseek_eval]``: the
+    first 4 layers (3 dense, 1 MoE) with the MTP head (its block MoE),
+    26.7 G params, scoring 1 x 2,048 tokens through ``make_loss_fn``, 3
+    forwards: ms, ``ce``, ``mtp_ce``, ``moe_aux``, ``moe_dropped_frac``,
+    peak, the first CE within 1 of ln(vocab), one forward profiled.
+    ``[serve_deepseek]``: the same 4 layers in ``ServingEngine`` (the
+    absorbed-latent decode over the ``(c_kv, k_rope)`` cache): batch 4, a
+    1,024-token prompt, 32 new tokens, ``max_seq`` 4,096, as
+    ``[serve_kimi]`` (the k = 8 combine card against CPU), with the
+    cache's bytes per token and layer beside the MHA cache of the same
+    heads; the decode bound leaves out the MTP head, which decode never
+    reads. ``[deepseek_train]``: 1 layer with the MTP head (its block then
+    dense), 3.12 G params a replica, dp 2 on mesh (2, 1, 1) in its fsdp
+    mode, sync gossip, packed fused sgd, 1 x 1,024 tokens a replica, remat
+    off, 3 steps, ``fused_sgd`` launches = 3 x buckets, profiled; then the
+    sweep on the largest replica-stacked bucket at alpha 0.5.
+    ``[deepseek_agree]``: reduced fp32 deepseek at 4 layers under
+    ``[dense_agree]``'s rule.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -1058,8 +1083,9 @@ def _replica_params(cfg, dev):
 def eval_run(cfg, dev, *, forwards=EVAL_FORWARDS, b=EVAL_B, seq=EVAL_S):
     """Score ``cfg`` through make_loss_fn with the ssm_scan kernel as its
     scan, under no_grad: the first forward and the steady ones, peak memory
-    (None off the card), launches, loss, ``moe_aux`` and
-    ``moe_dropped_frac``. Returns the record and the steady forward."""
+    (None off the card), launches, each forward's loss and ``ce``, and the
+    last one's metrics (``moe_aux``, ``moe_dropped_frac``, and ``mtp_ce``
+    with an MTP head). Returns the record and the steady forward."""
     from repro_torch.kernels import ssm_scan
     from repro_torch.train import make_loss_fn
     from repro_torch.tree import tree_flatten
@@ -1073,7 +1099,7 @@ def eval_run(cfg, dev, *, forwards=EVAL_FORWARDS, b=EVAL_B, seq=EVAL_S):
     loss_fn = make_loss_fn(cfg, ssm_scan_impl=ssm_scan)
     base = torch.cuda.memory_allocated() if _on_card(dev) else 0
     _reset_peak(dev)
-    times, losses = [], []
+    times, losses, ces = [], [], []
     with torch.no_grad():
         _sync(dev)
         _reset_counts()
@@ -1082,6 +1108,7 @@ def eval_run(cfg, dev, *, forwards=EVAL_FORWARDS, b=EVAL_B, seq=EVAL_S):
             loss, metrics = loss_fn(params, batch)
             losses.append(float(loss[0]))   # reads the loss back: a sync
             times.append((time.perf_counter() - t0) * 1e3)
+            ces.append(float(metrics["ce"][0]))
         counts = _counts()
     tokens = batch["tokens"].shape[1] * (batch["tokens"].shape[2] - 1)
     steady = sum(times[1:]) / len(times[1:])
@@ -1096,10 +1123,9 @@ def eval_run(cfg, dev, *, forwards=EVAL_FORWARDS, b=EVAL_B, seq=EVAL_S):
            "ms_per_forward": steady, "tokens_per_s": tokens / steady * 1e3,
            "peak_mem_gb": peak,
            "peak_extra_gb": None if peak is None else peak - base / 1e9,
-           "losses": losses, "launches": counts,
+           "losses": losses, "ces": ces, "launches": counts,
            "ssm_scan_launches_per_forward": counts["ssm_scan"] / forwards,
-           **{k: float(metrics[k][0]) for k in ("ce", "moe_aux",
-                                                "moe_dropped_frac")}}
+           **{k: float(v[0]) for k, v in metrics.items() if k != "loss"}}
     return res, lambda: loss_fn(params, batch)
 
 
@@ -1201,11 +1227,18 @@ def _tree_bytes(tree) -> int:
     return sum(w.numel() * w.element_size() for w in tree_flatten(tree)[0])
 
 
+def _decode_params(params) -> dict:
+    """The params a decode step reads: all but the MTP head (``mtp``),
+    which only the training loss runs."""
+    return {k: v for k, v in params.items() if k != "mtp"}
+
+
 def _decode_bytes(cfg, params, cache, batch: int) -> int:
-    """What one decode step must move: every param and every cache slot
-    read once (attention reads all L slots whatever the fill), the token's
-    slot of each attention layer and the whole Mamba state written once,
-    the logits written once."""
+    """What one decode step must move: every param it reads
+    (``_decode_params``) and every cache slot read once (attention reads
+    all L slots whatever the fill), the token's slot of each attention
+    layer (an MLA layer's latent and RoPE key) and the whole Mamba state
+    written once, the logits written once."""
     from repro_torch.models import segments_of
     written = 0
     for (pattern, R), seg in zip(segments_of(cfg.blocks), cache):
@@ -1214,11 +1247,15 @@ def _decode_bytes(cfg, params, cache, batch: int) -> int:
                 k = c["kv"]["k"]
                 written += 2 * R * batch * k.shape[3] * k.shape[4] \
                     * k.element_size()
+            elif spec.kind == "mla":
+                written += R * batch * sum(
+                    x.shape[3] * x.element_size() for x in c["kv"].values())
             else:
                 written += _tree_bytes(c)
     logits = batch * cfg.vocab * torch.finfo(
         params["embed"].dtype).bits // 8
-    return _tree_bytes(params) + _tree_bytes(cache) + written + logits
+    return (_tree_bytes(_decode_params(params)) + _tree_bytes(cache)
+            + written + logits)
 
 
 def _on_card(dev) -> bool:
@@ -1356,7 +1393,8 @@ def serve_run(cfg, dev, *, batch=SERVE_B, prompt=SERVE_PROMPT, new=SERVE_NEW,
         res["decode_wall_ms_per_token"] = wall * 1e3 / new
         res["tokens_per_s"] = batch * new / wall
         nbytes = _decode_bytes(cfg, params, cache, batch)
-        flops = 2 * batch * sum(w.numel() for w in tree_flatten(params)[0])
+        flops = 2 * batch * sum(
+            w.numel() for w in tree_flatten(_decode_params(params))[0])
         res.update(decode_bytes_gb=nbytes / 1e9,
                    **bound(nbytes, flops, flops / BF16_TC_FLOPS_PER_S * 1e3))
         res["share_of_bound"] = res["bound_ms"] / res["decode_ms_per_token"]
@@ -1377,7 +1415,8 @@ def serve_run(cfg, dev, *, batch=SERVE_B, prompt=SERVE_PROMPT, new=SERVE_NEW,
                                             for k, v in on_dev.items()})
         full = full[0, :, -1].float()
         if any(b.moe is not None for b in cfg.blocks):
-            res.update({k: float(v[0]) for k, v in aux.items()})
+            res.update({k: float(aux[k][0]) for k in ("moe_aux",
+                                                      "moe_dropped_frac")})
         res["lm_apply_max_abs_diff"] = _diff(last, full)
         res["lm_apply_bound"] = 2 * _bf16_ulp(full.abs().max()).item()
         res["prefill_logits_finite"] = bool(torch.isfinite(last).all())
@@ -2437,6 +2476,9 @@ def train_run(cfg, dev, *, steps, dp, seq, per_replica, **kw):
            "remat_policy": kw.get("remat_policy"),
            "num_buckets": bundle.layout.num_buckets,
            "losses": [h["loss"] for h in hist],
+           "ces": [h["ce"] for h in hist],
+           **({"mtp_ces": [h["mtp_ce"] for h in hist]}
+              if "mtp_ce" in hist[0] else {}),
            "first_step_ms": (t1 - t0) * 1e3,
            "ms_per_step": (t2 - t1) * 1e3 / (steps - 1),
            "tokens_per_s": dp * per_replica * seq * (steps - 1) / (t2 - t1),
@@ -2884,6 +2926,125 @@ def _encdec_moe_models():
             for a in ("whisper-base", "jamba-v0.1-52b", "kimi-k2-1t-a32b")}
 
 
+# ------------------------------------------------- MLA and the MTP head
+# deepseek-v3 at full width, cut in depth to fit one card: scoring and
+# serving take its first 4 layers (3 dense MLA layers, then MLA + MoE; the
+# MTP head's block is MoE), 26.7 G params; training takes 1 layer (the
+# MTP block then dense), 3.12 G params a replica. Scoring runs 1 x 2,048
+# tokens: at 4,096 the fp32 scores of 128 heads (8.6 GB a copy) and their
+# mask, softmax and bf16 weights pass the card's 80 GB.
+DEEPSEEK_CUT, DEEPSEEK_TRAIN_CUT = 4, 1
+DEEPSEEK_EVAL = dict(b=1, seq=2048, forwards=3)
+DEEPSEEK_SERVE = dict(batch=4, prompt=1024, new=32, max_seq=4096)
+DEEPSEEK_TRAIN = dict(dp=2, seq=1024, per_replica=1, steps=3)
+
+
+def phase_deepseek_eval(dev, cfg=None, sizes=DEEPSEEK_EVAL):
+    """deepseek-v3 at full width, its first 4 layers with the MTP head,
+    scored through ``make_loss_fn`` under no_grad (``eval_run``): no kernel
+    on the path (MLA and the MoE are plain torch, as the reference's are
+    jnp), finite losses, the first forward's CE within 1 of ln(vocab) (the
+    loss adds 0.3 of the MTP head's CE), one forward profiled."""
+    from repro_torch.configs import get_config
+    cfg = cfg or _depth(get_config("deepseek-v3-671b"), DEEPSEEK_CUT)
+    res, forward = eval_run(cfg, dev, **sizes)
+    log("[deepseek_eval] " + json.dumps(res))
+    assert res["launches"] == dict.fromkeys(KERNELS, 0), res["launches"]
+    assert all(math.isfinite(x) for x in res["losses"]), res["losses"]
+    assert math.isfinite(res["mtp_ce"]) and res["losses"][-1] > res["ce"]
+    assert abs(res["ces"][0] - math.log(cfg.vocab)) <= 1.0, res["ces"]
+    assert 0.0 <= res["moe_dropped_frac"] <= 1.0, res
+    res["profile"] = profile_forward("deepseek_eval", forward,
+                                     res["ms_per_forward"])
+    del forward
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_cache_bytes(cfg) -> dict:
+    """Decode-cache bytes per token and layer of an MLA config (its latent
+    and RoPE key) beside the MHA cache its heads would need (each head's
+    key, nope + rope wide, and value), in the param dtype."""
+    from repro_torch.models.layers import dtype_of
+    m = cfg.blocks[0].mla
+    size = torch.finfo(dtype_of(cfg.param_dtype)).bits // 8
+    mla = (m.kv_lora_rank + m.qk_rope_dim) * size
+    mha = m.n_heads * (m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim) * size
+    return {"cache_bytes_per_token_layer": mla,
+            "mha_cache_bytes_per_token_layer": mha,
+            "mha_over_mla": mha / mla}
+
+
+def phase_serve_deepseek(dev, cfg=None, sizes=DEEPSEEK_SERVE):
+    """The same 4 layers served (``phase_serve_moe``: the absorbed-latent
+    decode over the ``(c_kv, k_rope)`` cache, no kernel, the k = 8 combine
+    card against CPU), with the cache's bytes per token and layer beside
+    the MHA cache of the same heads."""
+    from repro_torch.configs import get_config
+    cfg = cfg or _depth(get_config("deepseek-v3-671b"), DEEPSEEK_CUT)
+    res = phase_serve_moe("serve_deepseek", cfg, dev, **sizes)
+    res.update(mla_cache_bytes(cfg))
+    log("[serve_deepseek] cache: " + json.dumps(
+        {k: res[k] for k in ("cache_gb", "cache_bytes_per_token_layer",
+                             "mha_cache_bytes_per_token_layer",
+                             "mha_over_mla")}))
+    return res
+
+
+def deepseek_train_run(cfg, dev, *, dp, seq, per_replica, steps):
+    """deepseek training as ``jamba_train_run`` runs an fsdp config (the
+    plan of mesh (dp, 1, 1) in the config's mode, sync gossip at
+    ``GOSSIP_ALPHA``, packed fused sgd), remat off."""
+    rec, bundle, tr = train_run(
+        cfg, dev, steps=steps, dp=dp, seq=seq, per_replica=per_replica,
+        dist=_plan(dp, 1, 1, cfg.dist_mode), gossip_alpha=GOSSIP_ALPHA)
+    rec.update(dist_mode=cfg.dist_mode,
+               bucket_sizes_max=max(bundle.layout.bucket_sizes))
+    return rec, bundle, tr
+
+
+def phase_deepseek_train(dev, cfg=None, sizes=DEEPSEEK_TRAIN):
+    """deepseek-v3 at full width, 1 layer with the MTP head, dp 2 on mesh
+    (2, 1, 1) (``deepseek_train_run``): ``fused_sgd`` launches = steps x
+    buckets, finite losses, the first CE within 1 of ln(vocab), one step
+    profiled; then the sweep on the largest replica-stacked bucket with a
+    partner at alpha 0.5 against its plain version (``sweep_check``)."""
+    from repro_torch.configs import get_config
+    cfg = cfg or _depth(get_config("deepseek-v3-671b"), DEEPSEEK_TRAIN_CUT)
+    rec, bundle, tr = deepseek_train_run(cfg, dev, **sizes)
+    want = dict(dict.fromkeys(KERNELS, 0),
+                fused_sgd=sizes["steps"] * bundle.layout.num_buckets)
+    rec["expected_launches"] = want
+    log("[deepseek_train] " + json.dumps(rec))
+    assert rec["launches"] == want, (rec["launches"], want)
+    assert all(math.isfinite(v) for v in rec["losses"]), "non-finite loss"
+    assert abs(rec["ces"][0] - math.log(cfg.vocab)) <= 1.0, rec["ces"]
+    assert all(math.isfinite(v) for v in rec["mtp_ces"]), rec["mtp_ces"]
+    assert _finite_buckets(tr), "non-finite parameters"
+    rec["profile"] = profile_step("deepseek_train", tr, min_steps=1)
+    n = bundle.dp * rec["bucket_sizes_max"]
+    del tr, bundle
+    torch.cuda.empty_cache()
+    sweep = sweep_check(dev, n, lr=FULL_LR["sgd"], alpha=GOSSIP_ALPHA)
+    log("[deepseek_train] fused_sgd on the largest bucket's size: "
+        + json.dumps(sweep))
+    assert sweep["partner"] and sweep["whole"]["equal"] \
+        and sweep["tail"]["equal"], sweep
+    rec["sweep"] = sweep
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _deepseek_models():
+    """[deepseek_agree]'s reduced fp32 deepseek at 4 layers (the fourth and
+    the MTP block MoE)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+    return {"deepseek-v3-671b": (dataclasses.replace(
+        reduced(get_config("deepseek-v3-671b"), n_layers=4),
+        param_dtype="float32", compute_dtype="float32"), {})}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3100,6 +3261,12 @@ def main() -> int:
           _depth(get_config("kimi-k2-1t-a32b"), 1), dev, **KIMI_SERVE)
     guard("encdec_moe_agree", phase_dense_agree, dev,
           models=_encdec_moe_models(), tag="encdec_moe_agree")
+    # MLA and the MTP head: deepseek-v3 scored, served and trained
+    guard("deepseek_eval", phase_deepseek_eval, dev)
+    guard("serve_deepseek", phase_serve_deepseek, dev)
+    deepseek_train_res = guard("deepseek_train", phase_deepseek_train, dev)
+    guard("deepseek_agree", phase_dense_agree, dev,
+          models=_deepseek_models(), tag="deepseek_agree")
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")
@@ -3166,12 +3333,14 @@ def main() -> int:
         **{f"dense_train {a}": r["launches"]["fused_sgd"]
            for a, r in dense_res.items()},
         "whisper_train": whisper_res["whisper-base"]["launches"]["fused_sgd"],
-        "jamba_train": jamba_train_res["launches"]["fused_sgd"]}
+        "jamba_train": jamba_train_res["launches"]["fused_sgd"],
+        "deepseek_train": deepseek_train_res["launches"]["fused_sgd"]}
     big = mamba_train_res["big_bucket"]
     sweeps_by_path = {
         **{f"dense_train {a}": r["sweep"] for a, r in dense_res.items()},
         "whisper_train": whisper_res["whisper-base"]["sweep"],
-        "jamba_train": jamba_train_res["sweep"]}
+        "jamba_train": jamba_train_res["sweep"],
+        "deepseek_train": deepseek_train_res["sweep"]}
     sweeps = [big] + list(sweeps_by_path.values())
     by_name["fused_sgd"].update(
         max_abs_err=max([err["fused_sgd"]] + [

@@ -1,11 +1,12 @@
 """Architecture registry and input shapes (port of
 ``repro/configs/__init__.py``).
 
-Nine of the reference's ten archs are registered: the dense attention
+All ten of the reference's archs are registered: the dense attention
 members (qwen3-0.6b, olmo-1b, stablelm-1.6b, internlm2-20b and
 llava-next-mistral-7b with its vision stub), falcon-mamba-7b, whisper-base
-(encoder-decoder, audio stub), and the routed-MoE members kimi-k2 and jamba
-(with Mamba). deepseek-v3 waits for MLA and MTP (ROADMAP A.13e).
+(encoder-decoder, audio stub), the routed-MoE members kimi-k2 and jamba
+(with Mamba), and deepseek-v3 (MLA, MoE with a shared expert, the MTP
+head). ``NOT_PORTED`` is empty.
 """
 from __future__ import annotations
 
@@ -28,13 +29,12 @@ _ARCH_MODULES = {
     "whisper-base": "whisper_base",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 # the reference's archs whose families are not ported yet, and the ROADMAP
-# item that ports each
-NOT_PORTED = {
-    "deepseek-v3-671b": "A.13e",
-}
+# item that ports each: none since deepseek-v3
+NOT_PORTED: Dict[str, str] = {}
 
 # (seq_len, global_batch, kind) — kind selects train_step vs serve_step.
 SHAPES: Dict[str, Tuple[int, int, str]] = {
@@ -54,10 +54,6 @@ def list_archs():
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP {NOT_PORTED[name]}); "
-            f"ported: {list_archs()}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; options: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
@@ -65,11 +61,17 @@ def get_config(name: str) -> ModelConfig:
 
 
 def with_sliding_window(cfg: ModelConfig, window: int) -> ModelConfig:
-    """Windowed-attention variant (bounds the decode cache to O(window));
-    a no-op for blocks that are already windowed or attention-free."""
-    blocks = tuple(
-        dataclasses.replace(b, attn=dataclasses.replace(b.attn, window=window))
-        if b.kind == "attn" and b.attn.window is None else b
-        for b in cfg.blocks)
+    """Windowed-attention variant (bounds the decode cache to O(window)),
+    for GQA and MLA layers alike; a no-op for blocks that are already
+    windowed or attention-free."""
+    blocks = []
+    for b in cfg.blocks:
+        if b.kind == "attn" and b.attn.window is None:
+            b = dataclasses.replace(b, attn=dataclasses.replace(
+                b.attn, window=window))
+        elif b.kind == "mla" and b.mla.window is None:
+            b = dataclasses.replace(b, mla=dataclasses.replace(
+                b.mla, window=window))
+        blocks.append(b)
     return dataclasses.replace(cfg, name=cfg.name + f"-sw{window}",
-                               blocks=blocks)
+                               blocks=tuple(blocks))

@@ -1,9 +1,12 @@
-"""Multi-head / grouped-query attention and enc-dec cross-attention: the
-train path and the decode path.
+"""Multi-head / grouped-query attention, enc-dec cross-attention and
+DeepSeek-V3's multi-head latent attention (MLA): the train path and the
+decode path.
 
 Port of ``repro/models/attention.py`` (``attn_init``, ``_qk_normalize``,
 ``_project_qkv``, ``_sdpa``, ``causal_window_mask``, ``attn_apply``,
-``cache_len``, ``attn_cache_init``, ``attn_decode``). Plain tensor code, as
+``cache_len``, ``attn_cache_init``, ``attn_decode``, and MLA's
+``mla_init``, ``_rms``, ``_mla_q``, ``_mla_latent_kv``, ``mla_apply``,
+``mla_cache_init``, ``mla_decode``). Plain tensor code, as
 the reference's is jnp: the same einsums, the GQA key/value repetition to
 all heads, scores cast to fp32, a masked softmax. It calls no fused
 attention operator, so the comparison with the reference is like for like.
@@ -21,7 +24,17 @@ Partial rotary (``rope_frac`` < 1, stablelm-2) rotates the first
 cross-attention) rotates none. Cross-attention (``AttnSpec.cross``) takes
 its keys and values from the encoder's output ``memory``, unmasked and
 unrotated; its decode reads them from the cache (``memory_kv``, filled by
-prefill) and writes nothing. MLA waits for deepseek-v3 (ROADMAP A.13e).
+prefill) and writes nothing.
+
+MLA caches one latent per token, ``c_kv`` (b, L, kv_lora) and the shared
+RoPE key ``k_rope`` (b, L, rope_dim), a full cache or a ring as above.
+Its decode absorbs ``wk_b`` into the query and ``wv_b`` into the output,
+so attention runs in the latent space; its scores are the nope product
+plus the RoPE product, cast to fp32 and multiplied by
+``1/sqrt(qk_nope + qk_rope)``, as the reference computes them (not
+``_sdpa``, which divides and takes one product). In bf16 the RoPE half
+is fp32 (the rotation promotes against its fp32 tables, as jnp does), so
+the sum is too.
 """
 from __future__ import annotations
 
@@ -30,11 +43,13 @@ from typing import Optional
 
 import torch
 
-from .config import AttnSpec
-from .layers import Param, dense_param, per_replica, weight_einsum
+from .config import AttnSpec, MLASpec
+from .layers import (Param, dense_param, per_replica, replica_matmul,
+                     weight_einsum)
 from .rotary import apply_rope, rope_frequencies
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "attn_cache_init",
+           "mla_init", "mla_apply", "mla_decode", "mla_cache_init",
            "cache_len", "causal_window_mask", "NEG_INF"]
 
 NEG_INF = -1e30
@@ -190,3 +205,134 @@ def attn_decode(p, spec: AttnSpec, x1: torch.Tensor, cache: dict, pos,
     mask = valid[None, None, :].expand(B, 1, L)
     out = _sdpa(q, cache["k"], cache["v"], mask, spec.n_kv_heads)
     return torch.einsum("rbshk,rhkd->rbsd", out, p["wo"]), cache
+
+
+# ===================================================================== MLA
+def mla_init(d_model: int, spec: MLASpec, dtype=torch.float32):
+    H = spec.n_heads
+    qk = spec.qk_nope_dim + spec.qk_rope_dim
+    return {
+        "wq_a": dense_param(d_model, (spec.q_lora_rank,), "embed",
+                            ("latent",), dtype=dtype),
+        "q_norm": Param((spec.q_lora_rank,), ("latent",), init="ones",
+                        dtype=dtype),
+        "wq_b": dense_param(spec.q_lora_rank, (H, qk), "latent",
+                            ("heads", "head_dim"), dtype=dtype),
+        "wkv_a": dense_param(d_model, (spec.kv_lora_rank + spec.qk_rope_dim,),
+                             "embed", ("latent",), dtype=dtype),
+        "kv_norm": Param((spec.kv_lora_rank,), ("latent",), init="ones",
+                         dtype=dtype),
+        "wk_b": dense_param(spec.kv_lora_rank, (H, spec.qk_nope_dim),
+                            "latent", ("heads", "head_dim"), dtype=dtype),
+        "wv_b": dense_param(spec.kv_lora_rank, (H, spec.v_head_dim),
+                            "latent", ("heads", "head_dim"), dtype=dtype),
+        "wo": Param((H, spec.v_head_dim, d_model),
+                    ("heads", "head_dim", "embed"),
+                    scale=1.0 / math.sqrt(H * spec.v_head_dim), dtype=dtype)}
+
+
+def _rms(x, scale, eps=1e-6):
+    """The latents' RMSNorm: mean square and rsqrt in fp32, times the scale
+    in fp32, cast back to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * per_replica(scale, x.dim()).float()).to(x.dtype)
+
+
+def _mla_q(p, spec: MLASpec, x, positions):
+    """(q_nope (dp, b, S, H, nope), q_rope (dp, b, S, H, rope)); q_rope is
+    rotated, in fp32 (the tables' dtype)."""
+    q_lat = _rms(replica_matmul(x, p["wq_a"]), p["q_norm"])
+    q = weight_einsum("rbsl,rlhk->rbshk", q_lat, p["wq_b"])
+    q_nope = q[..., :spec.qk_nope_dim]
+    q_rope = q[..., spec.qk_nope_dim:]
+    c, s = rope_frequencies(spec.qk_rope_dim, positions, spec.rope_theta)
+    return q_nope, apply_rope(q_rope, c, s)
+
+
+def _mla_latent_kv(p, spec: MLASpec, x, positions):
+    """(c_kv (dp, b, S, kv_lora), k_rope (dp, b, S, rope)): the normed
+    latent and the one rotated RoPE key every head shares."""
+    kv = replica_matmul(x, p["wkv_a"])
+    c_kv = _rms(kv[..., :spec.kv_lora_rank], p["kv_norm"])
+    k_rope = kv[..., spec.kv_lora_rank:]
+    c, s = rope_frequencies(spec.qk_rope_dim, positions, spec.rope_theta)
+    return c_kv, apply_rope(k_rope[..., None, :], c, s)[..., 0, :]
+
+
+def _mla_weights(scores, valid, dtype):
+    """Masked fp32 softmax of the scores (``NEG_INF`` where ``valid`` is
+    False), cast to ``dtype``."""
+    scores = torch.where(valid, scores,
+                         torch.full((), NEG_INF, dtype=scores.dtype,
+                                    device=scores.device))
+    return torch.softmax(scores, dim=-1).to(dtype)
+
+
+def _rope_scores(q_rope, k_rope):
+    """q_rope (dp, b, S, H, r) . k_rope (dp, b, T, r) -> (dp, b, H, S, T),
+    in the two operands' promoted dtype (as jnp's einsum)."""
+    k_rope = k_rope.to(torch.promote_types(q_rope.dtype, k_rope.dtype))
+    return torch.einsum("rbshk,rbtk->rbhst", q_rope.to(k_rope.dtype), k_rope)
+
+
+def mla_apply(p, spec: MLASpec, x: torch.Tensor,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence causal (optionally windowed) MLA over x (dp, b, S,
+    d): keys and values expanded from the latent per head."""
+    S = x.shape[2]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None]
+    q_nope, q_rope = _mla_q(p, spec, x, positions)
+    c_kv, k_rope = _mla_latent_kv(p, spec, x, positions)
+    k_nope = weight_einsum("rbtl,rlhk->rbthk", c_kv, p["wk_b"])
+    v = weight_einsum("rbtl,rlhk->rbthk", c_kv, p["wv_b"])
+    scale = 1.0 / math.sqrt(spec.qk_nope_dim + spec.qk_rope_dim)
+    scores = (torch.einsum("rbshk,rbthk->rbhst", q_nope, k_nope)
+              + _rope_scores(q_rope, k_rope)).float() * scale
+    w = _mla_weights(scores, causal_window_mask(S, S, spec.window,
+                                                device=x.device), v.dtype)
+    out = torch.einsum("rbhst,rbthk->rbshk", w, v)
+    return weight_einsum("rbshk,rhkd->rbsd", out, p["wo"])
+
+
+def mla_cache_init(spec: MLASpec, batch: int, seq_len: int, dtype, *,
+                   device) -> dict:
+    L = cache_len(seq_len, spec.window)
+    return {"c_kv": torch.zeros((batch, L, spec.kv_lora_rank), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, L, spec.qk_rope_dim), dtype=dtype,
+                                  device=device)}
+
+
+def mla_decode(p, spec: MLASpec, x1: torch.Tensor, cache: dict, pos):
+    """Absorbed-latent one-token decode. x1 (dp, b, 1, d); cache leaves
+    ``c_kv`` (dp, b, L, kv_lora) and ``k_rope`` (dp, b, L, rope), written
+    in place at the token's slot (``attn_decode``'s slot rule). The query
+    meets the latents through ``wk_b`` (q_lat = q_nope . wk_b) and the
+    weighted latents leave through ``wv_b`` and ``wo``: the per-token cache
+    is kv_lora + rope values, MLA's saving. Returns (y (dp, b, 1, d),
+    cache)."""
+    pos = torch.as_tensor(pos, device=x1.device)
+    p1 = pos.reshape(1, 1)
+    q_nope, q_rope = _mla_q(p, spec, x1, p1)
+    c1, kr1 = _mla_latent_kv(p, spec, x1, p1)
+    L = cache["c_kv"].shape[2]
+    slot = pos % L if spec.window is not None else pos.clamp(0, L - 1)
+    at = slot.reshape(1).long()
+    c_kv = cache["c_kv"].index_copy_(2, at, c1.to(cache["c_kv"].dtype))
+    k_rope = cache["k_rope"].index_copy_(2, at,
+                                         kr1.to(cache["k_rope"].dtype))
+    q_lat = weight_einsum("rbshk,rlhk->rbshl", q_nope, p["wk_b"])
+    scale = 1.0 / math.sqrt(spec.qk_nope_dim + spec.qk_rope_dim)
+    scores = (torch.einsum("rbshl,rbtl->rbhst", q_lat, c_kv)
+              + _rope_scores(q_rope, k_rope)).float() * scale
+    idx = torch.arange(L, device=x1.device)
+    if spec.window is None:
+        valid = idx <= pos
+    else:
+        valid = (slot - idx) % L < torch.clamp(pos + 1, max=L)
+    w = _mla_weights(scores, valid, c_kv.dtype)
+    lat = torch.einsum("rbhst,rbtl->rbshl", w, c_kv)
+    out = weight_einsum("rbshl,rlhk->rbshk", lat, p["wv_b"])
+    return weight_einsum("rbshk,rhkd->rbsd", out, p["wo"]), cache

@@ -4,18 +4,17 @@ Port of ``repro/models/blocks.py`` (``AUX_KEYS``, ``segments_of``,
 ``block_init``, ``_zero_aux``, ``block_apply``, ``stack_init``,
 ``stack_apply``, and serving's ``block_cache_init``, ``block_decode``,
 ``_cache_write_seq``, ``block_prefill``, ``stack_cache_init``,
-``stack_decode``, ``stack_prefill``) for attention and Mamba-1 blocks. A
-block is pre-norm residual: ``h += mixer(norm1(h))`` (attention or the
-Mamba mixer); in an enc-dec decoder ``h += cross(norm_x(h), memory)``;
-then ``h += moe(norm2(h))`` or, if ``d_ff``, ``h += mlp(norm2(h))``.
+``stack_decode``, ``stack_prefill``) for attention, MLA and Mamba-1
+blocks. A block is pre-norm residual: ``h += mixer(norm1(h))``
+(attention, MLA or the Mamba mixer); in an enc-dec decoder
+``h += cross(norm_x(h), memory)``; then ``h += moe(norm2(h))`` or, if ``d_ff``, ``h += mlp(norm2(h))``.
 ``block_apply`` returns ``(h, aux)``: the MoE layer's ``moe_aux`` and
 ``moe_dropped_frac`` per replica (zeros without MoE), which
 ``stack_apply`` sums over every layer.
 ``ssm_scan_impl`` reaches every Mamba mixer's ``scan_impl``; ``remat``
 checkpoints each repeat of a segment's pattern (``torch.utils.checkpoint``),
 ``remat_policy="dots"`` saving the weight products' outputs and
-``"save_moe_combine"`` each MoE layer's combined output. MLA blocks wait
-for deepseek-v3 (ROADMAP A.13e).
+``"save_moe_combine"`` each MoE layer's combined output.
 
 The param tree keeps the reference's leaf paths and shapes: a list over
 segments, each a list over pattern positions of block params stacked on a
@@ -73,10 +72,7 @@ def segments_of(blocks: Sequence[BlockSpec]) -> List[Tuple[Tuple[BlockSpec, ...]
 
 
 def _check_kind(spec: BlockSpec) -> None:
-    if spec.kind == "mla":
-        raise NotImplementedError(
-            "MLA blocks are not ported yet (ROADMAP A.13e)")
-    if spec.kind not in ("attn", "mamba"):
+    if spec.kind not in ("attn", "mla", "mamba"):
         raise ValueError(spec.kind)
 
 
@@ -85,6 +81,8 @@ def block_init(cfg: ModelConfig, spec: BlockSpec, dtype) -> Dict:
     p: Dict = {"norm1": norm_init(cfg.norm, cfg.d_model, dtype)}
     if spec.kind == "attn":
         p["mixer"] = attn_mod.attn_init(cfg.d_model, spec.attn, dtype)
+    elif spec.kind == "mla":
+        p["mixer"] = attn_mod.mla_init(cfg.d_model, spec.mla, dtype)
     else:
         p["mixer"] = mamba_mod.mamba_init(cfg.d_model, spec.ssm, dtype)
     if spec.cross_attn is not None:
@@ -115,6 +113,9 @@ def block_apply(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     if spec.kind == "attn":
         h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x,
                                     positions=positions)
+    elif spec.kind == "mla":
+        h = h + attn_mod.mla_apply(p["mixer"], spec.mla, x,
+                                   positions=positions)
     else:
         h = h + mamba_mod.mamba_apply(p["mixer"], spec.ssm, cfg.d_model, x,
                                       scan_impl=ssm_scan_impl)
@@ -158,6 +159,9 @@ def block_cache_init(cfg: ModelConfig, spec: BlockSpec, batch: int,
     if spec.kind == "attn":
         c = {"kv": attn_mod.attn_cache_init(spec.attn, batch, seq_len, dtype,
                                             device=device)}
+    elif spec.kind == "mla":
+        c = {"kv": attn_mod.mla_cache_init(spec.mla, batch, seq_len, dtype,
+                                           device=device)}
     else:
         c = {"ssm": mamba_mod.mamba_state_init(spec.ssm, cfg.d_model, batch,
                                                dtype, device=device)}
@@ -179,6 +183,9 @@ def block_decode(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     if spec.kind == "attn":
         y, new_cache["kv"] = attn_mod.attn_decode(p["mixer"], spec.attn, x,
                                                   cache["kv"], pos)
+    elif spec.kind == "mla":
+        y, new_cache["kv"] = attn_mod.mla_decode(p["mixer"], spec.mla, x,
+                                                 cache["kv"], pos)
     else:
         y, new_cache["ssm"] = mamba_mod.mamba_decode(
             p["mixer"], spec.ssm, cfg.d_model, x, cache["ssm"])
@@ -208,8 +215,11 @@ def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     block's decode cache (serving's prefill), with the reference's
     arithmetic: ``_sdpa`` and ``ssm_assoc_scan``, no kernel. Windowed layers
     keep the trailing window in their ring buffer; full-attention layers
-    need S <= the cache length. Cross-attention reads the cached encoder
-    keys and values (``attn_decode`` over all S positions, unmasked)."""
+    need S <= the cache length. An MLA layer writes its latents
+    (``c_kv``, ``k_rope``) and takes its output from the full
+    ``mla_apply``, as the reference does. Cross-attention reads the cached
+    encoder keys and values (``attn_decode`` over all S positions,
+    unmasked)."""
     _check_kind(spec)
     S = h.shape[2]
     x = norm_apply(cfg.norm, p["norm1"], h)
@@ -223,6 +233,15 @@ def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
         mask = attn_mod.causal_window_mask(S, S, a.window, device=h.device)
         out = attn_mod._sdpa(q, k, v, mask, a.n_kv_heads)
         h = h + torch.einsum("rbshk,rhkd->rbsd", out, m["wo"])
+    elif spec.kind == "mla":
+        m = spec.mla
+        pos = torch.arange(S, device=h.device)[None]
+        c_kv, k_rope = attn_mod._mla_latent_kv(p["mixer"], m, x, pos)
+        kv = cache["kv"]
+        new_cache["kv"] = {"c_kv": _cache_write_seq(kv["c_kv"], c_kv, 2),
+                           "k_rope": _cache_write_seq(kv["k_rope"], k_rope,
+                                                      2)}
+        h = h + attn_mod.mla_apply(p["mixer"], m, x)
     else:
         s, m, st = spec.ssm, p["mixer"], cache["ssm"]
         xz = replica_matmul(x, m["in_proj"])

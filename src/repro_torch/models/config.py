@@ -1,11 +1,11 @@
 """Model configuration schema for the dense attention, vision-stub,
-encoder-decoder, Mamba-1 and routed-MoE families.
+encoder-decoder, Mamba-1, routed-MoE and MLA (deepseek-v3) families.
 
-Port of ``repro/models/config.py`` (``AttnSpec``, ``SSMSpec``,
-``MoESpec``, ``BlockSpec``, ``EncoderSpec``, ``VisionStubSpec``,
-``AudioStubSpec``, ``ModelConfig``, ``reduced``). The MLA fields and the
-MTP head wait for deepseek-v3 (ROADMAP A.13e); a config that needs them
-cannot be expressed here.
+Port of ``repro/models/config.py`` (``AttnSpec``, ``MLASpec``,
+``SSMSpec``, ``MoESpec``, ``BlockSpec``, ``EncoderSpec``,
+``VisionStubSpec``, ``AudioStubSpec``, ``ModelConfig`` with its
+``block_kinds``, ``has_ssm`` and ``subquadratic``, ``reduced``), field for
+field.
 """
 from __future__ import annotations
 
@@ -13,8 +13,9 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-__all__ = ["AttnSpec", "SSMSpec", "MoESpec", "BlockSpec", "EncoderSpec",
-           "VisionStubSpec", "AudioStubSpec", "ModelConfig", "reduced"]
+__all__ = ["AttnSpec", "MLASpec", "SSMSpec", "MoESpec", "BlockSpec",
+           "EncoderSpec", "VisionStubSpec", "AudioStubSpec", "ModelConfig",
+           "reduced"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +31,21 @@ class AttnSpec:
     window: Optional[int] = None
     causal: bool = True             # encoder self-attention sets False
     cross: bool = False             # decoder cross-attention (enc-dec only)
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    """DeepSeek-V3 Multi-head Latent Attention [arXiv:2412.19437]: queries
+    through a ``q_lora_rank`` latent, keys and values through one shared
+    ``kv_lora_rank`` latent plus one shared ``qk_rope_dim`` RoPE key."""
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    window: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +75,13 @@ class MoESpec:
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    """One residual layer: ``kind`` "attn" or "mamba" (the mixer), then,
-    in an enc-dec decoder, cross-attention (``cross_attn``), then a routed
-    MoE (``moe``) or a dense (Swi)GLU MLP (``d_ff`` > 0) or neither (the
-    Mamba-1 blocks of falcon-mamba have no MLP)."""
+    """One residual layer: ``kind`` "attn", "mla" or "mamba" (the mixer),
+    then, in an enc-dec decoder, cross-attention (``cross_attn``), then a
+    routed MoE (``moe``) or a dense (Swi)GLU MLP (``d_ff`` > 0) or neither
+    (the Mamba-1 blocks of falcon-mamba have no MLP)."""
     kind: str
     attn: Optional[AttnSpec] = None
+    mla: Optional[MLASpec] = None
     ssm: Optional[SSMSpec] = None
     cross_attn: Optional[AttnSpec] = None
     d_ff: int = 0
@@ -105,6 +122,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     encoder: Optional[EncoderSpec] = None       # whisper
     vision: Optional[VisionStubSpec] = None     # llava
+    mtp: bool = False               # DeepSeek-V3 multi-token prediction head
+    mtp_coef: float = 0.3
     max_seq: int = 8192
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -114,6 +133,22 @@ class ModelConfig:
     @property
     def n_layers(self) -> int:
         return len(self.blocks)
+
+    def block_kinds(self) -> Tuple[str, ...]:
+        return tuple(b.kind for b in self.blocks)
+
+    def has_ssm(self) -> bool:
+        return any(b.kind == "mamba" for b in self.blocks)
+
+    def subquadratic(self) -> bool:
+        """True if the decode state is O(1) or O(window) per token: every
+        attention layer (GQA or MLA) is windowed, or there is none."""
+        for b in self.blocks:
+            if b.kind == "attn" and b.attn.window is None:
+                return False
+            if b.kind == "mla" and b.mla.window is None:
+                return False
+        return True
 
 
 def _shrink_attn(a: Optional[AttnSpec], heads: int,
@@ -130,12 +165,18 @@ def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
     """Smoke-test variant of the same family, as the reference's
     ``reduced``: <= 2 layers, 4 heads, d_ff = 2 * d_model, d_state 8 and
     dt_rank d_model // 16, <= 4 experts (top_k <= 2, d_ff_expert =
-    2 * d_model, <= 1 shared), a 1-layer encoder over 16 frames, 8 image
+    2 * d_model, <= 1 shared), MLA at q_lora 32, kv_lora 16, nope 16, rope
+    8, v 16 (window <= 64), a 1-layer encoder over 16 frames, 8 image
     tokens, tiny vocab."""
     heads = 4
     head_dim = d_model // heads
     blocks = [dataclasses.replace(
         b, attn=_shrink_attn(b.attn, heads, head_dim),
+        mla=(dataclasses.replace(
+            b.mla, n_heads=heads, q_lora_rank=32, kv_lora_rank=16,
+            qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16,
+            window=min(b.mla.window, 64) if b.mla.window else None)
+             if b.mla is not None else None),
         ssm=(dataclasses.replace(b.ssm, d_state=8,
                                  dt_rank=max(1, d_model // 16))
              if b.ssm is not None else None),

@@ -1,11 +1,12 @@
-"""Decoder-only language model with tied or untied unembedding, and the
-encoder-decoder (whisper) and vision-stub (llava) variants.
+"""Decoder-only language model with tied or untied unembedding, the
+encoder-decoder (whisper) and vision-stub (llava) variants, and
+DeepSeek-V3's multi-token prediction (MTP) head.
 
 Port of ``repro/models/transformer.py`` (``lm_init``, ``_enc_segs``,
 ``encode_audio``, ``lm_apply``, ``_embed_lookup``, ``_unembed``, and
 serving's ``lm_cache_init``, ``lm_decode``, ``lm_prefill``,
 ``_fill_cross_kv``) for the dense attention, vision-stub, encoder-decoder,
-Mamba-1 and routed-MoE families.
+Mamba-1, routed-MoE and MLA families.
 ``lm_specs`` gives the param tree as ``ParamSpec``s (the reference's leaf
 paths and shapes, nothing allocated); ``lm_axes`` their logical-axes
 annotations, the tree the reference's ``lm_init`` returns second;
@@ -18,9 +19,14 @@ with a leading replica axis and tokens ``(dp, b, S)`` and returns
 ``moe_dropped_frac`` summed over the layers, each ``(dp,)``. A VLM's image
 embeddings (the vision tower is a stub: precomputed patch embeddings) are
 prepended to the token embeddings, cast to their dtype, and the image
-positions' logits are dropped. An enc-dec model's audio frames (the
-conv/mel frontend is a stub: precomputed frame embeddings ``(dp, b, F,
-d)``) run through the encoder (``encode_audio``, no remat, as the
+positions' logits are dropped. With ``cfg.mtp`` the params hold an
+``mtp`` subtree (``block``, ``proj``, ``norm_h``, ``norm_e``) and aux
+holds ``mtp_logits`` (dp, b, S-1, V): at position t the head predicts
+token t+2 from the final-normed hidden state and the embedding of token
+t+1, through one block of the last layer's spec (outside the stack: no
+repeat axis, no remat, its MoE aux discarded). An enc-dec model's audio
+frames (the conv/mel frontend is a stub: precomputed frame embeddings
+``(dp, b, F, d)``) run through the encoder (``encode_audio``, no remat, as the
 reference's), whose output every decoder layer's cross-attention reads.
 
 The serving functions take one replica as the reference's do: params
@@ -31,8 +37,6 @@ and write the caches in place (the reference's serve step donates them).
 An enc-dec prefill runs the encoder once and writes every cross-attention
 layer's keys and values into the cache (``_fill_cross_kv``), so decode
 never runs the encoder.
-
-The MTP head waits for deepseek-v3 (ROADMAP A.13e).
 """
 from __future__ import annotations
 
@@ -67,6 +71,14 @@ def lm_specs(cfg: ModelConfig) -> Dict:
             "norm": norm_init(cfg.norm, cfg.d_model, dtype),
             "pos": Param((cfg.encoder.n_frames, cfg.d_model), (None, "embed"),
                          scale=0.02, dtype=dtype)}
+    if cfg.mtp:
+        p["mtp"] = {
+            "block": B.block_init(cfg, cfg.blocks[-1], dtype),
+            "proj": Param((2 * cfg.d_model, cfg.d_model),
+                          ("embed", "embed_out"),
+                          scale=(2 * cfg.d_model) ** -0.5, dtype=dtype),
+            "norm_h": norm_init(cfg.norm, cfg.d_model, dtype),
+            "norm_e": norm_init(cfg.norm, cfg.d_model, dtype)}
     return p
 
 
@@ -159,7 +171,8 @@ def lm_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
              remat_policy: Optional[str] = None):
     """``(logits (dp, b, S, V), aux)`` over the text positions of tokens
     (dp, b, S); aux holds ``moe_aux`` and ``moe_dropped_frac`` (dp,) fp32,
-    summed over the layers (zeros without MoE). A VLM (``cfg.vision``)
+    summed over the layers (zeros without MoE), and with ``cfg.mtp`` the
+    MTP head's ``mtp_logits`` (dp, b, S-1, V). A VLM (``cfg.vision``)
     needs ``image_embeds`` (dp, b, Ni, d): they are prepended and their
     positions' logits dropped. An enc-dec model (``cfg.encoder``) needs
     ``audio_frames`` (dp, b, F, d), which feed the encoder and every
@@ -176,7 +189,24 @@ def lm_apply(p, cfg: ModelConfig, tokens: torch.Tensor,
                            memory=memory, ssm_scan_impl=ssm_scan_impl,
                            remat=remat, remat_policy=remat_policy)
     h = norm_apply(cfg.norm, p["final_norm"], h)
-    return _unembed(p, cfg, h[:, :, n_img:] if n_img else h), aux
+    if n_img:
+        h = h[:, :, n_img:]
+    logits = _unembed(p, cfg, h)
+    if cfg.mtp:
+        aux = dict(aux, mtp_logits=_mtp_logits(p, cfg, h, tokens))
+    return logits, aux
+
+
+def _mtp_logits(p, cfg: ModelConfig, h: torch.Tensor,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """The MTP head: position t predicts token t+2 from (h_t, embed of
+    token t+1); h (dp, b, S, d) after the final norm."""
+    m = p["mtp"]
+    ht = norm_apply(cfg.norm, m["norm_h"], h[:, :, :-1])
+    et = norm_apply(cfg.norm, m["norm_e"], _embed_lookup(p, tokens[:, :, 1:]))
+    hm = replica_matmul(torch.cat([ht, et], dim=-1), m["proj"])
+    hm, _ = B.block_apply(m["block"], cfg, cfg.blocks[-1], hm)
+    return _unembed(p, cfg, hm)
 
 
 # ===================================================================== serve

@@ -30,7 +30,7 @@ def main(argv=None) -> None:
     ap.add_argument("--new-tokens", type=int, default=24)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    base = get_config(args.arch)   # deepseek-v3 raises naming A.13e
+    base = get_config(args.arch)
     dev = resolve_device(args.device)
 
     cfg = dataclasses.replace(reduced(base), param_dtype="float32",

@@ -34,6 +34,8 @@ def _block_cache_axes(spec: BlockSpec) -> Dict:
     if spec.kind == "attn":
         a = {"kv": {"k": ",batch,kv_seq,kv_heads,",
                     "v": ",batch,kv_seq,kv_heads,"}}
+    elif spec.kind == "mla":
+        a = {"kv": {"c_kv": ",batch,kv_seq,", "k_rope": ",batch,kv_seq,"}}
     else:
         a = {"ssm": {"h": ",batch,inner,", "conv": ",batch,,inner"}}
     if spec.cross_attn is not None:

@@ -1,10 +1,10 @@
-"""Next-token cross entropy plus the MoE load-balance aux, per replica.
+"""Next-token cross entropy plus the MoE load-balance aux and, with an MTP
+head, the weighted multi-token-prediction CE, per replica.
 
-Port of ``repro/train/loss.py`` (``cross_entropy``, ``make_loss_fn``)
-without the MTP term (deepseek-v3, ROADMAP A.13e). The reference's loss is
-per replica under a ``vmap``; here it is a vector over the leading replica
-axis, and the train step back-propagates its sum, which gives every replica
-exactly the gradient of its own loss.
+Port of ``repro/train/loss.py`` (``cross_entropy``, ``make_loss_fn``).
+The reference's loss is per replica under a ``vmap``; here it is a vector
+over the leading replica axis, and the train step back-propagates its sum,
+which gives every replica exactly the gradient of its own loss.
 """
 from __future__ import annotations
 
@@ -33,8 +33,10 @@ def make_loss_fn(cfg: ModelConfig, ssm_scan_impl=None, remat: bool = False,
     leading replica axis and ``batch["tokens"]`` of shape (dp, b, S+1), plus
     ``batch["image_embeds"]`` (dp, b, Ni, d) for a VLM and
     ``batch["audio_frames"]`` (dp, b, F, d) for an enc-dec model. The loss
-    is ``ce + moe_aux``; the metrics ``ce``, ``moe_aux``,
-    ``moe_dropped_frac`` and ``loss``, each (dp,). ``ssm_scan_impl``
+    is ``ce + moe_aux``, plus ``cfg.mtp_coef * mtp_ce`` with an MTP head
+    (``mtp_ce``: the head's logits at t against token t+2); the metrics
+    ``ce``, ``moe_aux``, ``moe_dropped_frac``, ``mtp_ce`` (with MTP) and
+    ``loss``, each (dp,). ``ssm_scan_impl``
     replaces the Mamba layers' scan; ``remat`` and ``remat_policy``
     checkpoint the layers (``lm_apply``)."""
 
@@ -47,8 +49,13 @@ def make_loss_fn(cfg: ModelConfig, ssm_scan_impl=None, remat: bool = False,
                                remat_policy=remat_policy)
         ce = cross_entropy(logits, tokens[..., 1:])
         loss = ce + aux["moe_aux"]
-        return loss, {"ce": ce, "moe_aux": aux["moe_aux"],
-                      "moe_dropped_frac": aux["moe_dropped_frac"],
-                      "loss": loss}
+        metrics = {"ce": ce, "moe_aux": aux["moe_aux"],
+                   "moe_dropped_frac": aux["moe_dropped_frac"]}
+        if cfg.mtp:
+            mtp_ce = cross_entropy(aux["mtp_logits"], tokens[..., 2:])
+            loss = loss + cfg.mtp_coef * mtp_ce
+            metrics["mtp_ce"] = mtp_ce
+        metrics["loss"] = loss
+        return loss, metrics
 
     return loss_fn

@@ -229,11 +229,14 @@ def test_configs_equal_the_references(arch):
 
 
 def test_list_archs_and_unported_archs():
-    assert configs.list_archs() == sorted(
-        set(ref_configs.list_archs()) - {"deepseek-v3-671b"})
-    assert configs.NOT_PORTED == {"deepseek-v3-671b": "A.13e"}
-    with pytest.raises(NotImplementedError, match="A.13e"):
-        configs.get_config("deepseek-v3-671b")
+    """Every reference arch is registered and loads, field for field (the
+    MLA and MTP fields included); none is left unported."""
+    assert configs.list_archs() == ref_configs.list_archs()
+    assert configs.NOT_PORTED == {}
+    for arch in ref_configs.list_archs():
+        assert dataclasses.asdict(configs.get_config(arch)) == \
+            dataclasses.asdict(ref_configs.get_config(arch)), arch
+    assert configs.get_config("deepseek-v3-671b").blocks[0].mla is not None
     with pytest.raises(KeyError):
         configs.get_config("gpt-2")
 

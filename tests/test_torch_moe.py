@@ -499,38 +499,40 @@ def test_remat_policies_bit_equal_and_save_the_combine():
 
 # -------------------------------------------------------------- registry
 
-_PORT_LACKS = {"mla": None, "mtp": False, "mtp_coef": 0.3}
+_MLA_MTP_DEFAULTS = {"mla": None, "mtp": False, "mtp_coef": 0.3}
 
 
-def _without_unported(d):
-    """A config dict without the fields the port leaves to deepseek-v3
-    (MLA, MTP), each checked to hold the reference's default."""
+def _mla_mtp_fields(d, found):
+    """Collect the MLA and MTP fields of a config dict into ``found``."""
     if isinstance(d, dict):
-        out = {}
         for k, v in d.items():
-            if k in _PORT_LACKS:
-                assert v == _PORT_LACKS[k], (k, v)
-                continue
-            out[k] = _without_unported(v)
-        return out
-    if isinstance(d, (list, tuple)):
-        return type(d)(_without_unported(v) for v in d)
-    return d
+            if k in _MLA_MTP_DEFAULTS:
+                found.setdefault(k, []).append(v)
+            else:
+                _mla_mtp_fields(v, found)
+    elif isinstance(d, (list, tuple)):
+        for v in d:
+            _mla_mtp_fields(v, found)
+    return found
 
 
 def test_registry_equals_the_references_field_for_field():
+    """All ten archs, full and reduced, field for field, the MLA and MTP
+    fields included: they hold the reference's defaults everywhere but in
+    deepseek-v3."""
     archs = configs.list_archs()
-    assert archs == sorted(set(ref_configs.list_archs())
-                           - {"deepseek-v3-671b"})
-    assert len(archs) == 9
+    assert archs == ref_configs.list_archs()
+    assert len(archs) == 10 and configs.NOT_PORTED == {}
     for arch in archs:
         for shrink, ref_shrink in ((lambda c: c, lambda c: c),
                                    (reduced, ref_reduced)):
             got = dataclasses.asdict(shrink(configs.get_config(arch)))
             want = dataclasses.asdict(ref_shrink(ref_configs.get_config(arch)))
-            assert got == _without_unported(want), arch
-    with pytest.raises(NotImplementedError, match="A.13e"):
-        configs.get_config("deepseek-v3-671b")
+            assert got == want, arch
+            fields = _mla_mtp_fields(got, {})
+            default = all(v == _MLA_MTP_DEFAULTS[k] for k, vs in
+                          fields.items() for v in vs)
+            assert default == (arch != "deepseek-v3-671b"), arch
 
 
 def test_full_size_param_trees_equal_the_references():

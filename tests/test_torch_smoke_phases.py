@@ -186,3 +186,87 @@ def test_encdec_moe_agree_phase(cs):
         np.testing.assert_array_equal(r["train"]["cuda"], r["train"]["cpu"])
         assert r["serve"] == {"card_vs_cpu_max_abs_err": 0.0,
                               "tokens_equal_cpu": True}
+
+
+# ---------------------------------------------- MLA and the MTP head
+
+DEEPSEEK = "deepseek-v3-671b"
+
+
+def test_deepseek_eval_phase(cs):
+    """[deepseek_eval]'s body: each forward's CE and the MTP head's."""
+    cfg = _small(DEEPSEEK, n_layers=4)
+    res, forward = cs.eval_run(cfg, "cpu", forwards=2, b=1, seq=16)
+    assert res["mamba_layers"] == 0 and res["peak_mem_gb"] is None
+    assert len(res["ces"]) == 2 and all(map(math.isfinite, res["losses"]))
+    assert math.isfinite(res["mtp_ce"]) and res["losses"][-1] > res["ce"]
+    assert abs(res["ces"][0] - math.log(cfg.vocab)) <= 1.0
+    assert res["moe_aux"] > 0 and 0 <= res["moe_dropped_frac"] <= 1
+    _no_launches(res, cs)
+
+
+def test_serve_deepseek_phase(cs):
+    """[serve_deepseek]'s body on the latent cache, and its bytes per token
+    and layer beside the MHA cache of the same heads."""
+    cfg = _small(DEEPSEEK, n_layers=4)
+    res, out = cs.serve_run(cfg, "cpu", batch=2, prompt=12, new=4,
+                            max_seq=32,
+                            combine_check=cs.combine_check(cfg, "cpu"))
+    assert out.shape == (2, 4) and res["generate_equal"]
+    assert res["combine_check"]["bit_equal"]
+    assert 0 <= res["moe_dropped_frac"] <= 1 and "mtp_logits" not in res
+    assert res["lm_apply_max_abs_diff"] <= res["lm_apply_bound"]
+    _no_launches(res, cs)
+    assert cs.mla_cache_bytes(cfg) == {
+        "cache_bytes_per_token_layer": (16 + 8) * 4,
+        "mha_cache_bytes_per_token_layer": 4 * (16 + 8 + 16) * 4,
+        "mha_over_mla": 640 / 96}
+    from repro_torch.configs import get_config
+    full = cs.mla_cache_bytes(get_config(DEEPSEEK))
+    assert full["cache_bytes_per_token_layer"] == (512 + 64) * 2
+    assert full["mha_cache_bytes_per_token_layer"] == 128 * 320 * 2
+
+
+def test_decode_bytes_leave_out_the_mtp_head(cs):
+    """The decode bound counts what a step reads: not the MTP head; an
+    MLA layer writes one latent and one RoPE key per sequence."""
+    from repro_torch.models import lm_cache_init, lm_init
+    cfg = _small(DEEPSEEK, n_layers=4)
+    params = lm_init(cfg, seed=0, device="cpu")
+    cache = lm_cache_init(cfg, 2, 32, device="cpu")
+    stack = {k: v for k, v in params.items() if k != "mtp"}
+    got = cs._decode_bytes(cfg, params, cache, 2)
+    assert got == cs._decode_bytes(cfg, stack, cache, 2)
+    assert got == (cs._tree_bytes(stack) + cs._tree_bytes(cache)
+                   + 4 * 2 * (16 + 8) * 4 + 2 * cfg.vocab * 4)
+    qwen = _small("qwen3-0.6b")
+    qp = lm_init(qwen, seed=0, device="cpu")
+    assert cs._decode_params(qp) == qp
+
+
+def test_deepseek_train_phase(cs):
+    """[deepseek_train]'s body: 1 layer with the MTP head on the fsdp plan
+    of mesh (2, 1, 1), each step's CE and MTP CE recorded."""
+    cfg = dataclasses.replace(_small(DEEPSEEK, n_layers=1), dist_mode="fsdp")
+    rec, bundle, tr = cs.deepseek_train_run(cfg, "cpu", dp=2, seq=16,
+                                            per_replica=1, steps=2)
+    assert rec["dist_mode"] == "fsdp" and bundle.dp == 2 and bundle.fused
+    assert not rec["remat"] and rec["num_buckets"] == \
+        bundle.layout.num_buckets
+    assert len(rec["mtp_ces"]) == 2 and all(map(math.isfinite,
+                                                rec["losses"]))
+    assert all(loss > ce for loss, ce in zip(rec["losses"], rec["ces"]))
+    assert abs(rec["ces"][0] - math.log(cfg.vocab)) <= 1.0
+    assert cs._finite_buckets(tr)
+    _no_launches(rec, cs)
+
+
+def test_deepseek_agree_phase(cs):
+    """The card wrapper's checks themselves, CPU against CPU."""
+    res = cs.phase_dense_agree("cpu", models=cs._deepseek_models(),
+                               tag="deepseek_agree")
+    assert sorted(res) == [DEEPSEEK]
+    r = res[DEEPSEEK]
+    np.testing.assert_array_equal(r["train"]["cuda"], r["train"]["cpu"])
+    assert r["serve"] == {"card_vs_cpu_max_abs_err": 0.0,
+                          "tokens_equal_cpu": True}
