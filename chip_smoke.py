@@ -258,6 +258,29 @@ package ``repro``. Phases, each of which fails the run on any error:
     ``[deepseek_agree]``: reduced fp32 deepseek at 4 layers under
     ``[dense_agree]``'s rule.
 
+18. The launch tooling, each body CPU-callable (``dryrun_check_run``,
+    ``comm_accounting_run``, ``mix_flat_run``, ``examples_run``).
+    ``[dryrun_check]``: the dry run's own ``trace_train`` (qwen3-0.6b at
+    full width, 2 replicas of 1 x 4,096 tokens, remat on: train_4k's
+    sequence, the batch cut for one card) and ``trace_serve("decode")``
+    (batch 8 against a 32,768 cache, ``[serve_qwen]``'s sizes), each
+    counted once on ``meta`` and once on the card: FLOPs and op bytes
+    equal exactly, the meta live peak within 10% of the measured peak of
+    one more step, the compute term (FLOPs over 989 TFLOP/s) no larger
+    than that step's device busy time, no kernel launched; the measured
+    ms, busy ms and both roofline terms as shares of the measured time.
+    ``[comm_accounting]``: on ``[main]``'s path (dp 4, 13 buckets) the
+    bytes the exchange returns in one step equal ``wire_bytes_per_step``'s
+    ``raw_bytes`` a replica; on ``async_wire``'s (int8, subset 0.5) over
+    one protocol period they equal the sum of ``sent_bytes_at``, printed
+    beside ``period x total_bytes``. ``[mix_flat]``: ``gossip_mix_flat``
+    on 155,582,464 + 77 elements, bf16 and fp32, one launch each,
+    bit-equal to the plain version, input untouched, timed against
+    ``torch.lerp`` in 7 interleaved rounds; ``gossip_mix_tree`` over
+    full-width qwen3-0.6b's leaves, one launch a leaf, bit-equal.
+    ``[examples]``: ``quickstart --steps 20``, ``gossip_vs_agd --steps 10
+    --protocols gossip,agd`` and ``serve_batched`` on the card.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -3045,6 +3068,301 @@ def _deepseek_models():
         param_dtype="float32", compute_dtype="float32"), {})}
 
 
+# ------------------------------------------------- the launch tooling
+
+# [dryrun_check]: train_4k's sequence at 2 replicas of 1 sequence (the batch
+# cut from 256 for one card), and [serve_qwen]'s decode sizes
+DRYRUN_TRAIN = dict(dp=2, seq=4096, per_replica=1)
+DRYRUN_DECODE = dict(batch=SERVE_B, max_seq=SERVE_MAX_SEQ)
+DRYRUN_PEAK_RTOL = 0.10
+# [mix_flat]: the largest bucket's length plus a ragged tail of 77
+MIX_FLAT_N = 155_582_464 + 77
+EXAMPLES = dict(quick_steps=20, gva_steps=10, protocols="gossip,agd")
+
+
+def _free_device(dev) -> int:
+    """Release cached blocks; the bytes still allocated (0 off the card)."""
+    import gc
+    gc.collect()
+    if not _on_card(dev):
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _busy_ms(fn) -> float:
+    """Device busy ms of one ``fn()`` under torch.profiler (device-side
+    events only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(r[1] for r in _device_rows(prof))
+
+
+def dryrun_check_run(cfg, dev, *, dp, seq, per_replica, batch, max_seq):
+    """[dryrun_check]'s body: the dry run's own functions
+    (``launch.dryrun.trace_train`` at ``dp`` replicas of ``per_replica`` x
+    ``seq`` tokens, remat on, and ``trace_serve("decode")`` at ``batch``
+    sequences against a ``max_seq`` cache), each counted once on ``meta``
+    and once on ``dev``; then one more step of the same program uncounted,
+    timed, its peak above what the device held before the trace, and on
+    the card its device busy time. Returns per kind the two counts, the
+    measured figures and the roofline terms."""
+    from repro_torch.launch.dryrun import trace_serve, trace_train
+    from repro_torch.launch.roofline import H100
+    cases = {
+        "train": lambda d: trace_train(cfg, dp, seq, per_replica, d,
+                                       remat=True),
+        "decode": lambda d: trace_serve(cfg, "decode", max_seq, batch, d)}
+    out = {}
+    for kind, make in cases.items():
+        meta = make("meta").counts
+        base = _free_device(dev)
+        _reset_counts()
+        tr = make(dev)
+        launches = _counts()
+        got = tr.counts
+        _sync(dev)
+        _reset_peak(dev)
+        mark, elapsed = _marker(dev)
+        a = mark()
+        tr.rerun()
+        b = mark()
+        _sync(dev)
+        ms = elapsed(a, b)
+        peak = (torch.cuda.max_memory_allocated() - base if _on_card(dev)
+                else None)
+        busy = _busy_ms(tr.rerun) if _on_card(dev) else None
+        compute_ms = got.flops / H100.peak_flops * 1e3
+        memory_ms = got.op_bytes / H100.hbm_bw * 1e3
+        out[kind] = {
+            "flops": {"meta": meta.flops, "device": got.flops},
+            "op_bytes": {"meta": meta.op_bytes, "device": got.op_bytes},
+            "n_ops": {"meta": meta.n_ops, "device": got.n_ops},
+            "flops_equal": meta.flops == got.flops,
+            "op_bytes_equal": meta.op_bytes == got.op_bytes,
+            "meta_entry_bytes": meta.entry_bytes,
+            "meta_peak_bytes": meta.peak_bytes,
+            "device_counted_peak_bytes": got.peak_bytes,
+            "measured_peak_bytes": peak,
+            "peak_rel_err": (None if peak is None
+                             else abs(meta.peak_bytes - peak) / peak),
+            "trace_s": {"device": tr.seconds},
+            "measured_ms": ms, "device_busy_ms": busy,
+            "compute_term_ms": compute_ms, "memory_term_ms": memory_ms,
+            "compute_share_of_measured": compute_ms / ms,
+            "memory_share_of_measured": memory_ms / ms,
+            "top_ops": got.as_dict(8)["top_ops"], "launches": launches}
+        del tr
+        _free_device(dev)
+    return out
+
+
+def phase_dryrun_check(dev, cfg=None):
+    """The meta-device dry run held to a measured run of the same program
+    on the card: qwen3-0.6b at full width (``dryrun_check_run`` at
+    ``DRYRUN_TRAIN`` and ``DRYRUN_DECODE``). FLOPs and op bytes equal
+    between ``meta`` and ``cuda`` exactly; the meta peak within 10% of
+    the measured one; the compute term no larger than the measured busy
+    time; no kernel launched (none lies on the dry run's program)."""
+    from repro_torch.configs import get_config
+    cfg = cfg or get_config("qwen3-0.6b")
+    out = dryrun_check_run(cfg, dev, **DRYRUN_TRAIN, **DRYRUN_DECODE)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    for kind, r in out.items():
+        r["card"] = smi
+        log(f"[dryrun_check] {kind}: " + json.dumps(r))
+        assert r["flops_equal"] and r["op_bytes_equal"], (kind, r["flops"],
+                                                          r["op_bytes"])
+        assert r["peak_rel_err"] <= DRYRUN_PEAK_RTOL, (kind, r)
+        assert r["compute_term_ms"] <= r["device_busy_ms"], (kind, r)
+        assert r["launches"] == dict.fromkeys(KERNELS, 0), r["launches"]
+    return out
+
+
+def comm_accounting_run(cfg, dev, *, seq=SEQ, per_replica=PER_REPLICA):
+    """[comm_accounting]'s body: the bytes the packed engines' exchange
+    really returns, summed over its payload tensors (a wrapper around
+    ``core.gossip.exchange`` in both engine modules), on [main]'s path
+    (sync gossip, fp32 wire, fused sgd) over one step and on
+    ``async_wire``'s (gossip_async int8, subset 0.5) over one protocol
+    period, against ``wire_bytes_per_step`` and ``sent_bytes_at``.
+    Per replica: the returned bytes over dp."""
+    import repro_torch.core.async_gossip as async_mod
+    import repro_torch.core.gossip as gossip_mod
+    from repro_torch.core import sent_bytes_at, wire_bytes_per_step
+    orig = gossip_mod.exchange
+    sent = []
+
+    def counted(x, recv_from, group=None):
+        y = orig(x, recv_from, group)
+        ts = list(y.values()) if isinstance(y, dict) else [y]
+        sent.append(sum(t.numel() * t.element_size() for t in ts))
+        return y
+
+    out = {}
+    gossip_mod.exchange = async_mod.exchange = counted
+    try:
+        for name, kw in (("sync_fp32", {}), ("async_int8_sub0.5",
+                                             ASYNC_WIRE)):
+            bundle, tr = _train(cfg, fused=True, steps=MAIN_STEPS, dev=dev,
+                                seq=seq, per_replica=per_replica, **kw)
+            steps = 1 if not kw else bundle.protocol.period
+            sent.clear()
+            tr.run(steps)
+            _sync(dev)
+            lay, wire = bundle.layout, bundle.wire
+            acc = wire_bytes_per_step(lay, wire)
+            total = sum(sent)
+            exact = sum(sent_bytes_at(lay, wire, t)["total_bytes"]
+                        for t in range(steps))
+            rec = {"dp": bundle.dp, "num_buckets": lay.num_buckets,
+                   "steps": steps, "exchanges": len(sent),
+                   "returned_bytes": total,
+                   "per_replica_bytes": total // bundle.dp,
+                   "divides": total % bundle.dp == 0,
+                   "wire_bytes_per_step": acc,
+                   "sent_bytes_at_sum": exact,
+                   "steps_x_total_bytes": steps * acc["total_bytes"]}
+            rec["equal_sent_bytes_at"] = rec["per_replica_bytes"] == exact
+            if not kw:
+                rec["equal_raw_bytes"] = (rec["per_replica_bytes"]
+                                          == acc["raw_bytes"])
+            else:
+                rec["ratio_to_steps_x_total"] = (
+                    rec["per_replica_bytes"] / rec["steps_x_total_bytes"])
+            out[name] = rec
+            del tr, bundle
+            _free_device(dev)
+    finally:
+        gossip_mod.exchange = async_mod.exchange = orig
+    return out
+
+
+def phase_comm_accounting(dev, cfg=None):
+    """[comm_accounting] at full width (qwen3-0.6b, dp 4, 13 buckets):
+    one sync fp32 step moves exactly ``raw_bytes`` a replica, and one
+    period of the int8 subset-0.5 ring moves exactly the sum of
+    ``sent_bytes_at`` over its phases; both are printed beside
+    ``wire_bytes_per_step``'s averaged figure."""
+    from repro_torch.configs import get_config
+    out = comm_accounting_run(cfg or get_config("qwen3-0.6b"), dev)
+    log("[comm_accounting] " + json.dumps(out))
+    sync, wired = out["sync_fp32"], out["async_int8_sub0.5"]
+    assert sync["divides"] and sync["equal_raw_bytes"], sync
+    assert sync["equal_sent_bytes_at"], sync
+    assert wired["divides"] and wired["equal_sent_bytes_at"], wired
+    return out
+
+
+def mix_flat_run(dev, n, tree_cfg, *, rounds=7, reps=10):
+    """[mix_flat]'s body. ``gossip_mix_flat`` on ``n`` elements (seeded),
+    bf16 and fp32, against the plain version (bit for bit) with the input
+    untouched; ``gossip_mix_tree`` over ``tree_cfg``'s one-replica leaf
+    tree (seeds 0 and 1) against the per-leaf plain mix, its launches
+    counted; on the card the flat mix, its plain version and
+    ``torch.lerp`` timed in interleaved rounds (median, min, max) beside
+    the byte bound (read two buffers, write one)."""
+    from repro_torch.kernels import gossip_mix_flat, gossip_mix_tree
+    from repro_torch.kernels.gossip_mix import gossip_mix_plain
+    from repro_torch.models import lm_init
+    from repro_torch.tree import tree_flatten
+    gen = torch.Generator().manual_seed(0)
+    out = {"n": n}
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.randn(n, generator=gen).to(dev, dtype)
+        b = torch.randn(n, generator=gen).to(dev, dtype)
+        a0 = a.clone()
+        _reset_counts()
+        got = gossip_mix_flat(a, b, 0.5)
+        launches = _counts()["gossip_mix"]
+        want = gossip_mix_plain(a, b, 0.5)
+        rec = {"launches": launches,
+               "equal": bool(torch.equal(_bits(got), _bits(want))),
+               "max_abs_err": _diff(got, want),
+               "input_untouched": bool(torch.equal(_bits(a), _bits(a0)))}
+        del a0, want, got
+        if _on_card(dev):
+            t = rounds_ms({"kernel": lambda: gossip_mix_flat(a, b, 0.5),
+                           "plain": lambda: gossip_mix_plain(a, b, 0.5),
+                           "lerp": lambda: torch.lerp(a, b, 0.5)},
+                          rounds=rounds, reps=reps)
+            rec.update(ms=t["kernel"], plain_ms=t["plain"], lerp_ms=t["lerp"],
+                       **bound(3 * n * a.element_size(), 0))
+        out[str(dtype).split(".")[-1]] = rec
+        del a, b
+        _free_device(dev)
+    pa = lm_init(tree_cfg, seed=0, device=dev)
+    pb = lm_init(tree_cfg, seed=1, device=dev)
+    leaves = len(tree_flatten(pa)[0])
+    _reset_counts()
+    got = gossip_mix_tree(pa, pb, 0.5)
+    launches = _counts()["gossip_mix"]
+    want = [gossip_mix_plain(x, y, 0.5) for x, y in
+            zip(tree_flatten(pa)[0], tree_flatten(pb)[0])]
+    out["tree"] = {
+        "leaves": leaves, "launches": launches,
+        "equal": all(torch.equal(_bits(g), _bits(w)) for g, w in
+                     zip(tree_flatten(got)[0], want)),
+        "max_abs_err": max(_diff(g, w) for g, w in
+                           zip(tree_flatten(got)[0], want)),
+        "elements": sum(x.numel() for x in want)}
+    del pa, pb, got, want
+    _free_device(dev)
+    return out
+
+
+def phase_mix_flat(dev):
+    """``gossip_mix_flat`` / ``gossip_mix_tree`` on the card
+    (``mix_flat_run`` at ``MIX_FLAT_N`` and full-width qwen3-0.6b): one
+    launch per flat call, bit-equal to the plain version, input untouched;
+    the tree's launches equal its leaf count."""
+    from repro_torch.configs import get_config
+    out = mix_flat_run(dev, MIX_FLAT_N, get_config("qwen3-0.6b"))
+    log("[mix_flat] " + json.dumps(out))
+    for k in ("bfloat16", "float32"):
+        r = out[k]
+        assert r["launches"] == 1 and r["equal"] and r["input_untouched"], r
+    t = out["tree"]
+    assert t["equal"] and t["launches"] == t["leaves"], t
+    return out
+
+
+def examples_run(dev, *, quick_steps, gva_steps, protocols):
+    """[examples]'s body: the port's three examples through their
+    ``main(argv)`` on ``dev``: quickstart, gossip_vs_agd and
+    serve_batched."""
+    from repro_torch.examples import gossip_vs_agd, quickstart, serve_batched
+    d = ["--device", str(dev)]
+    quick = quickstart.main(["--steps", str(quick_steps)] + d)
+    gva = gossip_vs_agd.main(["--steps", str(gva_steps), "--protocols",
+                              protocols] + d)
+    served = serve_batched.main(d)
+    return {"quickstart": {k: quick[k] for k in ("final_loss",
+                                                 "replica_variance")},
+            "gossip_vs_agd": gva,
+            "serve_batched": {"shape": list(served["tokens"].shape),
+                              "first_row": served["tokens"][0].tolist(),
+                              "tok_per_s": served["tok_per_s"]}}
+
+
+def phase_examples(dev):
+    """The three examples on the card (``examples_run`` at ``EXAMPLES``):
+    finite losses, the served tokens of the expected shape."""
+    out = examples_run(dev, **EXAMPLES)
+    log("[examples] " + json.dumps(out))
+    losses = [out["quickstart"]["final_loss"]] + [
+        r["final_loss"] for r in out["gossip_vs_agd"].values()]
+    assert all(math.isfinite(v) for v in losses), losses
+    assert out["serve_batched"]["shape"] == [4, 24], out["serve_batched"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3267,6 +3585,12 @@ def main() -> int:
     deepseek_train_res = guard("deepseek_train", phase_deepseek_train, dev)
     guard("deepseek_agree", phase_dense_agree, dev,
           models=_deepseek_models(), tag="deepseek_agree")
+    # the launch tooling: the meta dry run against the card, the exchange's
+    # byte accounting, the out-of-place mix and the examples
+    guard("dryrun_check", phase_dryrun_check, dev)
+    guard("comm_accounting", phase_comm_accounting, dev)
+    mix_flat_res = guard("mix_flat", phase_mix_flat, dev)
+    guard("examples", phase_examples, dev)
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")
@@ -3316,10 +3640,21 @@ def main() -> int:
         bound_ms_q=q["bound_ms"])
     by_name["gossip_mix"]["launches_by_path"] = {
         "unfused": unfused_res["launches"]["gossip_mix"],
-        "leaf_kernel": leaf_kernel_res["launches"]["gossip_mix"]}
+        "leaf_kernel": leaf_kernel_res["launches"]["gossip_mix"],
+        "mix_flat_tree": mix_flat_res["tree"]["launches"]}
     by_name["gossip_mix"]["launches"] = sum(
         by_name["gossip_mix"]["launches_by_path"].values())
     by_name["gossip_mix"]["max_abs_err_leaves"] = leaf_mix["max_abs_err"]
+    # the out-of-place entry point (kernels.ops.gossip_mix_flat), bf16 on
+    # the largest bucket's length plus 77
+    flat = mix_flat_res["bfloat16"]
+    by_name["gossip_mix"].update(
+        max_abs_err_flat=max(flat["max_abs_err"],
+                             mix_flat_res["float32"]["max_abs_err"],
+                             mix_flat_res["tree"]["max_abs_err"]),
+        ms_flat=flat["ms"]["median"], plain_ms_flat=flat["plain_ms"]["median"],
+        library_ms_flat=flat["lerp_ms"]["median"],
+        bound_ms_flat=flat["bound_ms"], elements_flat=MIX_FLAT_N)
     by_name["gossip_mix"]["path"] += (
         f"; leaf_kernel (per-leaf sync gossip, mix_impl=gossip_mix_1d, "
         f"{MAIN_STEPS} steps x {leaves} leaves)")

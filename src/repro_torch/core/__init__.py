@@ -7,9 +7,11 @@ from .async_gossip import (exchange_ok, init_inbox_ring, init_wire_inbox_ring,
                            make_packed_fused_async_update)
 from .buckets import (LANE, BucketLayout, LeafSlot, PackedParams,
                       build_layout, check_layout_mesh, packed_param_specs)
-from .gossip import (exchange, linear_pairs, make_gossip_mix,
+from .gossip import (exchange, gossip_bytes_per_step, linear_pairs,
+                     make_gossip_mix,
                      make_packed_fused_update, make_packed_gossip_mix,
-                     packed_fused_local_update, replica_mean, wire_period,
+                     packed_fused_local_update, replica_mean,
+                     sent_bytes_at, wire_bytes_per_step, wire_period,
                      wire_subset_of)
 from .mixing import (consensus_contraction, is_doubly_stochastic,
                      mixing_matrix, round_matrix, spectral_gap)
@@ -30,7 +32,8 @@ __all__ = ["LANE", "BucketLayout", "LeafSlot", "PackedParams", "build_layout",
            "exchange", "linear_pairs", "make_gossip_mix",
            "make_packed_fused_update", "make_packed_gossip_mix",
            "packed_fused_local_update", "replica_mean", "wire_period",
-           "wire_subset_of", "exchange_ok", "init_inbox_ring",
+           "wire_subset_of", "gossip_bytes_per_step",
+           "wire_bytes_per_step", "sent_bytes_at", "exchange_ok", "init_inbox_ring",
            "init_wire_inbox_ring", "make_async_gossip_mix",
            "make_packed_async_gossip_mix", "make_packed_fused_async_update",
            "PROTOCOLS", "Protocol", "make_protocol", "make_ring_shuffle",

@@ -4,7 +4,9 @@
 Port of ``repro/core/gossip.py`` (``wire_subset_of``, ``wire_period``,
 ``_encode_bucket``, ``linear_pairs``, ``make_gossip_mix``,
 ``make_packed_gossip_mix``, ``packed_fused_local_update``,
-``make_packed_fused_update``). The reference keeps one replica per device
+``make_packed_fused_update``, and the byte accounting
+``gossip_bytes_per_step``, ``wire_bytes_per_step``; ``sent_bytes_at`` is
+the port's own). The reference keeps one replica per device
 and exchanges with ``jax.lax.ppermute`` inside ``shard_map``. Here the
 replicas live either stacked on one device, as the leading axis of every
 tensor, where the exchange is the single-device ``ppermute`` that
@@ -58,10 +60,11 @@ import torch.distributed as dist
 
 from repro_torch.kernels.fused_update import device_scalar
 from repro_torch.kernels.ops import gossip_mix_bucket
-from repro_torch.kernels.quantize import WireFormat, encode_wire, wire_key
+from repro_torch.kernels.quantize import (WireFormat, encode_wire, wire_itemsize,
+                                          wire_key)
 from repro_torch.tree import tree_flatten
 
-from .buckets import BucketLayout, PackedParams, check_layout_mesh
+from .buckets import LANE, BucketLayout, PackedParams, check_layout_mesh
 from .replica_group import ReplicaGroup
 from .topology import (BucketSubsetSchedule, GossipSchedule,
                        build_subset_schedule)
@@ -70,7 +73,8 @@ __all__ = ["exchange", "replica_mean", "replica_ranks", "replica_count",
            "local_rows", "wire_subset_of", "wire_period",
            "encode_bucket", "linear_pairs", "make_gossip_mix",
            "make_packed_gossip_mix", "packed_fused_local_update",
-           "make_packed_fused_update"]
+           "make_packed_fused_update", "gossip_bytes_per_step",
+           "wire_bytes_per_step", "sent_bytes_at"]
 
 
 def replica_ranks(rows: int, group: Optional[ReplicaGroup] = None
@@ -410,3 +414,75 @@ def make_packed_fused_update(schedule: Optional[GossipSchedule],
         return local(params, grads, opt_state, partner_of)
 
     return update
+
+
+def gossip_bytes_per_step(replica_bytes: int, dp: int,
+                          model_shards: int = 1) -> dict:
+    """Analytic per-step communication volume (the paper's Table 1).
+
+    ``replica_bytes`` is the byte size of ONE model replica; each replica is
+    sharded ``model_shards``-way, so a chip's local shard is
+    ``replica_bytes / model_shards``. Gossip sends exactly that local shard
+    to one partner, independent of dp (the paper's O(1)). A ring all-reduce
+    moves ``2·shard·(dp-1)/dp`` per chip in ``~log2(dp)`` latency steps."""
+    shard = replica_bytes / max(model_shards, 1)
+    return {
+        "replica_bytes": replica_bytes,
+        "gossip_bytes_per_chip": shard if dp > 1 else 0.0,
+        "allreduce_bytes_per_chip": (2.0 * shard * (dp - 1) / dp
+                                     if dp > 1 else 0.0),
+        "allreduce_latency_steps": int(np.ceil(np.log2(max(dp, 2)))),
+        "gossip_latency_steps": 1,
+    }
+
+
+def wire_bytes_per_step(layout: BucketLayout,
+                        wire: WireFormat | None = None) -> dict:
+    """Per-chip wire bytes of ONE packed gossip exchange under a wire
+    format, reckoned on the host from the layout's per-shard strides and
+    dtype strings. ``code_bytes`` counts the exchanged codes; the fp32
+    per-tile scales are apart (``scale_bytes``), so int8 is exactly 4x
+    fewer code bytes than the fp32 wire and int8 at subset 0.5 8x.
+    ``subset_fraction`` averages the rotating bucket subset over one
+    rotation period."""
+    wire = wire or WireFormat()
+    subset = wire_subset_of(wire, layout.num_buckets)
+    raw, code, scale = 0.0, 0.0, 0.0
+    frac = 1.0 if subset is None else subset.fraction
+    for n, dt in zip((int(s) for s in layout.strides), layout.bucket_dtypes):
+        raw += n * wire_itemsize("fp32", dt)
+        code += n * wire_itemsize(wire.dtype, dt) * frac
+        if wire.dtype in ("int8", "fp8"):
+            scale += (n // LANE) * 4 * frac
+    return {
+        "raw_bytes": raw,
+        "code_bytes": code,
+        "scale_bytes": scale,
+        "total_bytes": code + scale,
+        "reduction_codes": raw / code if code else float("inf"),
+        "reduction_total": (raw / (code + scale) if code + scale
+                            else float("inf")),
+        "subset_fraction": frac,
+        "wire_dtype": wire.dtype,
+    }
+
+
+def sent_bytes_at(layout: BucketLayout, wire: WireFormat | None,
+                  phase: int) -> dict:
+    """Per-chip bytes of the exchange at ``phase``: the codes and scales of
+    the buckets the rotating subset sends then (every bucket without a
+    subset), as ints. Summed over a subset period this is what the packed
+    engines send; ``wire_bytes_per_step``'s ``subset_fraction`` average
+    equals that sum only when every bucket goes out equally often (a window
+    that wraps the bucket list sends its first buckets twice a period)."""
+    wire = wire or WireFormat()
+    sel = send_masks(wire_subset_of(wire, layout.num_buckets),
+                     layout.num_buckets, phase)
+    code = scale = 0
+    for i, (n, dt) in enumerate(zip(layout.strides, layout.bucket_dtypes)):
+        if sel[i]:
+            code += int(n) * wire_itemsize(wire.dtype, dt)
+            if wire.dtype in ("int8", "fp8"):
+                scale += (int(n) // LANE) * 4
+    return {"code_bytes": code, "scale_bytes": scale,
+            "total_bytes": code + scale}

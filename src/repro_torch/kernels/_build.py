@@ -41,7 +41,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # points that share a source share its library
 SOURCES = {
     "gossip_mix": ("gossip_mix.cu", "gossip_mix_launch",
-                   [_I, _I, _P, _P, _LL, _F, _F, _P, _LL, _P]),
+                   [_I, _I, _P, _P, _P, _LL, _F, _F, _P, _LL, _P]),
     "gossip_mix_q": ("gossip_mix.cu", "gossip_mix_q_launch",
                      [_I, _I, _P, _P, _P, _LL, _F, _F, _P, _LL, _P]),
     "fused_sgd": ("fused_sgd.cu", "fused_sgd_launch",

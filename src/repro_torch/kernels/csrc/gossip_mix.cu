@@ -1,4 +1,6 @@
-// Gossip arrival mix, in place:  a <- cast_a(keep * f32(a) + take * f32(b)).
+// Gossip arrival mix:  out <- cast_a(keep * f32(a) + take * f32(b)), with
+// out == a (in place, the engines' buckets) or a fresh buffer (the
+// out-of-place gossip_mix_flat of kernels/ops.py).
 //
 // Two entry points over one kernel template:
 //
@@ -13,8 +15,9 @@
 //   per 128-element tile, decoded in the same sweep as f32(code) * scale
 //   (the decode multiply first, as kernels/quantize.py:dequant_flat).
 //
-// The reference aliases its output onto `a` (input_output_aliases); these
-// kernels write `a` in place.
+// The reference aliases its output onto `a` (input_output_aliases); the
+// buckets pass out == a. `a` and `out` carry no __restrict__, since they may
+// alias: every thread loads its vectors of `a` before it stores them.
 //
 // Bound on the H100: device-memory bytes. Each element reads a and the
 // partner once and writes a once (for bf16 a and int8 codes 2 + 1 + 4/128 +
@@ -114,7 +117,7 @@ struct ChunkAlpha {
 // then every thread takes its share of the elements [n_vec * V, n).
 template <typename T, typename B, bool kScaled>
 __global__ void __launch_bounds__(kThreads)
-gossip_mix_kernel(T* __restrict__ a, const B* __restrict__ b,
+gossip_mix_kernel(const T* a, T* out, const B* __restrict__ b,
                   const float* __restrict__ s, int64_t n, int64_t n_vec,
                   Alpha al) {
   constexpr int V = kVec<T>;
@@ -125,7 +128,8 @@ gossip_mix_kernel(T* __restrict__ a, const B* __restrict__ b,
   if (first < n_vec) {
     const int rem = n_vec - first < kChunk ? static_cast<int>(n_vec - first)
                                            : kChunk;
-    Vec<T>* av = reinterpret_cast<Vec<T>*>(a) + first;
+    const Vec<T>* av = reinterpret_cast<const Vec<T>*>(a) + first;
+    Vec<T>* ov = reinterpret_cast<Vec<T>*>(out) + first;
     const PB* bv = reinterpret_cast<const PB*>(b) + first;
     const ChunkAlpha ca(al, first * V, static_cast<int64_t>(rem) * V);
     Vec<T> x[kU];
@@ -165,7 +169,7 @@ gossip_mix_kernel(T* __restrict__ a, const B* __restrict__ b,
               mix_f(Conv<T>::to_f(x[u].v[i]),
                     partner_f<B, kScaled>(y[u].v[i], sc[u]), keep, take));
         }
-        av[j] = x[u];
+        ov[j] = x[u];
       }
     }
   }
@@ -176,19 +180,20 @@ gossip_mix_kernel(T* __restrict__ a, const B* __restrict__ b,
     float keep, take;
     al.at(e, keep, take);
     const float sc = kScaled ? s[e / kLane] : 1.0f;
-    a[e] = Conv<T>::from_f(mix_f(Conv<T>::to_f(a[e]),
-                                 partner_f<B, kScaled>(b[e], sc), keep, take));
+    out[e] = Conv<T>::from_f(mix_f(Conv<T>::to_f(a[e]),
+                                   partner_f<B, kScaled>(b[e], sc), keep,
+                                   take));
   }
 }
 
 template <typename T, typename B, bool kScaled>
-int launch(void* a, const void* b, const float* s, int64_t n, const Alpha& al,
-           cudaStream_t stream) {
+int launch(void* out, const void* a, const void* b, const float* s,
+           int64_t n, const Alpha& al, cudaStream_t stream) {
   constexpr int V = kVec<T>;
   // the vector path needs every stream aligned for its vector and rows of
   // whole vectors (so one alpha per vector)
-  const bool vec = aligned_to(a, 16) && aligned_to(b, alignof(Pack<B, V>)) &&
-                   al.row_len % V == 0;
+  const bool vec = aligned_to(a, 16) && aligned_to(out, 16) &&
+                   aligned_to(b, alignof(Pack<B, V>)) && al.row_len % V == 0;
   const int64_t n_vec = vec ? n / V : 0;
   // one chunk a block; a bucket with no vector path takes the scalar loop
   // on a grid that fills the card
@@ -197,18 +202,19 @@ int launch(void* a, const void* b, const float* s, int64_t n, const Alpha& al,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   gossip_mix_kernel<T, B, kScaled>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          static_cast<T*>(a), static_cast<const B*>(b), s, n, n_vec, al);
+          static_cast<const T*>(a), static_cast<T*>(out),
+          static_cast<const B*>(b), s, n, n_vec, al);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_raw(int pcode, void* a, const void* b, int64_t n, const Alpha& al,
-               cudaStream_t s) {
+int launch_raw(int pcode, void* out, const void* a, const void* b, int64_t n,
+               const Alpha& al, cudaStream_t s) {
   switch (pcode) {
     case kF32:
-      return launch<T, float, false>(a, b, nullptr, n, al, s);
+      return launch<T, float, false>(out, a, b, nullptr, n, al, s);
     case kBF16:
-      return launch<T, __nv_bfloat16, false>(a, b, nullptr, n, al, s);
+      return launch<T, __nv_bfloat16, false>(out, a, b, nullptr, n, al, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -219,9 +225,9 @@ int launch_q(int qcode, void* a, const void* q, const float* sc, int64_t n,
              const Alpha& al, cudaStream_t s) {
   switch (qcode) {
     case kI8:
-      return launch<T, int8_t, true>(a, q, sc, n, al, s);
+      return launch<T, int8_t, true>(a, a, q, sc, n, al, s);
     case kF8:
-      return launch<T, Fp8, true>(a, q, sc, n, al, s);
+      return launch<T, Fp8, true>(a, a, q, sc, n, al, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -232,18 +238,19 @@ int launch_q(int qcode, void* a, const void* q, const float* sc, int64_t n,
 
 // Plain C entry points (bound with ctypes). `alpha` may be null (static
 // keep/take). Each returns the cudaError_t of the launch; 0 means it was
-// accepted.
-extern "C" int gossip_mix_launch(int dtype, int pcode, void* a, const void* b,
-                                 long long n, float keep, float take,
-                                 const float* alpha, long long row_len,
-                                 void* stream) {
+// accepted. gossip_mix_launch writes `out` (which may be `a`);
+// gossip_mix_q_launch writes `a` in place.
+extern "C" int gossip_mix_launch(int dtype, int pcode, void* out,
+                                 const void* a, const void* b, long long n,
+                                 float keep, float take, const float* alpha,
+                                 long long row_len, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const gossip::Alpha al{keep, take, alpha, row_len};
   switch (dtype) {
     case gossip::kF32:
-      return gossip::launch_raw<float>(pcode, a, b, n, al, s);
+      return gossip::launch_raw<float>(pcode, out, a, b, n, al, s);
     case gossip::kBF16:
-      return gossip::launch_raw<__nv_bfloat16>(pcode, a, b, n, al, s);
+      return gossip::launch_raw<__nv_bfloat16>(pcode, out, a, b, n, al, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

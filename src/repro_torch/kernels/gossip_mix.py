@@ -10,6 +10,8 @@ between the two: a CUDA tensor gets the kernel or an exception.
 * ``gossip_mix_1d`` / ``gossip_mix_2d``: a raw partner ``b``, of the
   bucket's dtype or narrower (a bf16 wire on an fp32 bucket), promoted to
   fp32 as the reference does. Launches count on ``launches``.
+* ``gossip_mix_out``: the same mix into a fresh output, ``a`` untouched
+  (``kernels.ops.gossip_mix_flat``), one launch on ``launches``.
 * ``gossip_mix_q2d``: the quantized wire. The partner is int8 or
   float8_e4m3fn codes ``q`` with one fp32 scale per 128-element tile ``s``,
   decoded in the same sweep as ``f32(q) * s`` before the mix. Launches
@@ -32,7 +34,7 @@ from .quantize import LANE, dequant_flat
 
 __all__ = ["LANE", "mix_weights", "kernel_alpha", "gossip_mix_plain",
            "gossip_mix_q_plain", "gossip_mix_2d", "gossip_mix_1d",
-           "gossip_mix_q2d", "launches", "q_launches"]
+           "gossip_mix_q2d", "gossip_mix_out", "launches", "q_launches"]
 
 launches = _build.Launches()     # gossip_mix (raw partner)
 q_launches = _build.Launches()   # gossip_mix_q (quantized partner)
@@ -97,15 +99,19 @@ def _check(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
         raise ValueError(f"a on {a.device}, partner on {b.device}")
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, alpha) -> None:
+def _launch(a: torch.Tensor, b: torch.Tensor, alpha,
+            out: torch.Tensor | None = None) -> None:
+    """One ``gossip_mix`` launch writing ``out`` (``a`` when None; else a
+    fresh contiguous buffer like ``a``)."""
     _check(a, b, "gossip_mix")
+    out = a if out is None else out
     if a.numel() == 0:
         return
     keep, take, al_ptr, row_len, _hold = kernel_alpha(alpha, a)
     fn = _build.kernel("gossip_mix")
     rc = fn(_build.dtype_code(a.dtype), _build.dtype_code(b.dtype),
-            a.data_ptr(), b.data_ptr(), a.numel(), keep, take, al_ptr,
-            row_len, _stream(a))
+            out.data_ptr(), a.data_ptr(), b.data_ptr(), a.numel(), keep,
+            take, al_ptr, row_len, _stream(a))
     launches.count += 1
     _build.check_launch("gossip_mix", rc)
 
@@ -152,6 +158,23 @@ def gossip_mix_1d(a: torch.Tensor, b: torch.Tensor, alpha=0.5) -> torch.Tensor:
     else:
         raise ValueError(f"unsupported device {a.device}")
     return a
+
+
+def gossip_mix_out(a: torch.Tensor, b: torch.Tensor,
+                   alpha=0.5) -> torch.Tensor:
+    """Mix two same-shape buffers of any length into a new buffer of
+    ``a``'s shape and dtype, ``a`` left as it was: one launch on a CUDA
+    tensor (the ragged tail in the kernel's masked edge), the plain version
+    on a CPU tensor."""
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.is_cuda:
+        out = torch.empty_like(a, memory_format=torch.contiguous_format)
+        _launch(a, b, alpha, out)
+        return out
+    if a.device.type == "cpu":
+        return gossip_mix_plain(a, b, alpha)
+    raise ValueError(f"unsupported device {a.device}")
 
 
 def gossip_mix_q2d(a: torch.Tensor, q: torch.Tensor, s: torch.Tensor,

@@ -1,7 +1,8 @@
 """Bucket-level wrappers the engines call, and the model-level entry points
 of the forward-only kernels.
 
-Port of ``repro/kernels/ops.py`` (``gossip_mix_bucket`` with the reference's
+Port of ``repro/kernels/ops.py`` (``gossip_mix_flat``, ``gossip_mix_tree``,
+``gossip_mix_bucket`` with the reference's
 ``gossip_mix_wire_bucket`` folded in, ``fused_sgd_bucket``,
 ``fused_adamw_bucket``, ``fused_lars_bucket``, ``ssm_scan``,
 ``flash_mha``). The dispatch
@@ -25,14 +26,35 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.tree import tree_map
+
 from .flash_attention import flash_attention
 from .fused_update import fused_adamw_1d, fused_lars_1d, fused_sgd_1d
-from .gossip_mix import LANE, gossip_mix_1d, gossip_mix_q2d
+from .gossip_mix import LANE, gossip_mix_1d, gossip_mix_out, gossip_mix_q2d
 from .quantize import dequant_flat
 from .ssm_scan_kernel import ssm_scan_chunked
 
-__all__ = ["gossip_mix_bucket", "fused_sgd_bucket", "fused_adamw_bucket",
+__all__ = ["gossip_mix_flat", "gossip_mix_tree", "gossip_mix_bucket", "fused_sgd_bucket", "fused_adamw_bucket",
            "fused_lars_bucket", "ssm_scan", "flash_mha"]
+
+
+def gossip_mix_flat(a: torch.Tensor, b: torch.Tensor,
+                    alpha: float = 0.5) -> torch.Tensor:
+    """Mix two same-shape buffers of any shape out of place: a new tensor
+    of ``a``'s shape and dtype, ``a`` untouched, as the reference returns a
+    new array. One ``gossip_mix`` launch on a CUDA tensor (counted on
+    ``gossip_mix.launches``; a ragged length is handled in the launch), the
+    plain version on a CPU tensor."""
+    flat = gossip_mix_out(a.contiguous().view(-1), b.contiguous().view(-1),
+                          alpha)
+    return flat.view(a.shape)
+
+
+def gossip_mix_tree(a, b, alpha: float = 0.5):
+    """Per-leaf mix of two param trees (one ``gossip_mix_flat`` per leaf):
+    the per-leaf engines' ``mix_impl`` signature ``(local, received,
+    alpha)``."""
+    return tree_map(lambda x, y: gossip_mix_flat(x, y, alpha=alpha), a, b)
 
 
 def _check_bucket(x: torch.Tensor) -> None:

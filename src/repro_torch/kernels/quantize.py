@@ -37,7 +37,7 @@ import torch
 
 __all__ = ["LANE", "WIRE_DTYPES", "WireFormat", "wire_key", "wire_uniform",
            "encode_wire", "dequant_flat", "decode_wire", "zero_payload_like",
-           "wire_itemsize", "CODE_DTYPES"]
+           "wire_itemsize", "dtype_bytes", "CODE_DTYPES"]
 
 LANE = 128
 WIRE_DTYPES = ("fp32", "bf16", "int8", "fp8")
@@ -239,8 +239,17 @@ def unsent_payload_like(bucket: torch.Tensor, wire_dtype: str):
     return zeros(meta.shape, meta.dtype)
 
 
-def wire_itemsize(wire_dtype: str, bucket_dtype: torch.dtype) -> int:
-    """Bytes per code element on the wire (scales counted apart)."""
+def dtype_bytes(dtype) -> int:
+    """Bytes per element of a torch dtype or a layout's dtype string (as
+    numpy reckons it; ``"bfloat16"``, which plain numpy lacks, is 2)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return 2 if str(dtype) == "bfloat16" else int(np.dtype(dtype).itemsize)
+
+
+def wire_itemsize(wire_dtype: str, bucket_dtype) -> int:
+    """Bytes per code element on the wire (scales counted apart);
+    ``bucket_dtype`` is a torch dtype or a layout's dtype string."""
     if wire_dtype == "fp32":
-        return bucket_dtype.itemsize
+        return dtype_bytes(bucket_dtype)
     return {"bf16": 2, "int8": 1, "fp8": 1}[wire_dtype]

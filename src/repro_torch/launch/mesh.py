@@ -1,7 +1,8 @@
-"""The smoke mesh, and one process per replica rank over
+"""The production and smoke meshes, and one process per replica rank over
 ``torch.distributed``.
 
-Port of ``repro/launch/mesh.py`` (``make_smoke_mesh``).
+Port of ``repro/launch/mesh.py`` (``make_production_mesh``,
+``make_smoke_mesh``).
 ``make_smoke_mesh(data, model, pod)`` returns the mesh's description
 (``mesh_spec.MeshSpec``: the reference's axis names and order, no
 devices), which ``train.sharding.make_distribution`` turns into the
@@ -42,8 +43,25 @@ import torch.distributed as dist
 from repro_torch.core.replica_group import ReplicaGroup
 from repro_torch.mesh_spec import MeshSpec
 
-__all__ = ["ReplicaGroup", "make_smoke_mesh", "init_replica_group",
+__all__ = ["ReplicaGroup", "make_production_mesh", "make_smoke_mesh", "init_replica_group",
            "destroy_replica_group", "world_from_env"]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """The reference's production meshes, as descriptions (no devices):
+    ``(16, 16)`` over ``("data", "model")``, 256 GPUs, or with
+    ``multi_pod`` ``(2, 16, 16)`` over ``("pod", "data", "model")``, 512.
+    The ``pod`` axis is the gossip domain of the hierarchical (fsdp-mode)
+    archs and part of the replica domain for the rest.
+
+    On H100 nodes of 8 GPUs the single mesh is 32 nodes and the
+    multi-pod one 64: a 16-wide ``model`` axis spans two nodes, and every
+    ``data`` (and ``pod``) neighbour lies on another node. The dry run
+    (``launch/dryrun.py``) reckons on these meshes so that its records
+    compare row for row with the reference's sweep."""
+    if multi_pod:
+        return MeshSpec(("pod", "data", "model"), (2, 16, 16))
+    return MeshSpec(("data", "model"), (16, 16))
 
 
 def make_smoke_mesh(data: int = 1, model: int = 1, pod: int = 1) -> MeshSpec:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 bit for bit, including lengths that exercise the masked scalar edge and
-misaligned views that exercise the scalar path: the raw mix, the quantized
+misaligned views that exercise the scalar path: the raw mix (in place, and
+out of place through ``gossip_mix_flat`` / ``gossip_mix_tree``), the quantized
 mix ``gossip_mix_q`` (also on lengths cut around one block's chunk, views
 offset by 1-7 elements and per-row alphas on rows that straddle chunks), the fused SGD and AdamW sweeps with raw, bf16 (on
 fp32) and int8 / fp8 wire partners, and the fused LARS sweep with raw
@@ -87,6 +88,44 @@ def test_kernels_match_plain_bitwise(cuda_device, dtype, n, offset):
         torch.cuda.synchronize()
         assert gossip_mix.launches.count == before + 1
         assert torch.equal(got, gossip_mix_plain(p, b, alpha))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [((1,), 0), ((7,), 0),
+                                          ((128 * 1000 + 3,), 0),
+                                          ((4096,), 1), ((3, 7, 11), 0)])
+def test_mix_flat_out_of_place_matches_plain(cuda_device, dtype, shape,
+                                             offset):
+    """``gossip_mix_flat`` (the kernel writing a fresh buffer through its
+    ``out`` pointer): one launch, bit-equal to the plain version, ``a``
+    untouched, on ragged lengths and a misaligned view (the scalar path);
+    ``gossip_mix_tree`` launches once a leaf."""
+    from repro_torch.kernels import gossip_mix_flat, gossip_mix_tree
+    n = 1
+    for d in shape:
+        n *= d
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+
+    def mk():
+        t = torch.randn(n + offset, generator=gen, device=cuda_device)
+        return t.to(dtype)[offset:].view(shape)
+
+    a, b = mk(), mk()
+    a0 = a.clone()
+    for alpha in _alphas(cuda_device):
+        before = gossip_mix.launches.count
+        got = gossip_mix_flat(a, b, alpha)
+        torch.cuda.synchronize()
+        assert gossip_mix.launches.count == before + 1
+        assert got.shape == a.shape and got.data_ptr() != a.data_ptr()
+        assert torch.equal(got, gossip_mix_plain(a, b, alpha))
+        assert torch.equal(a, a0)
+    before = gossip_mix.launches.count
+    tree = gossip_mix_tree({"x": a, "y": [b]}, {"x": b, "y": [a]}, 0.5)
+    torch.cuda.synchronize()
+    assert gossip_mix.launches.count == before + 2
+    assert torch.equal(tree["y"][0], gossip_mix_plain(b, a, 0.5))
 
 
 @pytest.mark.cuda

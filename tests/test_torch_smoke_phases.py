@@ -3,8 +3,10 @@ and the encoder-decoder and routed-MoE family, run here on the CPU at toy
 size: the same functions the card run calls (``mamba_train_run``,
 ``sweep_check``, ``mamba_remat_run``, ``dense_train_run``, ``serve_run``,
 ``dense_agree_run``, ``eval_run``, ``jamba_train_run``,
-``jamba_remat_pair``, ``combine_check``), with reduced fp32 configs and the
-kernels' plain versions. They check the control flow,
+``jamba_remat_pair``, ``combine_check``, and the launch tooling's
+``dryrun_check_run``, ``comm_accounting_run``, ``mix_flat_run``,
+``examples_run``), with reduced fp32 configs and the kernels' plain
+versions. They check the control flow,
 shapes and arguments before a card call; the card-only assertions (launch
 counts, the kernel against its plain version, peaks, times) stay in the
 card wrappers. On the CPU no wrapper launches a kernel, so every count
@@ -270,3 +272,49 @@ def test_deepseek_agree_phase(cs):
     np.testing.assert_array_equal(r["train"]["cuda"], r["train"]["cpu"])
     assert r["serve"] == {"card_vs_cpu_max_abs_err": 0.0,
                           "tokens_equal_cpu": True}
+
+
+# ------------------------------------------------- the launch tooling
+
+def test_dryrun_check_phase(cs):
+    out = cs.dryrun_check_run(_small("qwen3-0.6b"), "cpu", dp=2, seq=16,
+                              per_replica=1, batch=2, max_seq=32)
+    assert sorted(out) == ["decode", "train"]
+    for kind, r in out.items():
+        assert r["flops_equal"] and r["op_bytes_equal"], kind
+        assert r["flops"]["meta"] > 0 and r["op_bytes"]["meta"] > 0
+        # the CPU run's live peak is the meta one, storage for storage
+        assert r["device_counted_peak_bytes"] == r["meta_peak_bytes"], kind
+        assert r["measured_peak_bytes"] is None and r["measured_ms"] > 0
+        assert r["launches"] == dict.fromkeys(cs.KERNELS, 0)
+
+
+def test_comm_accounting_phase(cs):
+    import repro_torch.core.gossip as gossip_mod
+    orig = gossip_mod.exchange
+    with cs._bucket_bytes(cs.AGREE_BUCKET_BYTES):
+        out = cs.comm_accounting_run(_small("qwen3-0.6b"), "cpu", seq=8,
+                                     per_replica=1)
+    assert gossip_mod.exchange is orig
+    sync, wired = out["sync_fp32"], out["async_int8_sub0.5"]
+    assert sync["exchanges"] == sync["num_buckets"] > 1
+    assert sync["equal_raw_bytes"] and sync["equal_sent_bytes_at"]
+    assert wired["divides"] and wired["equal_sent_bytes_at"]
+    assert wired["steps"] > 1 and wired["exchanges"] > 0
+
+
+def test_mix_flat_phase(cs):
+    out = cs.mix_flat_run("cpu", 1000 + 77, _small("qwen3-0.6b"))
+    for k in ("bfloat16", "float32"):
+        r = out[k]
+        assert r["equal"] and r["input_untouched"] and r["launches"] == 0
+    assert out["tree"]["equal"] and out["tree"]["launches"] == 0
+    assert out["tree"]["leaves"] > 1
+
+
+def test_examples_phase(cs):
+    out = cs.examples_run("cpu", quick_steps=3, gva_steps=3,
+                          protocols="gossip,agd")
+    assert math.isfinite(out["quickstart"]["final_loss"])
+    assert sorted(out["gossip_vs_agd"]) == ["agd", "gossip"]
+    assert out["serve_batched"]["shape"] == [4, 24]
