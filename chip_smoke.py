@@ -281,6 +281,29 @@ package ``repro``. Phases, each of which fails the run on any error:
     ``[examples]``: ``quickstart --steps 20``, ``gossip_vs_agd --steps 10
     --protocols gossip,agd`` and ``serve_batched`` on the card.
 
+19. In-pod FSDP with one process per mesh position (``fsdp_ranks_run``,
+    CPU-callable; ``phase_fsdp_ranks``). The card has one GPU and NCCL
+    takes one card a rank, so the four ranks of the (pod 1, data 2,
+    model 2) fsdp mesh share it over gloo, which carries their CUDA
+    tensors (``init_replica_group(backend="gloo")``; dp 1, so no
+    point-to-point exchange, which gloo has no CUDA form of). The kernels
+    are built before the ranks start, and each rank reports its record
+    to this process. ``[fsdp_ranks]``: qwen3-0.6b at full width and depth
+    in bf16, ``dist_mode="fsdp"``, each rank 1 x 256 tokens and only its
+    stretch of every bucket, packed fused ``sgd(0.1, 0.9)`` at alpha 0, 4
+    steps: rank 0's ms/step, every rank's peak, its ``fused_sgd``
+    launches (4 x buckets), the bytes its in-replica all-gather and
+    reduce-scatter received a step and their ms (ms/step, bytes and ms
+    over one window, the steps after the first) against the dry run's
+    count (``launch/roofline.py: in_replica_bytes``; equal to the padded
+    stretches' bytes), and one sweep on its largest stretch bit-equal to
+    the plain version. ``[fsdp_ranks_agree]``: [agree]'s reduced fp32
+    model on the same mesh, the 4 ranks against the stacked shard-local
+    run on the card within rtol = atol = 2e-4 (losses and gathered
+    params); the ranks' checkpoint restores bit for bit in the stacked run
+    and the stacked run's in the ranks. A gloo refusal of a CUDA
+    collective is recorded as "not measured (needs 2+ cards)".
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -294,9 +317,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -3363,6 +3388,452 @@ def phase_examples(dev):
     return out
 
 
+# ------------------------------------------- in-pod FSDP, one rank a process
+# the slice's path: full-width qwen3-0.6b under fsdp on (pod 1, data 2,
+# model 2), one process per mesh position, 1 x 256 tokens a data position
+FSDP_RANKS = dict(mesh=(1, 2, 2), arch="qwen3-0.6b", seq=SEQ,
+                  per_position=1, steps=SHORT_STEPS, lr=0.1)
+# [fsdp_ranks_agree]: [agree]'s reduced fp32 model on the same mesh
+FSDP_AGREE = dict(mesh=(1, 2, 2), arch="qwen3-0.6b", reduced=dict(d_model=64),
+                  seq=16, per_position=2, steps=SHORT_STEPS,
+                  lr=AGREE_LR["sgd"], bucket_bytes=AGREE_BUCKET_BYTES)
+FSDP_TIMEOUT_S = 300
+# what gloo says when it has no CUDA counterpart of a collective
+GLOO_REFUSAL = re.compile(r"(gloo|Gloo)[^\n]*(not supported|unsupported|"
+                          r"does not support|not implemented)|"
+                          r"(not supported|unsupported|not implemented)"
+                          r"[^\n]*(gloo|Gloo)")
+
+_RANK_CHILD = r"""
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+sys.exit(cs.fsdp_rank_child(*sys.argv[2:]))
+"""
+
+
+def _rank_cfg(spec):
+    """The model of a rank spec: ``arch`` in its dtypes, or reduced fp32
+    with ``reduced``; fsdp mode, as the reference's e2e test forces it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+    cfg = get_config(spec["arch"])
+    if spec.get("reduced"):
+        cfg = dataclasses.replace(reduced(cfg, **spec["reduced"]),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+    return dataclasses.replace(cfg, dist_mode="fsdp")
+
+
+@contextlib.contextmanager
+def _traffic(group, dev):
+    """Bytes this rank receives from the others in the in-replica
+    collectives while the block runs, and the host ms spent in them
+    (the device synchronized before and after each call): the stretches'
+    ``all_gather`` over the in-replica group and the gradient's
+    ``all_to_all`` over the batch group (the metrics' small gathers
+    counted apart)."""
+    import torch.distributed as tdist
+    moved = {"all_gather": 0, "reduce_scatter": 0, "other": 0}
+    ms = dict.fromkeys(moved, 0.0)
+    ag, a2a = tdist.all_gather, tdist.all_to_all_single
+
+    def timed(key, n, fn, *args, **kw):
+        moved[key] += n
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        _sync(dev)
+        ms[key] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def all_gather(parts, x, group=None, **kw):
+        n = x.numel() * x.element_size() * (len(parts) - 1)
+        key = "all_gather" if group is grp.inner else "other"
+        return timed(key, n, ag, parts, x, group=group, **kw)
+
+    def all_to_all_single(out, x, group=None, **kw):
+        size = tdist.get_world_size(group)
+        n = out.numel() * out.element_size() * (size - 1) // size
+        key = "reduce_scatter" if group is grp.batch else "other"
+        return timed(key, n, a2a, out, x, group=group, **kw)
+
+    grp = group
+    tdist.all_gather, tdist.all_to_all_single = all_gather, all_to_all_single
+    try:
+        yield moved, ms
+    finally:
+        tdist.all_gather, tdist.all_to_all_single = ag, a2a
+
+
+def _rank_trainer(cfg, spec, dist, dev, group):
+    """Packed fused sgd on this rank's stretches (dp 1: alpha 0)."""
+    from repro_torch.data import ShardedTokenDataset
+    from repro_torch.launch.mesh import mesh_tables
+    from repro_torch.train import (Trainer, init_train_state,
+                                   make_train_step_bundle)
+    opt = make_optimizer("sgd", spec["steps"], spec["lr"])
+    bundle = make_train_step_bundle(cfg, opt, dist=dist, gossip_packed=True,
+                                    device=dev, group=group, remat=False)
+    state = init_train_state(cfg, opt, dist=dist, packed=True,
+                             layout=bundle.layout, seed=0, device=dev,
+                             group=group)
+    rows = spec["per_position"] * mesh_tables(dist).batch_shards
+    ds = ShardedTokenDataset(cfg.vocab, spec["seq"], n_shards=bundle.dp,
+                             batch_per_shard=rows)
+    return bundle, Trainer(bundle, state, ds, log_every=0)
+
+
+def _stretch_sweep(dev, p, m, lr: float) -> dict:
+    """``fused_sgd_1d`` on copies of one stretch and its momentum with a
+    seeded gradient, against ``fused_sgd_plain`` on the same inputs, bit
+    for bit (alpha 0, as at dp 1)."""
+    from repro_torch.kernels import fused_sgd_1d, fused_sgd_plain
+    p, m = p.detach().reshape(-1), m.reshape(-1)
+    gen = torch.Generator(device=p.device).manual_seed(5)
+    g = torch.empty_like(p).normal_(0.0, 0.01, generator=gen)
+    gp, gm = p.clone(), m.clone()
+    fused_sgd_1d(gp, g, None, gm, lr=lr, alpha=0.0, momentum=MOMENTUM)
+    wp, wm = fused_sgd_plain(p, g, None, m, lr=lr, alpha=0.0,
+                             momentum=MOMENTUM)
+    _sync(dev)
+    return {"elements": p.numel(),
+            "equal": bool(torch.equal(gp, wp) and torch.equal(gm, wm)),
+            "max_abs_err": max(_diff(gp, wp), _diff(gm, wm))}
+
+
+def _fsdp_rank_train(group, dist, dev, spec) -> dict:
+    """[fsdp_ranks] on this rank: the launch counts reset just before the
+    steps and read just after; ms/step, the bytes its in-replica
+    collectives received and their ms over the steps after the first (one
+    window); its peak; then its largest stretch's sweep against the plain
+    version."""
+    from repro_torch.kernels.quantize import dtype_bytes
+    from repro_torch.launch.roofline import in_replica_bytes
+    from repro_torch.models import lm_specs
+    from repro_torch.tree import tree_flatten
+    cfg = _rank_cfg(spec)
+    bundle, tr = _rank_trainer(cfg, spec, dist, dev, group)
+    lay, steps = bundle.layout, spec["steps"]
+    assert bundle.fused and lay.num_shards == group.num_shards
+    assert all(tuple(b.shape) == (1, n) for b, n in
+               zip(tr.state["params"].buckets, lay.strides))
+    _sync(dev)
+    _reset_peak(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    tr.run(1)
+    _sync(dev)
+    t1 = time.perf_counter()
+    # the bytes, the collectives' ms and ms/step share one window: the
+    # steps after the first
+    with _traffic(group, dev) as (moved, coll_ms):
+        hist = tr.run(steps - 1, start_step=1)
+        _sync(dev)
+        t2 = time.perf_counter()
+    counts = _counts()
+    item = [dtype_bytes(dt) for dt in lay.bucket_dtypes]
+    stretch_bytes = sum(n * i for n, i in zip(lay.strides, item))
+    replica = sum(int(np.prod(s.shape)) * s.dtype.itemsize
+                  for s in tree_flatten(lm_specs(cfg))[0])
+    count = in_replica_bytes(group.num_shards, group.batch_shards, replica,
+                             replica)
+    rec = {"rank": group.rank, "replica": group.replica,
+           "shard": group.shard, "batch_index": group.batch_index,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+           "num_buckets": lay.num_buckets,
+           "strides": list(lay.strides), "steps": steps,
+           "tokens_per_rank": spec["per_position"] * spec["seq"],
+           "losses": [h["loss"] for h in hist],
+           "first_step_ms": (t1 - t0) * 1e3,
+           "ms_per_step": (t2 - t1) * 1e3 / (steps - 1),
+           "peak_mem_gb": _peak_gb(dev), "launches": counts,
+           "expected_launches": dict(dict.fromkeys(KERNELS, 0),
+                                     fused_sgd=steps * lay.num_buckets),
+           "bytes_per_step": {k: v / (steps - 1) for k, v in moved.items()},
+           "collective_ms_per_step": {k: v / (steps - 1)
+                                      for k, v in coll_ms.items()},
+           "count_per_step": count,
+           "count_per_step_padded": {
+               "all-gather_bytes": (group.num_shards - 1) * stretch_bytes,
+               "reduce-scatter_bytes": (group.batch_shards - 1)
+               * stretch_bytes}}
+    big = max(range(lay.num_buckets), key=lambda i: lay.strides[i])
+    rec["sweep"] = _stretch_sweep(dev, tr.state["params"].buckets[big],
+                                  tr.state["opt"]["mom"].buckets[big],
+                                  spec["lr"])
+    rec["sweep"]["bucket"] = big
+    del tr, bundle
+    _free_device(dev)
+    return rec
+
+
+def _fsdp_rank_agree(group, dist, dev, spec) -> tuple:
+    """[fsdp_ranks_agree] on this rank: the reduced run's losses and
+    gathered leaves, its stretches after the run, a checkpoint of the
+    ranks, and the stacked run's checkpoint restored into a fresh rank
+    state."""
+    from repro_torch.checkpoint import restore_state, save_state
+    cfg = _rank_cfg(spec)
+    with _bucket_bytes(spec["bucket_bytes"]):
+        bundle, tr = _rank_trainer(cfg, spec, dist, dev, group)
+        hist = tr.run(spec["steps"])
+        save_state(spec["rank_ckpt"], tr.state, step=spec["steps"],
+                   group=group)
+        _, fresh = _rank_trainer(cfg, spec, dist, dev, group)
+    restored, _ = restore_state(spec["stacked_ckpt"], fresh.state, group)
+    arrays = {f"leaf{i}": x.float().cpu().numpy()
+              for i, x in enumerate(_leaf_view(tr.state["params"]))}
+    for tag, st in (("stretch", tr.state), ("restored", restored)):
+        for i, b in enumerate(st["params"].buckets):
+            arrays[f"{tag}{i}"] = b.detach().cpu().numpy()
+    return {"losses": [h["loss"] for h in hist],
+            "num_buckets": bundle.layout.num_buckets}, arrays
+
+
+def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
+    """One rank of [fsdp_ranks] / [fsdp_ranks_agree]: join the gloo world
+    of the mesh (CUDA tensors on the card: ``backend="gloo"``, every rank
+    on the one card), run the rank's parts, write its record (JSON) and
+    arrays (npz) under ``out``. Returns 1 with the traceback recorded when
+    anything failed."""
+    spec = json.loads(spec_json)
+    res, arrays = {"rank": int(rank)}, {}
+    try:
+        from repro_torch.launch.mesh import (destroy_replica_group,
+                                             init_replica_group)
+        if spec["device"] == "cuda":
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        else:
+            torch.set_num_threads(1)
+        dist = _plan(*spec["ranks"]["mesh"], "fsdp")
+        group = init_replica_group(spec["device"], dist=dist, backend="gloo",
+                                   rank=int(rank), world_size=int(world),
+                                   init_method=init,
+                                   timeout_s=FSDP_TIMEOUT_S)
+        try:
+            res["ranks"] = _fsdp_rank_train(group, dist, group.device,
+                                            spec["ranks"])
+            res["agree"], arrays = _fsdp_rank_agree(group, dist,
+                                                    group.device,
+                                                    spec["agree"])
+        finally:
+            destroy_replica_group()
+    except Exception:  # noqa: BLE001 - the parent reads the traceback
+        res["error"] = traceback.format_exc()
+    np.savez(out + ".npz", **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(res, f)
+    return 1 if "error" in res else 0
+
+
+def _spawn_ranks(dev, world: int, spec: dict, tmp: Path) -> list:
+    """Run ``fsdp_rank_child`` on every rank of the world; each rank's
+    (record, arrays), by rank. Every wait has a time limit, and a rank
+    that outlives it is killed."""
+    init = f"file://{tmp / 'rendezvous'}"
+    spec = dict(spec, device=torch.device(dev).type)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if not _on_card(dev):
+        env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_CHILD, str(Path(__file__).resolve()),
+         str(r), str(world), init, str(tmp / f"rank{r}"), json.dumps(spec)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=2 * FSDP_TIMEOUT_S)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks = []
+    for r, log_ in enumerate(logs):
+        path = tmp / f"rank{r}"
+        if not path.with_suffix(".json").exists():
+            ranks.append(({"rank": r, "error": log_[-3000:]}, {}))
+            continue
+        with open(path.with_suffix(".json")) as f:
+            rec = json.load(f)
+        with np.load(str(path) + ".npz") as z:
+            ranks.append((rec, dict(z)))
+    return ranks
+
+
+def fsdp_ranks_run(dev, *, ranks=FSDP_RANKS, agree=FSDP_AGREE) -> dict:
+    """The body of [fsdp_ranks] and [fsdp_ranks_agree]: the stacked
+    shard-local run of ``agree`` on ``dev`` (its losses, leaves and final
+    buckets, and its checkpoint), then one gloo world of ``prod(mesh)``
+    processes, each running ``ranks`` and then ``agree``, then the ranks'
+    checkpoint restored into a fresh stacked state. The kernels are built
+    already (``[build]``), so the ranks load them. Returns the ranks'
+    records and arrays, the stacked run's, and the ranks' file restored."""
+    from repro_torch.checkpoint import restore_state, save_state
+    world = int(np.prod(ranks["mesh"]))
+    dist = _plan(*agree["mesh"], "fsdp")
+    cfg = _rank_cfg(agree)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="fsdp_ranks_", dir=ROOT / "build"))
+    try:
+        agree = dict(agree, rank_ckpt=str(tmp / "rank_ckpt"),
+                     stacked_ckpt=str(tmp / "stacked_ckpt"))
+        with _bucket_bytes(agree["bucket_bytes"]):
+            bundle, tr = _rank_trainer(cfg, agree, dist, dev, None)
+            stacked = {"losses": [h["loss"] for h in tr.run(agree["steps"])],
+                       "leaves": [x.float().cpu().numpy()
+                                  for x in _leaf_view(tr.state["params"])],
+                       "buckets": [b.detach().cpu().numpy() for b in
+                                   tr.state["params"].buckets],
+                       "strides": list(bundle.layout.strides)}
+            save_state(agree["stacked_ckpt"], tr.state, step=agree["steps"])
+            _, fresh = _rank_trainer(cfg, agree, dist, dev, None)
+        del tr, bundle
+        _free_device(dev)
+        out = {"stacked": stacked, "world": world,
+               "mesh": list(ranks["mesh"]),
+               "ranks": _spawn_ranks(dev, world, dict(ranks=ranks,
+                                                      agree=agree), tmp)}
+        if not any("error" in r for r, _ in out["ranks"]):
+            state, _ = restore_state(agree["rank_ckpt"], fresh.state)
+            out["rank_file_in_stacked"] = [b.detach().cpu().numpy()
+                                           for b in state["params"].buckets]
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _refusal(ranks) -> str | None:
+    """gloo's refusal of a CUDA collective, if that is what stopped the
+    ranks."""
+    for rec, _ in ranks:
+        m = GLOO_REFUSAL.search(rec.get("error", ""))
+        if m:
+            line = [ln for ln in rec["error"].splitlines() if m.group(0) in ln]
+            return (line or [m.group(0)])[-1].strip()
+    return None
+
+
+def check_fsdp_ranks(out: dict, dev) -> dict:
+    """[fsdp_ranks]'s record from ``fsdp_ranks_run``: per rank its ms/step,
+    peak, launches and bytes a step against the dry run's count, and its
+    stretch sweep. Asserts the measured bytes equal the padded count,
+    finite losses from about ln(vocab), one replica-mean loss on every
+    rank, the sweep bit-equal, and the launch counts (as expected on the
+    card, none off it)."""
+    recs = [r["ranks"] for r, _ in out["ranks"]]
+    r0 = recs[0]
+    res = {"world": out["world"], "mesh": out["mesh"],
+           "dist_mode": "fsdp", "backend": "gloo",
+           "layers": r0["layers"], "d_model": r0["d_model"],
+           "dtype": r0["dtype"], "num_buckets": r0["num_buckets"],
+           "steps": r0["steps"], "tokens_per_rank": r0["tokens_per_rank"],
+           "losses": r0["losses"], "first_step_ms": r0["first_step_ms"],
+           "ms_per_step": r0["ms_per_step"],
+           "ms_per_step_by_rank": [r["ms_per_step"] for r in recs],
+           "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in recs],
+           "launches_by_rank": [r["launches"] for r in recs],
+           "expected_launches": r0["expected_launches"],
+           "bytes_per_step_by_rank": [r["bytes_per_step"] for r in recs],
+           "collective_ms_per_step_by_rank": [r["collective_ms_per_step"]
+                                              for r in recs],
+           "count_per_step": r0["count_per_step"],
+           "count_per_step_padded": r0["count_per_step_padded"],
+           "sweep_by_rank": [r["sweep"] for r in recs]}
+    for r in recs:
+        want = (r["expected_launches"] if _on_card(dev)
+                else dict.fromkeys(KERNELS, 0))
+        assert r["launches"] == want, (r["launches"], want)
+        assert r["bytes_per_step"]["all_gather"] == \
+            r["count_per_step_padded"]["all-gather_bytes"], r
+        assert r["bytes_per_step"]["reduce_scatter"] == \
+            r["count_per_step_padded"]["reduce-scatter_bytes"], r
+        assert r["sweep"]["equal"], r["sweep"]
+        assert r["losses"] == r0["losses"], "ranks report one replica mean"
+    assert all(math.isfinite(v) for v in r0["losses"]), "non-finite loss"
+    assert abs(r0["losses"][0] - math.log(r0["vocab"])) <= 1.0, r0["losses"]
+    return res
+
+
+def check_fsdp_agree(out: dict) -> dict:
+    """[fsdp_ranks_agree]'s record: the ranks' losses and gathered leaves
+    against the stacked run's within rtol = atol = 2e-4; the ranks' file
+    restored in the stacked run equals their stretches bit for bit, and the
+    stacked file restored in the ranks equals its chunks."""
+    st = out["stacked"]
+    strides = st["strides"]
+    worst = 0.0
+    for rec, arr in out["ranks"]:
+        got = rec["agree"]["losses"]
+        np.testing.assert_allclose(got, st["losses"], rtol=2e-4, atol=2e-4)
+        for i, want in enumerate(st["leaves"]):
+            np.testing.assert_allclose(arr[f"leaf{i}"], want, rtol=2e-4,
+                                       atol=2e-4)
+            worst = max(worst, float(np.abs(arr[f"leaf{i}"] - want).max()))
+    by_shard = {rec["ranks"]["shard"]: arr for rec, arr in out["ranks"]}
+    same_rank_file = all(
+        np.array_equal(out["rank_file_in_stacked"][i],
+                       np.concatenate([by_shard[s][f"stretch{i}"]
+                                       for s in sorted(by_shard)], -1))
+        for i in range(len(strides)))
+    same_stacked_file = all(
+        np.array_equal(arr[f"restored{i}"],
+                       st["buckets"][i][..., rec["ranks"]["shard"] * n:
+                                        (rec["ranks"]["shard"] + 1) * n])
+        for rec, arr in out["ranks"] for i, n in enumerate(strides))
+    res = {"losses_stacked": st["losses"],
+           "losses_ranks": out["ranks"][0][0]["agree"]["losses"],
+           "max_abs_diff_params": worst, "num_buckets": len(strides),
+           "rank_file_restores_in_stacked_bit_equal": same_rank_file,
+           "stacked_file_restores_in_ranks_bit_equal": same_stacked_file}
+    assert same_rank_file and same_stacked_file, res
+    return res
+
+
+def _ranks_failed(out: dict, tag: str):
+    """None when every rank ran; gloo's refusal of a CUDA collective as
+    the "not measured" record; any other rank failure raises."""
+    errors = [r for r, _ in out["ranks"] if "error" in r]
+    if not errors:
+        return None
+    refused = _refusal(out["ranks"])
+    if refused is None:
+        for r in errors:
+            log(f"[{tag}] rank {r['rank']}:\n{r['error']}")
+        raise RuntimeError(f"[{tag}] a rank failed")
+    res = {"not_measured": "needs 2+ cards", "gloo_refused": refused}
+    log(f"[{tag}] " + json.dumps(res))
+    return res
+
+
+def phase_fsdp_ranks(out: dict, dev) -> dict:
+    """[fsdp_ranks] from ``fsdp_ranks_run``'s world (``check_fsdp_ranks``):
+    if gloo refused a CUDA collective the path needs, the error is
+    recorded and the phase reads "not measured (needs 2+ cards)"."""
+    res = _ranks_failed(out, "fsdp_ranks")
+    if res is None:
+        res = check_fsdp_ranks(out, dev)
+        log("[fsdp_ranks] " + json.dumps(res))
+    return res
+
+
+def phase_fsdp_ranks_agree(out: dict) -> dict:
+    """[fsdp_ranks_agree] from the same world (``check_fsdp_agree``), the
+    refusal handled as in [fsdp_ranks]."""
+    res = _ranks_failed(out, "fsdp_ranks_agree")
+    if res is None:
+        res = check_fsdp_agree(out)
+        log("[fsdp_ranks_agree] " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3591,6 +4062,11 @@ def main() -> int:
     guard("comm_accounting", phase_comm_accounting, dev)
     mix_flat_res = guard("mix_flat", phase_mix_flat, dev)
     guard("examples", phase_examples, dev)
+    # in-pod FSDP with one process per mesh position: four gloo ranks on
+    # the one card (full width), then the reduced run against the stacked
+    fsdp_out = guard("fsdp_ranks_run", fsdp_ranks_run, dev)
+    fsdp = guard("fsdp_ranks", phase_fsdp_ranks, fsdp_out, dev)
+    guard("fsdp_ranks_agree", phase_fsdp_ranks_agree, fsdp_out)
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")
@@ -3670,6 +4146,10 @@ def main() -> int:
         "whisper_train": whisper_res["whisper-base"]["launches"]["fused_sgd"],
         "jamba_train": jamba_train_res["launches"]["fused_sgd"],
         "deepseek_train": deepseek_train_res["launches"]["fused_sgd"]}
+    if "launches_by_rank" in fsdp:   # the ranks ran (gloo carried CUDA)
+        by_rank = [r["fused_sgd"] for r in fsdp["launches_by_rank"]]
+        by_name["fused_sgd"]["launches_by_path"]["fsdp_ranks"] = sum(by_rank)
+        by_name["fused_sgd"]["launches_fsdp_ranks_by_rank"] = by_rank
     big = mamba_train_res["big_bucket"]
     sweeps_by_path = {
         **{f"dense_train {a}": r["sweep"] for a, r in dense_res.items()},
@@ -3679,14 +4159,18 @@ def main() -> int:
     sweeps = [big] + list(sweeps_by_path.values())
     by_name["fused_sgd"].update(
         max_abs_err=max([err["fused_sgd"]] + [
-            sw[t]["max_abs_err"] for sw in sweeps for t in ("whole", "tail")]),
+            sw[t]["max_abs_err"] for sw in sweeps for t in ("whole", "tail")]
+            + [sw["max_abs_err"] for sw in fsdp.get("sweep_by_rank", [])]),
         max_abs_err_over_int32=big["whole"]["max_abs_err"],
         over_int32_elements=big["n"],
         max_abs_err_by_path={
             "mamba_train": max(big["whole"]["max_abs_err"],
                                big["tail"]["max_abs_err"]),
             **{p: max(sw["whole"]["max_abs_err"], sw["tail"]["max_abs_err"])
-               for p, sw in sweeps_by_path.items()}},
+               for p, sw in sweeps_by_path.items()},
+            **({"fsdp_ranks": max(sw["max_abs_err"]
+                                  for sw in fsdp["sweep_by_rank"])}
+               if "sweep_by_rank" in fsdp else {})},
         sweep_elements_by_path={
             "mamba_train": big["n"],
             **{p: sw["n"] for p, sw in sweeps_by_path.items()}})

@@ -30,6 +30,21 @@ template holds as an autograd leaf is one again (the engines update in
 place). A compressed wire's ring slots are per-bucket payloads (a bucket
 shaped tensor, or ``{"q", "s"}``) and are written as they are.
 
+**Under a replica group** (one process per mesh position, ``group=``)
+``save_state`` gathers every rank's rows and stretches to rank 0 (one
+``gather`` of raw bits per tensor over the world, from the host under
+gloo, then each replica's row and each stretch put in its place: shard s
+at ``s * stride`` of the bucket, and of a wire payload's scales), and rank
+0 writes exactly the files a stacked run of the same plan writes; the
+ranks return after it has written. Rank 0 holds the stacked state while
+it writes, as a stacked run does. ``restore_state`` reads the file one
+leaf at a time, and of each leaf only the rank's replica row (a seek into
+the npy): a ``PackedParams`` packs just the rank's pieces of that row
+(``BucketLayout.pack(shard=...)``), a wire ring's payload keeps just the
+shard's chunk, and no tensor of the stacked state is made. The buckets of
+a ``PackedParams`` and of a wire ring's slots are stretches; the leaves of
+a per-leaf tree and the ring's ``valid`` are rows.
+
 The inbox ring (``{"slots", "valid", "t"}``) adapts on restore as the
 reference's does: a shallower checkpoint is mask-padded (the new back slots
 copy the newest payload and start invalid), a deeper one is truncated to
@@ -48,8 +63,10 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
-from repro_torch.core.buckets import PackedParams, dtype_name, torch_dtype
+from repro_torch.core.buckets import (PackedParams, as_bits, dtype_name,
+                                      torch_dtype)
 from repro_torch.tree import keystr, tree_map
 
 __all__ = ["save_state", "restore_state", "checkpoint_exists",
@@ -127,11 +144,69 @@ def read_manifest(path: str) -> Dict:
         return json.load(f)
 
 
+def _map_rank(node, fn, stretch: bool = False):
+    """``node`` with ``fn(x, stretch)`` applied to every tensor and array
+    in a fixed order (ints kept): ``stretch`` is True for the buckets of a
+    ``PackedParams`` and the per-bucket payloads of a wire ring's slot."""
+    if node is None or _is_int(node):
+        return node
+    if isinstance(node, PackedParams):
+        return PackedParams([fn(b, True) for b in node.buckets], node.layout)
+    if _is_ring(node):
+        return {"slots": tuple(_map_rank(sl, fn, isinstance(sl, list))
+                               for sl in node["slots"]),
+                "valid": fn(node["valid"], False), "t": node["t"]}
+    if isinstance(node, dict):
+        return {k: _map_rank(node[k], fn, stretch) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_rank(v, fn, stretch) for v in node)
+    return fn(node, stretch)
+
+
+def _gathered(state, group):
+    """The stacked state on rank 0's host from every rank's part (None on
+    the other ranks): per tensor one ``gather`` to rank 0 over the world
+    (from the host under gloo, whose gather takes no CUDA tensor), then
+    replica q's row is the parts of ``group.mesh_ranks[q]`` in shard order
+    (a row's own tensor where it is not a stretch)."""
+    def gather(x, stretch):
+        arr = isinstance(x, np.ndarray)
+        t = torch.from_numpy(np.ascontiguousarray(x)) if arr else x.detach()
+        t = t.cpu() if group.backend == "gloo" else t.to(group.device)
+        bits = as_bits(t)
+        parts = ([torch.empty_like(bits) for _ in range(group.world_size)]
+                 if group.rank == 0 else None)
+        tdist.gather(bits, parts, dst=0)
+        if group.rank != 0:
+            return None
+        parts = [p.view(t.dtype).reshape(t.shape).cpu() for p in parts]
+        out = torch.cat([torch.cat([parts[r] for r in
+                                    (ranks if stretch else ranks[:1])], -1)
+                         for ranks in group.mesh_ranks], dim=0)
+        return out.numpy() if arr else out
+
+    return _map_rank(state, gather)
+
+
 def save_state(path: str, state, metadata: Optional[Dict] = None,
-               step: Optional[int] = None) -> None:
+               step: Optional[int] = None, group=None) -> None:
     """Write ``state`` under ``path``. The arrays stream into the npz one at
     a time (``np.savez``'s zip64 layout), so the host holds the pulled
-    state and one staged leaf, never a staged copy of all of it."""
+    state and one staged leaf, never a staged copy of all of it. Under a
+    replica ``group`` every rank calls it: rank 0 writes the stacked state
+    of all ranks, and every rank returns once the files are written."""
+    if group is not None:
+        with torch.no_grad():
+            full = _gathered(state, group)
+        if group.rank == 0:
+            _write(path, full, metadata, step)
+        tdist.barrier()
+        return
+    _write(path, state, metadata, step)
+
+
+def _write(path: str, state, metadata: Optional[Dict],
+           step: Optional[int]) -> None:
     os.makedirs(path, exist_ok=True)
     with torch.no_grad():
         keyed = {keystr(p): leaf for p, leaf in _leaves(_host(state), ())}
@@ -151,11 +226,34 @@ def save_state(path: str, state, metadata: Optional[Dict] = None,
         json.dump(manifest, f, indent=1)
 
 
-def _specs(node, path: Tuple) -> Dict[str, Tuple[int, ...]]:
-    """Key -> shape of every leaf ``node`` restores."""
+def _specs(node, path: Tuple, lift, stretch: bool = False
+           ) -> Dict[str, Tuple[int, ...]]:
+    """Key -> the file's shape of every leaf ``node`` restores: a
+    ``PackedParams``'s leaves from its layout (nothing unpacked), every
+    shape through ``lift(shape, stretch)`` (a rank's to the stacked
+    one's)."""
+    if node is None:
+        return {}
+    if isinstance(node, PackedParams):
+        lead, lay = tuple(node.buckets[0].shape[:-1]), node.layout
+        return {keystr(path + sub): lift(lead + shp, False) for sub, shp in
+                zip(lay.treedef.paths(), lay.leaf_shapes)}
     out = {}
-    for p, leaf in _leaves(node, path):
-        out[keystr(p)] = () if _is_int(leaf) else tuple(leaf.shape)
+    if _is_ring(node):
+        for i, sl in enumerate(node["slots"]):
+            out.update(_specs(sl, path + ("slots", i), lift,
+                              isinstance(sl, list)))
+        out.update(_specs(node["valid"], path + ("valid",), lift))
+        out.update(_specs(node["t"], path + ("t",), lift))
+    elif isinstance(node, dict):
+        for k in sorted(node):
+            out.update(_specs(node[k], path + (k,), lift, stretch))
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            out.update(_specs(v, path + (i,), lift, stretch))
+    else:
+        out[keystr(path)] = (() if _is_int(node)
+                             else lift(tuple(np.shape(node)), stretch))
     return out
 
 
@@ -163,8 +261,10 @@ def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(dtype).to(device)
 
 
-def _fill(node, path: Tuple, read: Callable[[str], np.ndarray]):
-    """A fresh copy of the template ``node`` holding the file's values."""
+def _fill(node, path: Tuple, read: Callable[..., np.ndarray],
+          stretch: bool = False):
+    """A fresh copy of the template ``node`` holding the file's values;
+    ``read(key, n)`` gives a leaf (with ``n``, a stretch ``n`` long)."""
     if node is None:
         return None
     if isinstance(node, PackedParams):
@@ -172,22 +272,50 @@ def _fill(node, path: Tuple, read: Callable[[str], np.ndarray]):
         leaves = [_tensor(read(keystr(path + sub)), torch_dtype(dt), "cpu")
                   for sub, dt in zip(lay.treedef.paths(), lay.leaf_dtypes)]
         buckets = lay.pack(lay.treedef.unflatten(leaves),
-                           lead=tuple(ref.shape[:-1]), device=ref.device)
+                           lead=tuple(ref.shape[:-1]), device=ref.device,
+                           shard=node.shard)
         for b, t in zip(buckets, node.buckets):
             b.requires_grad_(t.requires_grad)
-        return PackedParams(buckets, lay)
+        return PackedParams(buckets, lay, node.group)
+    if _is_ring(node):
+        return {"slots": tuple(_fill(sl, path + ("slots", i), read,
+                                     isinstance(sl, list))
+                               for i, sl in enumerate(node["slots"])),
+                "valid": _fill(node["valid"], path + ("valid",), read),
+                "t": _fill(node["t"], path + ("t",), read)}
     if isinstance(node, dict):
-        return {k: _fill(v, path + (k,), read) for k, v in node.items()}
+        return {k: _fill(v, path + (k,), read, stretch)
+                for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_fill(v, path + (i,), read)
+        return type(node)(_fill(v, path + (i,), read, stretch)
                           for i, v in enumerate(node))
-    arr = read(keystr(path))
+    if _is_int(node):
+        return int(read(keystr(path)))
+    arr = read(keystr(path), node.shape[-1] if stretch else None)
     if isinstance(node, torch.Tensor):
         return _tensor(arr, node.dtype, node.device).requires_grad_(
             node.requires_grad)
-    if _is_int(node):
-        return int(arr)
     return np.array(arr, dtype=np.asarray(node).dtype)
+
+
+def _read_member(zf: zipfile.ZipFile, name: str, row: Optional[int]
+                 ) -> np.ndarray:
+    """The array of npz member ``name``, or with ``row`` only that row
+    (``(1, ...)``, its bytes alone read: a seek past the rows before it).
+    A 0-d array is read whole."""
+    with zf.open(name + ".npy") as f:
+        version = np.lib.format.read_magic(f)
+        read_header = (np.lib.format.read_array_header_1_0 if version ==
+                       (1, 0) else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read_header(f)
+        if row is None or not shape or fortran:
+            f.seek(0)
+            arr = np.lib.format.read_array(f, allow_pickle=False)
+            return arr if row is None or not shape else arr[row:row + 1]
+        size = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+        f.seek(f.tell() + row * size)
+        buf = bytearray(f.read(size))
+    return np.frombuffer(buf, dtype).reshape((1,) + tuple(shape[1:]))
 
 
 def _ckpt_ring_depth(names) -> Optional[Tuple[int, bool]]:
@@ -232,15 +360,31 @@ def _adapt_ring(ring: Dict, k_t: int) -> Dict:
     return {"slots": tuple(slots), "valid": valid, "t": ring["t"]}
 
 
-def restore_state(path: str, template) -> Tuple[Any, Dict]:
+def restore_state(path: str, template, group=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``template`` (keys and shapes
     checked, dtypes and devices the template's). Returns (state,
-    manifest)."""
+    manifest). Under a replica ``group`` the template is the rank's state
+    and the file a stacked one: of every leaf the rank reads its replica's
+    row, and of a stretch its shard's chunk; a ring reset to another
+    wire's bootstrap keeps the template's own."""
     with torch.no_grad():
-        return _restore(path, template)
+        return _restore(path, template, group)
 
 
-def _restore(path: str, template) -> Tuple[Any, Dict]:
+def _stacked_shape(group):
+    """``lift`` for ``_specs``: a rank's shape to its stacked counterpart
+    (dp rows; a stretch ``num_shards`` times as long), or as it is."""
+    def lift(shape, stretch):
+        if group is None:
+            return shape
+        shape = (group.dp,) + shape[1:]
+        if stretch:
+            shape = shape[:-1] + (shape[-1] * group.num_shards,)
+        return shape
+    return lift
+
+
+def _restore(path: str, template, group=None) -> Tuple[Any, Dict]:
     manifest = read_manifest(path)
     names = manifest["keys"]
     shapes = {k: tuple(v) for k, v in manifest["shapes"].items()}
@@ -263,7 +407,7 @@ def _restore(path: str, template) -> Tuple[Any, Dict]:
                 "valid": np.zeros((dp, k_c), np.float32),
                 "t": ring_t["t"]})
             ring_adapt = (k_t, False, dp)
-    want = _specs(tpl, ())
+    want = _specs(tpl, (), _stacked_shape(group))
     ring_reset = False
     if set(want) != set(names):
         rest = {k for k in want if not k.startswith("['inbox']")}
@@ -283,8 +427,15 @@ def _restore(path: str, template) -> Tuple[Any, Dict]:
             raise ValueError(f"shape mismatch at {k}: {shapes[k]} vs {shp}")
 
     index = {k: f"a{i}" for i, k in enumerate(names)}
-    with np.load(os.path.join(path, "arrays.npz")) as data:
-        restored = _fill(tpl, (), lambda k: data[index[k]])
+    row = group.replica if group is not None else None
+    with zipfile.ZipFile(os.path.join(path, "arrays.npz")) as zf:
+        def read(key, n=None):
+            arr = _read_member(zf, index[key], row)
+            if n is None or group is None:
+                return arr
+            return np.ascontiguousarray(
+                arr[..., group.shard * n:(group.shard + 1) * n])
+        restored = _fill(tpl, (), read)
     if ring_adapt is not None:
         k_t, legacy, dp = ring_adapt
         ring = restored["inbox"]

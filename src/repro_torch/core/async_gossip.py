@@ -7,7 +7,9 @@ Port of ``repro/core/async_gossip.py`` (``exchange_ok``,
 ``make_packed_fused_async_update``) on replicas stacked on one device, or
 one per process of a ``core.replica_group.ReplicaGroup``, passed as
 ``group`` when an engine is built (the exchange and the drop flags then
-run per rank, and ``valid`` has one row). The ring
+run per replica index, and ``valid`` has one row; under a plan that shards
+inside a replica the ring lives on the rank's stretches, which the fused
+sweep dispatches one by one, each just before its sweep). The ring
 entering step t (k = staleness):
 
     slots[0..k-1]   payloads dispatched at steps t-k .. t-1, oldest first:

@@ -33,6 +33,22 @@ each leaf from its pieces (one ``split`` per bucket, then a ``cat`` of a
 block's chunks and a nested ``cat`` of the blocks along each sharded dim),
 a copy whose backward scatters the leaf's gradient back into the packed
 bucket gradient.
+
+**One process per mesh position** (a ``core.replica_group.ReplicaGroup``
+with shards): a rank's ``PackedParams`` holds only its own stretch of
+every bucket, ``(1, stride)``, the chunk at ``shard * stride`` of the
+stacked ``(dp, num_shards * stride)`` bucket (``pack(shard=...)``,
+``pack_into(shard=...)`` write the shard's pieces at their in-stretch
+offsets). ``unpack(group=...)`` all-gathers the replica's stretches over
+the in-replica group (transported as raw bits, in shard order), then
+assembles the leaves as above; its backward runs the assembly's transpose
+and then a reduce-scatter over the batch group, written as
+``all_to_all`` plus an fp32 sum in batch order from zero, rounded once to
+the bucket dtype (gloo has no CUDA reduce-scatter, and the fixed order
+keeps the sum deterministic). The ranks of a batch group compute the same
+leaves on different rows of their replica's batch, so the sum is the
+replica's gradient; elsewhere (replica mode) the group is the rank alone
+and its chunk is kept as it is.
 """
 from __future__ import annotations
 
@@ -43,13 +59,14 @@ from typing import Any, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch.mesh_spec import PartitionSpec as P
 from repro_torch.tree import TreeDef, tree_flatten
 
 __all__ = ["LANE", "DEFAULT_BUCKET_BYTES", "LeafSlot", "BucketLayout",
            "PackedParams", "build_layout", "packed_param_specs",
-           "check_layout_mesh", "dtype_name", "torch_dtype"]
+           "check_layout_mesh", "dtype_name", "torch_dtype", "as_bits"]
 
 LANE = 128                       # alignment quantum (the reference's lane)
 DEFAULT_BUCKET_BYTES = 32 << 20  # ~32 MiB buckets
@@ -147,12 +164,14 @@ class BucketLayout:
         return tuple(self.slots[g[0]].dtype for g in self.by_leaf)
 
     def pack(self, tree, *, lead: Tuple[int, ...] | None = None,
-             device=None) -> Tuple[torch.Tensor, ...]:
+             device=None, shard: int | None = None
+             ) -> Tuple[torch.Tensor, ...]:
         """Pack ``tree`` (torch tensors with per-replica shapes, optionally
         under shared leading axes) into fresh zero-padded bucket tensors.
         ``lead`` gives the buckets' leading axes; leaves without them are
-        broadcast (every replica gets the same values). An init-time cost,
-        never per step."""
+        broadcast (every replica gets the same values). With ``shard`` the
+        buckets are that shard's stretches (``strides`` long). An
+        init-time cost, never per step."""
         leaves = self.treedef.flatten_up_to(tree)
         found = None
         for i, want in enumerate(self.leaf_shapes):
@@ -169,17 +188,27 @@ class BucketLayout:
         lead = tuple(lead) if lead is not None else (found or ())
         if device is None:
             device = leaves[0].device
+        sizes = self.bucket_sizes if shard is None else self.strides
         buckets = tuple(torch.zeros(lead + (n,), dtype=torch_dtype(dt),
                                     device=device)
-                        for n, dt in zip(self.bucket_sizes, self.bucket_dtypes))
-        self.pack_into(buckets, tree)
+                        for n, dt in zip(sizes, self.bucket_dtypes))
+        self.pack_into(buckets, tree, shard=shard)
         return buckets
 
-    def pack_into(self, buckets: Sequence[torch.Tensor], tree) -> None:
+    def pack_into(self, buckets: Sequence[torch.Tensor], tree, *,
+                  shard: int | None = None) -> None:
         """Write every leaf of ``tree`` into its pieces of the existing
-        ``buckets``, in place (padding untouched)."""
+        ``buckets``, in place (padding untouched). With ``shard`` the
+        buckets are that shard's stretches and only its pieces are
+        written."""
         leaves = self.treedef.flatten_up_to(tree)
         with torch.no_grad():
+            if shard is not None:
+                for s in self.slots:
+                    if s.shard == shard:
+                        self._write_piece(buckets[s.bucket], leaves[s.index],
+                                          s)
+                return
             for b, table in enumerate(self.block_table):
                 for idx, blocks in table:
                     for block in blocks:
@@ -215,6 +244,15 @@ class BucketLayout:
     def _piece(self, bucket: torch.Tensor, slot: LeafSlot) -> torch.Tensor:
         start = self.global_offset(slot)
         return bucket[..., start:start + slot.size]
+
+    def _write_piece(self, stretch, leaf, slot: LeafSlot) -> None:
+        """Copy ``slot``'s piece of ``leaf`` into its shard's stretch, at
+        the slot's in-stretch offset."""
+        src = self._block_of(leaf, slot)
+        flat = src.reshape(tuple(src.shape[:src.dim() - len(slot.shape)])
+                           + (-1,))
+        stretch[..., slot.offset:slot.offset + slot.size].copy_(
+            flat[..., slot.chunk_start:slot.chunk_start + slot.size])
 
     def _write_block(self, bucket, leaf, block) -> None:
         """Copy one block of ``leaf`` into its pieces of ``bucket``."""
@@ -285,19 +323,25 @@ class BucketLayout:
                                           len(slots))
         return self._row_slot_tables[key]
 
-    def unpack(self, buckets: Sequence[torch.Tensor]):
+    def unpack(self, buckets: Sequence[torch.Tensor], group=None):
         """The leaf tree of ``buckets``. A flat layout's leaves are views of
         the buckets (one ``split`` per bucket, so backward assembles each
         bucket's gradient in one concatenation); a shard-local layout's are
         assembled copies (``_Assemble``, one per bucket, whose backward
         copies each leaf's gradient into one packed bucket gradient), so
-        writing into them does not reach the buckets."""
+        writing into them does not reach the buckets. Under a replica
+        ``group`` the buckets are this rank's stretches: a shard-local
+        layout's are first all-gathered over the replica
+        (``_GatherStretch``, whose backward reduce-scatters the
+        gradient)."""
         if len(buckets) != self.num_buckets:
             raise ValueError(f"{len(buckets)} buckets given, layout has "
                              f"{self.num_buckets}")
         leaves = [None] * self.num_leaves
         if self.hierarchical:
             for b, bucket in enumerate(buckets):
+                if group is not None:
+                    bucket = _GatherStretch.apply(bucket, group)
                 outs = _Assemble.apply(bucket, self, b)
                 for (idx, _), out in zip(self.block_table[b], outs):
                     leaves[idx] = out
@@ -347,6 +391,65 @@ class _Assemble(torch.autograd.Function):
                 else:
                     layout._write_block(gb, g, block)
         return gb, None, None
+
+
+def as_bits(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bytes, ``uint8`` along its last dim (``element_size``
+    bytes an element, a 0-d ``x`` taken as one element): collectives move
+    the bits whatever the dtype (gloo's CUDA collectives take no int16,
+    and a gather needs no arithmetic). ``.view(x.dtype)`` of a gathered
+    piece is ``x``'s counterpart."""
+    return x.contiguous().reshape(tuple(x.shape) or (1,)).view(torch.uint8)
+
+
+def _reduce_scatter_stretch(full: torch.Tensor, group) -> torch.Tensor:
+    """This rank's stretch of the sum of ``full`` (a ``(1, num_shards *
+    stride)`` bucket gradient) over its batch group: an ``all_to_all`` of
+    each member's chunk of every member's gradient, then the fp32 sum in
+    batch order from zero, rounded once to the bucket dtype. Without a
+    batch group the rank's own chunk."""
+    stride = full.shape[-1] // group.num_shards
+    mine = full[..., group.shard * stride:(group.shard + 1) * stride]
+    if group.batch is None:
+        return mine.clone()
+    chunks = [group.inner_ranks.index(r) for r in group.batch_ranks]
+    send = torch.cat([full[..., s * stride:(s + 1) * stride]
+                      for s in chunks], dim=-1)
+    recv = torch.empty_like(as_bits(send))
+    tdist.all_to_all_single(recv.view(-1), as_bits(send).view(-1),
+                            group=group.batch)
+    pieces = recv.view(full.dtype).reshape(tuple(full.shape[:-1])
+                                           + (group.batch_shards, stride))
+    acc = torch.zeros(mine.shape, dtype=torch.float32, device=full.device)
+    for b in range(group.batch_shards):
+        acc = acc + pieces[..., b, :].float()
+    return acc.to(full.dtype)
+
+
+def _gather_stretches(stretch: torch.Tensor, group) -> torch.Tensor:
+    """The replica's whole ``(1, num_shards * stride)`` bucket from its
+    ranks' stretches: ``all_gather`` over the in-replica group, in shard
+    order."""
+    bits = as_bits(stretch)
+    parts = [torch.empty_like(bits) for _ in range(group.num_shards)]
+    tdist.all_gather(parts, bits, group=group.inner)
+    return torch.cat(parts, dim=-1).view(stretch.dtype)
+
+
+class _GatherStretch(torch.autograd.Function):
+    """Forward: the replica's whole bucket from this rank's stretch
+    (``_gather_stretches``); backward: the rank's stretch of the gradient
+    summed over its batch group (``_reduce_scatter_stretch``)."""
+
+    @staticmethod
+    def forward(ctx, stretch, group):
+        ctx.group = group
+        return _gather_stretches(stretch, group)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return _reduce_scatter_stretch(grad, ctx.group), None
 
 
 def _leaf_pieces(shape: Tuple[int, ...], spec, shard_axes: Tuple[str, ...],
@@ -502,22 +605,45 @@ class PackedParams:
     slot reads the same whether it is a ``PackedParams`` (the fp32
     full-participation wire) or a list of wire payloads."""
 
-    __slots__ = ("buckets", "layout")
+    __slots__ = ("buckets", "layout", "group")
 
-    def __init__(self, buckets: Sequence[torch.Tensor], layout: BucketLayout):
+    def __init__(self, buckets: Sequence[torch.Tensor], layout: BucketLayout,
+                 group=None):
         self.buckets = list(buckets)
         self.layout = layout
+        self.group = group   # a rank's ReplicaGroup: the buckets are its
+                             # stretches (whole without shards)
 
     @classmethod
     def pack(cls, tree, layout: BucketLayout | None = None, *,
              skip_leading: int = 0, lead: Tuple[int, ...] | None = None,
-             device=None) -> "PackedParams":
+             device=None, group=None) -> "PackedParams":
+        """Pack ``tree``; under a replica ``group`` into this rank's
+        stretches."""
         if layout is None:
             layout = build_layout(tree, skip_leading=skip_leading)
-        return cls(layout.pack(tree, lead=lead, device=device), layout)
+        shard = group.shard if group is not None else None
+        return cls(layout.pack(tree, lead=lead, device=device, shard=shard),
+                   layout, group)
+
+    @property
+    def shard(self) -> int | None:
+        """The shard whose stretches the buckets are (None: whole
+        buckets)."""
+        return self.group.shard if self.group is not None else None
 
     def unpack(self) -> Any:
-        return self.layout.unpack(self.buckets)
+        return self.layout.unpack(self.buckets, self.group)
+
+    def pack_into(self, tree) -> None:
+        """Write ``tree``'s leaves into the buckets in place (this rank's
+        pieces only, under a group)."""
+        self.layout.pack_into(self.buckets, tree, shard=self.shard)
+
+    def like(self, buckets: Sequence[torch.Tensor]) -> "PackedParams":
+        """Other buckets of the same layout and group (a gradient, a
+        moment)."""
+        return PackedParams(buckets, self.layout, self.group)
 
     def __getitem__(self, i: int) -> torch.Tensor:
         return self.buckets[i]

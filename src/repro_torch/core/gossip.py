@@ -37,7 +37,11 @@ unchanged: shard s of a bucket is the row's stretch ``[s * stride, (s + 1)
 * stride)``, and the wire encodes the whole row keyed by the global element
 index, which is what the reference's per-shard encode at ``base_index = s *
 stride`` computes (``stride`` is a LANE multiple, so no scale tile crosses
-a shard).
+a shard). Under a sharded replica group a rank holds just that stretch:
+the engines sweep it, ``encode_bucket`` keys its noise at the global
+offset ``shard * stride`` (the reference's ``_wire_base_index``), and the
+exchange and the replica mean run over the cross-replica group, between
+the ranks that hold the same stretch of their replicas.
 
 Both engines run one path for every ``wire`` (``kernels.quantize.
 WireFormat``): each bucket of the step's rotating subset is encoded on the
@@ -64,14 +68,15 @@ from repro_torch.kernels.quantize import (WireFormat, encode_wire, wire_itemsize
                                           wire_key)
 from repro_torch.tree import tree_flatten
 
-from .buckets import LANE, BucketLayout, PackedParams, check_layout_mesh
+from .buckets import (LANE, BucketLayout, PackedParams, as_bits,
+                      check_layout_mesh)
 from .replica_group import ReplicaGroup
 from .topology import (BucketSubsetSchedule, GossipSchedule,
                        build_subset_schedule)
 
 __all__ = ["exchange", "replica_mean", "replica_ranks", "replica_count",
-           "local_rows", "wire_subset_of", "wire_period",
-           "encode_bucket", "linear_pairs", "make_gossip_mix",
+           "local_rows", "gather_rows", "group_mean", "wire_subset_of",
+           "wire_period", "encode_bucket", "linear_pairs", "make_gossip_mix",
            "make_packed_gossip_mix", "packed_fused_local_update",
            "make_packed_fused_update", "gossip_bytes_per_step",
            "wire_bytes_per_step", "sent_bytes_at"]
@@ -80,23 +85,23 @@ __all__ = ["exchange", "replica_mean", "replica_ranks", "replica_count",
 def replica_ranks(rows: int, group: Optional[ReplicaGroup] = None
                   ) -> np.ndarray:
     """The replica ranks of a tensor's ``rows`` leading rows: all of them
-    when stacked, this process's rank under a replica group."""
+    when stacked, this process's replica index under a replica group."""
     return np.arange(rows) if group is None else group.ranks()
 
 
 def replica_count(rows: int, group: Optional[ReplicaGroup] = None) -> int:
     """The number of replicas when this process holds ``rows`` of them."""
-    return rows if group is None else group.world_size * rows
+    return rows if group is None else group.dp * rows
 
 
 def local_rows(dp: int, group: Optional[ReplicaGroup] = None) -> int:
     """The replica rows this process holds of ``dp`` replicas: dp when
-    stacked, one under a replica group of dp ranks."""
+    stacked, one under a replica group of dp replicas."""
     if group is None:
         return dp
-    if group.world_size != dp:
+    if group.dp != dp:
         raise ValueError(f"dp={dp} replicas but the replica group has "
-                         f"{group.world_size} ranks")
+                         f"{group.dp}")
     return 1
 
 
@@ -105,24 +110,28 @@ def _tensors(x) -> list:
 
 
 def _exchange_ranks(x, recv_from, group):
-    """``exchange`` between processes: this rank sends its tensors to every
-    rank j with ``recv_from[j] == rank`` and receives from
-    ``recv_from[rank]``, all in one batch of point-to-point operations."""
+    """``exchange`` between processes: this replica sends its tensors to
+    every replica j with ``recv_from[j] == replica`` and receives from
+    ``recv_from[replica]``, all in one batch of point-to-point operations
+    over the cross-replica group (peers named by their global ranks)."""
     rf = np.asarray(recv_from.cpu() if isinstance(recv_from, torch.Tensor)
                     else recv_from).reshape(-1)
-    if rf.shape[0] != group.world_size:
-        raise ValueError(f"recv_from has {rf.shape[0]} entries for a world "
-                         f"of {group.world_size}")
-    me, src = group.rank, int(rf[group.rank])
+    if rf.shape[0] != group.dp:
+        raise ValueError(f"recv_from has {rf.shape[0]} entries for "
+                         f"{group.dp} replicas")
+    me, src = group.replica, int(rf[group.replica])
     dsts = [int(j) for j in np.nonzero(rf == me)[0] if j != me]
+    peer = group.cross_ranks
     ins = _tensors(x)
     outs = [t.clone() if src == me else torch.empty_like(t) for t in ins]
     ops = []
     for tag, (t, o) in enumerate(zip(ins, outs)):
         t = t.contiguous()
-        ops += [dist.P2POp(dist.isend, t, d, tag=tag) for d in dsts]
+        ops += [dist.P2POp(dist.isend, t, peer[d], group=group.cross,
+                           tag=tag) for d in dsts]
         if src != me:
-            ops.append(dist.P2POp(dist.irecv, o, src, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, o, peer[src],
+                                  group=group.cross, tag=tag))
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
@@ -153,18 +162,38 @@ def replica_mean(x: torch.Tensor,
     rank order from a zero, times the fp32 reciprocal of the replica count
     (a 0-d device tensor, so the product is the same bits on the CPU and
     the card), rounded once. Under a replica group the rows come from an
-    ``all_gather`` and are summed in the same order."""
-    if group is None:
-        rows = x.unbind(0)
-    else:
-        gathered = [torch.empty_like(x) for _ in range(group.world_size)]
-        dist.all_gather(gathered, x.contiguous())
-        rows = [r for g in gathered for r in g.unbind(0)]
+    ``all_gather`` over the cross-replica group and are summed in the same
+    (replica) order."""
+    if group is not None:
+        return group_mean(x, group.cross, group.dp)
+    rows = x.unbind(0)
     acc = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
     for r in rows:
         acc = acc + r.float()
     recip = device_scalar(np.float32(1) / np.float32(len(rows)), x)
     return (acc * recip).to(x.dtype).expand_as(x)
+
+
+def gather_rows(x: torch.Tensor, pg, n: int) -> list:
+    """``x`` of every member of the process group ``pg`` (``n`` members,
+    None: the default group), in group order, moved as raw bits."""
+    bits = as_bits(x)
+    parts = [torch.empty_like(bits) for _ in range(n)]
+    dist.all_gather(parts, bits, group=pg)
+    return [p.view(x.dtype).reshape(x.shape) for p in parts]
+
+
+def group_mean(x: torch.Tensor, pg, n: int) -> torch.Tensor:
+    """The mean of ``x`` over the ``n`` members of ``pg``: the fp32 sum in
+    member order from zero, times the fp32 reciprocal of ``n``, rounded
+    once (``x`` itself for one member)."""
+    if n <= 1:
+        return x
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for r in gather_rows(x, pg, n):
+        acc = acc + r.float()
+    recip = device_scalar(np.float32(1) / np.float32(n), x)
+    return (acc * recip).to(x.dtype)
 
 
 def wire_subset_of(wire: WireFormat,
@@ -187,11 +216,14 @@ def wire_period(schedule: GossipSchedule | None,
 def encode_bucket(wire: WireFormat, bucket: torch.Tensor, t: int,
                   bucket_index: int, group: Optional[ReplicaGroup] = None):
     """Dispatch-side encode of every replica row of one ``(dp, n)`` bucket,
-    row r keyed on (``t``, rank r, bucket, seed)."""
+    row r keyed on (``t``, replica r, bucket, seed). A sharded group's
+    bucket is its stretch, whose noise is keyed by the global element
+    index from ``shard * stride`` (``stride`` = the stretch's length)."""
     keys = (wire_key(t, replica_ranks(bucket.shape[0], group), bucket_index,
                      wire.seed)
             if wire.dtype == "int8" else None)
-    return encode_wire(bucket, wire.dtype, keys=keys)
+    base = group.shard * int(bucket.shape[-1]) if group is not None else 0
+    return encode_wire(bucket, wire.dtype, keys=keys, base_index=base)
 
 
 def send_masks(subset: BucketSubsetSchedule | None, num_buckets: int,

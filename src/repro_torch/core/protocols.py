@@ -192,8 +192,9 @@ def make_ring_shuffle(p: int, group: Optional[ReplicaGroup] = None
     """``shuffle(batch) -> batch`` rotating every replica's shard one ring
     position over ``p`` replicas (§4.5.2): replica j receives replica j-1's
     shard, the reference's ppermute with pairs (i, i+1), as one
-    ``exchange`` over the ring topology's row (a send to rank + 1 under a
-    replica group)."""
+    ``exchange`` over the ring topology's row (under a replica group a
+    send of the rank's rows to the next replica at the same shard
+    position)."""
     recv = _RecvTables(build_schedule(p, topology="ring", num_rotations=1),
                        group)
     return lambda batch: tree_map(

@@ -26,10 +26,14 @@ the peak and time are measured.
 Per chip, a train record traces the fewest replicas that run the exchange
 (2, stacked; 1 when the plan has dp 1) at the plan's local batch
 ``global_batch / dp``, divides by the traced replicas for one replica, then
-by the in-replica shard count ``chips / dp`` for one chip. A serve record
-traces the global batch and divides by ``chips``. That even split inside a
-replica is a model until in-pod FSDP is ported (ROADMAP A.12b), as are the
-exchange's bytes (``roofline.exchange_bytes``).
+by the in-replica shard count ``chips / dp`` for one chip. That even split
+of the arithmetic is a model: the port's ranks of one replica each run the
+whole forward on their rows (no tensor parallelism over ``model``, ROADMAP
+B). The collectives are the bytes the rank path moves
+(``roofline.exchange_bytes``): the exchange between replicas, and in-pod
+FSDP's all-gather and reduce-scatter inside one. A serve record traces the
+global batch and divides by ``chips``, an even split likewise (serving over
+a process mesh is ROADMAP A.12e).
 
 Usage::
 
@@ -56,7 +60,7 @@ import torch
 from repro_torch.configs import SHAPES, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.launch.counting import CountingMode, Counts
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh, mesh_tables
 from repro_torch.launch.roofline import H100, exchange_bytes, roofline_terms
 from repro_torch.launch.specs import (active_param_count, meta_params,
                                       param_count, resolve_config,
@@ -280,20 +284,21 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
         div = rows * shards
         notes["per_chip"] = (f"traced {rows} replica(s) of {local_b} x "
                              f"{seq_len}; / {rows} replicas / {shards} "
-                             "in-replica shards (an even split: a model "
-                             "until ROADMAP A.12b)")
+                             "in-replica shards (an even split of the "
+                             "arithmetic: a model)")
         rb = _replica_bytes(cfg)
         coll = exchange_bytes(protocol, dp, shards, rb, rb,
                               _batch_bytes_per_chip(dist,
-                                                    tr.input_bytes / rows))
+                                                    tr.input_bytes / rows),
+                              batch_shards=mesh_tables(dist).batch_shards)
         rec["tokens_per_step"] = global_batch * seq_len
         model_flops = 6.0 * rec["active_params"] * rec["tokens_per_step"]
     else:
         tr = trace_serve(cfg, kind, seq_len, global_batch, "meta", dist=dist)
         div = chips
         notes["per_chip"] = (f"traced the global batch {global_batch}; / "
-                             f"{chips} chips (an even split: a model until "
-                             "ROADMAP A.12b)")
+                             f"{chips} chips (an even split: a model; "
+                             "serving over ranks is ROADMAP A.12e)")
         coll = exchange_bytes(None, dp, chips, 0, 0, 0)
         rec["tokens_per_step"] = (global_batch if kind == "decode"
                                   else global_batch * seq_len)
@@ -307,7 +312,9 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
                             "bytes accessed": c["op_bytes"]}
     rec["collectives"] = coll
     rec["roofline"] = roofline_terms(c["flops"], c["op_bytes"],
-                                     coll["wire_bytes"])
+                                     coll["net_bytes"],
+                                     nvlink_bytes_per_chip=coll[
+                                         "nvlink_bytes"])
     rec["n_ops"] = tr.counts.n_ops
     rec["top_ops"] = tr.counts.as_dict(16)["top_ops"]
     rec["model_flops"] = model_flops

@@ -1,4 +1,4 @@
-"""The production and smoke meshes, and one process per replica rank over
+"""The production and smoke meshes, and one process per mesh position over
 ``torch.distributed``.
 
 Port of ``repro/launch/mesh.py`` (``make_production_mesh``,
@@ -9,27 +9,39 @@ devices), which ``train.sharding.make_distribution`` turns into the
 distribution plan; on one device its replicas are stacked and its
 in-replica axes pick the shard-local bucket layout.
 
-The reference runs its replicas as the devices of one mesh and exchanges with
-``ppermute`` inside ``shard_map``. Here a replica is a process: each holds
-one replica (a leading replica axis of size 1 on every tensor), and the
-three primitives that reach the other replicas run over the process group
-that ``init_replica_group`` joins and returns as a ``core.replica_group.
-ReplicaGroup``; the caller passes it to the engines when it builds them
-(``make_train_step_bundle(group=...)``, ``init_train_state(group=...)``):
+The reference runs one device per mesh position and exchanges with
+``ppermute`` inside ``shard_map``. Here a mesh position is a process:
+``init_replica_group`` joins the world and returns the process's
+``core.replica_group.ReplicaGroup`` (its replica, its shard and the
+subgroups that reach the others); the caller passes it to the engines when
+it builds them (``make_train_step_bundle(group=...)``,
+``init_train_state(group=...)``). Each process holds one replica row (a
+leading replica axis of size 1 on every tensor), and under a plan that
+shards inside a replica only its stretch of every bucket:
 
-* ``core.gossip.exchange``: point-to-point, a send to every rank that
-  receives from this one and a receive from ``recv_from[rank]``
-  (``dist.batch_isend_irecv``);
-* ``core.gossip.replica_mean``: ``all_gather``, then the fp32 sum in rank
-  order from zero times the fp32 reciprocal of the world size, bit-equal
-  to the stacked mean;
-* the ring shuffle: a send to rank + 1.
+* ``core.gossip.exchange``: point-to-point over the cross-replica group, a
+  send to every replica that receives from this one and a receive from
+  ``recv_from[replica]`` (``dist.batch_isend_irecv``);
+* ``core.gossip.replica_mean``: ``all_gather`` over the cross-replica
+  group, then the fp32 sum in replica order from zero times the fp32
+  reciprocal of dp, bit-equal to the stacked mean;
+* the ring shuffle: a send to the next replica at the same shard;
+* ``PackedParams.unpack``: ``all_gather`` of the replica's stretches over
+  the in-replica group, and in the backward a reduce-scatter over the
+  batch group (``core.buckets``).
 
-The backend is gloo for CPU tensors and NCCL on ``cuda:{LOCAL_RANK}``;
-NCCL takes one card per rank, so a world larger than the card count
-raises (it is never moved onto gloo, and gloo cannot send CUDA tensors).
-``init_replica_group`` reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``
-as ``torchrun`` sets them, or takes them from the caller.
+The plan (``dist=``) gives the world: every mesh position (pod x data x
+model), rank r the row-major position r; under a plan that shards nothing
+inside a replica every process is a whole replica (the world is dp). The
+backend is gloo for CPU tensors and by default NCCL on
+``cuda:{LOCAL_RANK}``; NCCL takes one card per rank, so a world larger
+than the card count raises under it (it is never moved onto gloo).
+``backend="gloo"`` with ``device="cuda"`` is only what the caller asks
+for: every rank on ``cuda:{LOCAL_RANK % device_count}``, gloo carrying
+the CUDA tensors of its collectives (it has no CUDA send or
+receive, so such a world runs dp 1). ``init_replica_group`` reads
+``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` as ``torchrun`` sets them, or
+takes them from the caller.
 """
 from __future__ import annotations
 
@@ -38,13 +50,13 @@ import os
 from typing import Optional
 
 import torch
-import torch.distributed as dist
+import torch.distributed as tdist
 
-from repro_torch.core.replica_group import ReplicaGroup
+from repro_torch.core.replica_group import ReplicaGroup, mesh_tables
 from repro_torch.mesh_spec import MeshSpec
 
 __all__ = ["ReplicaGroup", "make_production_mesh", "make_smoke_mesh", "init_replica_group",
-           "destroy_replica_group", "world_from_env"]
+           "destroy_replica_group", "world_from_env", "mesh_tables"]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
@@ -78,41 +90,92 @@ def world_from_env() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def init_replica_group(device="cuda", *, rank: Optional[int] = None,
+def init_replica_group(device="cuda", *, dist,
+                       backend: Optional[str] = None,
+                       rank: Optional[int] = None,
                        world_size: Optional[int] = None,
                        local_rank: Optional[int] = None,
                        init_method: Optional[str] = None,
                        timeout_s: float = 300.0) -> ReplicaGroup:
-    """Join the process group and return this process's replica group.
-    ``device`` "cpu" runs gloo; "cuda" runs NCCL on ``cuda:{local_rank}``.
-    Without ``init_method`` the rendezvous is ``env://`` (``MASTER_ADDR``,
-    ``MASTER_PORT``)."""
+    """Join the process group and return this process's place on the
+    process mesh. ``dist`` (a ``train.sharding.Distribution``) gives the
+    mesh: the world must be its every position, and the subgroups are made
+    here (every rank makes every one, in one order); a plan that shards
+    nothing inside a replica (``make_smoke_mesh(world, 1)``, replica
+    mode) makes every process one whole replica. ``device`` "cpu" runs
+    gloo; "cuda" runs NCCL on ``cuda:{local_rank}`` unless
+    ``backend="gloo"``. Without ``init_method`` the rendezvous is
+    ``env://`` (``MASTER_ADDR``, ``MASTER_PORT``)."""
     rank = int(os.environ["RANK"]) if rank is None else int(rank)
     world_size = world_from_env() if world_size is None else int(world_size)
     if local_rank is None:
         local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    tables = mesh_tables(dist)
+    if tables.replica.size != world_size:
+        raise ValueError(
+            f"the mesh {dict(dist.mesh.shape)} has {tables.replica.size} "
+            f"positions but the world has {world_size} processes")
     kind = torch.device(device).type
     if kind == "cuda":
         n = torch.cuda.device_count()
-        if world_size > n:
-            raise RuntimeError(
-                f"NCCL needs one card per rank: world size {world_size} but "
-                f"{n} CUDA device(s) visible")
-        dev = torch.device("cuda", local_rank)
+        backend = backend or "nccl"
+        if backend == "nccl":
+            if world_size > n:
+                raise RuntimeError(
+                    f"NCCL needs one card per rank: world size {world_size} "
+                    f"but {n} CUDA device(s) visible")
+            dev = torch.device("cuda", local_rank)
+        elif backend == "gloo":
+            dev = torch.device("cuda", local_rank % max(n, 1))
+        else:
+            raise ValueError(f"unsupported backend {backend!r}")
         torch.cuda.set_device(dev)
-        backend = "nccl"
     elif kind == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"CPU tensors take gloo, not {backend!r}")
         dev, backend = torch.device("cpu"), "gloo"
     else:
         raise ValueError(f"unsupported device {device}")
-    dist.init_process_group(backend, init_method=init_method or "env://",
-                            rank=rank, world_size=world_size,
-                            timeout=datetime.timedelta(seconds=timeout_s))
-    return ReplicaGroup(rank=rank, world_size=world_size, backend=backend,
-                        device=dev)
+    tdist.init_process_group(backend, init_method=init_method or "env://",
+                             rank=rank, world_size=world_size,
+                             timeout=datetime.timedelta(seconds=timeout_s))
+    return _mesh_group(tables, rank, backend, dev)
+
+
+def _subgroups(lists, rank: int):
+    """Make one subgroup per rank list (every rank makes all of them, in
+    one order) and return the one holding ``rank``; None when it holds
+    ``rank`` alone."""
+    mine = None
+    for ranks in lists:
+        if len(ranks) < 2:
+            continue
+        g = tdist.new_group(list(ranks))
+        if rank in ranks:
+            mine = g
+    return mine
+
+
+def _mesh_group(tables, rank: int, backend: str, dev) -> ReplicaGroup:
+    """The subgroups of a plan's mesh and this rank's ``ReplicaGroup``.
+    Every list is in rising rank order (the replica axes lead the mesh and
+    the batch axes lead the shard axes), which is the order of the
+    collectives' results."""
+    world, shards = tables.replica.size, tables.num_shards
+    cross = ([tables.cross_ranks(tables.rank_of[0, s])
+              for s in range(shards)] if shards > 1 else [])
+    inner = [tables.inner_ranks(tables.rank_of[q, 0])
+             for q in range(tables.dp)]
+    batch = sorted({tables.batch_ranks(r) for r in range(world)})
+    for ranks in cross + inner + batch:
+        assert list(ranks) == sorted(ranks), ranks
+    return tables.group(rank, backend, dev,
+                        cross=_subgroups(cross, rank) if shards > 1 else None,
+                        inner=_subgroups(inner, rank),
+                        batch=_subgroups(batch, rank))
 
 
 def destroy_replica_group() -> None:
     """Leave the process group."""
-    if dist.is_initialized():
-        dist.destroy_process_group()
+    if tdist.is_initialized():
+        tdist.destroy_process_group()

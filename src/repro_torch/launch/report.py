@@ -91,13 +91,13 @@ def lever(r: Dict) -> str:
     is_ssm = arch in ("falcon-mamba-7b", "jamba-v0.1-52b")
     if dom == "collective":
         if r["kind"] != "train":
-            return ("the A.12b in-pod FSDP: gather weights per layer group "
-                    "over NVLink inside a node")
+            return ("serving over a process mesh (ROADMAP A.12e): gather "
+                    "weights per layer group over NVLink inside a node")
         if mode == "replica":
             return ("drop the model axis where a replica fits a card "
                     "(pure_dp): gossip's O(1) exchange is already small")
-        return ("the A.12b in-pod FSDP, with its gathers overlapped with "
-                "compute")
+        return ("in-pod FSDP's gathers per layer group, overlapped with "
+                "compute (ROADMAP B)")
     if dom == "memory":
         if is_ssm and shape == "train_4k":
             return ("the hand-written `ssm_scan` on the train path (the "

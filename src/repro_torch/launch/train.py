@@ -30,11 +30,19 @@ per-leaf engine unchanged (on one device the model axis is only
 placement). ``--multi-pod`` is accepted and ignored: the reference ignores
 it on one device, where it always takes the smoke mesh.
 
-When ``WORLD_SIZE`` > 1 (``torchrun``) the DP replicas run one per
-process over ``torch.distributed`` (gloo with ``--device cpu``, NCCL on
-``cuda:LOCAL_RANK``), DP equal to the world size; only rank 0 prints. A
-plan that shards inside a replica raises ``NotImplementedError`` there
-(ROADMAP A.12b), and so does ``--checkpoint`` (ROADMAP A.1).
+When ``WORLD_SIZE`` > 1 (``torchrun``) every mesh position of
+``--smoke-mesh`` is one process over ``torch.distributed`` (gloo with
+``--device cpu``, NCCL on ``cuda:LOCAL_RANK``), ``WORLD_SIZE`` equal to
+POD x DATA x MODEL (``launch.mesh.init_replica_group(dist=...)``). Under
+``--packed`` a plan that shards inside a replica runs in-pod FSDP: each
+process holds its stretch of every bucket, the forward all-gathers the
+replica's stretches and the backward reduce-scatters the gradient; the
+gossip runs between the processes at the same shard position. Without
+``--packed`` such a plan raises ``NotImplementedError`` (ROADMAP A.12c:
+the per-leaf engines across processes). ``--checkpoint`` and
+``--resume`` work per rank: the ranks gather to rank 0, which writes the
+stacked run's files, and each restores its own row and stretch. Only rank
+0 prints.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
@@ -42,6 +50,9 @@ plan that shards inside a replica raises ``NotImplementedError`` there
         --smoke --packed --smoke-mesh 1,2,2 --steps 8 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --smoke --packed --smoke-mesh 2,2,2 --steps 8 --device cpu \
+        --checkpoint /tmp/ck
 """
 from __future__ import annotations
 
@@ -145,19 +156,16 @@ def main(argv=None) -> None:
                              model_config(args).dist_mode)
     world = world_from_env()
     if world > 1:
-        if world != dist.dp:
-            raise ValueError(f"--smoke-mesh gives {dist.dp} replicas but "
-                             f"WORLD_SIZE is {world}")
-        if dist.shard_axes:
+        if world != pod * data * model:
+            raise ValueError(f"--smoke-mesh {args.smoke_mesh} has "
+                             f"{pod * data * model} positions but WORLD_SIZE "
+                             f"is {world}")
+        if dist.shard_axes and not args.packed:
             raise NotImplementedError(
-                f"one process per rank with in-replica shards (axes "
-                f"{dist.shard_axes}) is not ported yet (ROADMAP A.12b: "
-                "in-pod FSDP on a DeviceMesh)")
-        if args.checkpoint:
-            raise NotImplementedError(
-                "checkpoints of one process per rank are not ported yet "
-                "(ROADMAP A.1)")
-        group = init_replica_group(args.device)
+                f"the per-leaf engine with in-replica shards (axes "
+                f"{dist.shard_axes}) across processes is not ported yet "
+                "(ROADMAP A.12c); pass --packed")
+        group = init_replica_group(args.device, dist=dist)
         try:
             _run(args, dist, group.device, group.rank == 0, group)
         finally:
@@ -190,10 +198,11 @@ def _run(args, dist, device, report: bool, group=None) -> None:
             raise SystemExit(
                 f"checkpoint was written by protocol {meta['protocol']!r}; "
                 f"refusing to resume it as {args.protocol!r}")
-        state, manifest = restore_state(args.checkpoint, state)
+        state, manifest = restore_state(args.checkpoint, state, group)
         start_step = int(manifest.get("step") or 0)
-        print(f"resumed {args.checkpoint} at step {start_step} "
-              f"(phase {start_step % period})")
+        if report:
+            print(f"resumed {args.checkpoint} at step {start_step} "
+                  f"(phase {start_step % period})")
     ds = ShardedTokenDataset(cfg.vocab, args.seq_len, n_shards=dp,
                              batch_per_shard=args.global_batch // dp)
     trainer = Trainer(bundle, state, ds,
@@ -220,8 +229,9 @@ def _run(args, dist, device, report: bool, group=None) -> None:
                              "gossip_subset": args.gossip_subset,
                              "wire_seed": args.wire_seed,
                              "phase": end_step % period},
-                   step=end_step)
-        print(f"checkpoint -> {args.checkpoint}")
+                   step=end_step, group=group)
+        if report:
+            print(f"checkpoint -> {args.checkpoint}")
 
 
 if __name__ == "__main__":

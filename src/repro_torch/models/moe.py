@@ -29,8 +29,10 @@ The combined output's last add runs under ``moe_combine_output()``, which
 reference names it ``checkpoint_name(y, "moe_combine")``.
 
 ``_expert_compute_manual`` (expert parallelism under ``shard_map``, ref
-``moe.py:109-166``) has no one-device counterpart; it comes with in-pod
-FSDP over a device mesh (ROADMAP A.12b).
+``moe.py:109-166``) is not ported: every process runs
+``_expert_compute_auto`` on its replica's whole expert weights, the ranks
+of one replica gathering them with the rest of its stretches (ROADMAP
+A.12d).
 """
 from __future__ import annotations
 

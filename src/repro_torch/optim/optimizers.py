@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.buckets import LANE, PackedParams
+from repro_torch.core.gossip import gather_rows
 from repro_torch.kernels.fused_update import (_adamw_math, _mix_f32,
                                               _sqrt_rn, device_scalar)
 from repro_torch.kernels.ops import (fused_adamw_bucket, fused_lars_bucket,
@@ -89,9 +90,10 @@ def _parts(x):
 
 
 def _like(params, fn):
-    """A state mirroring ``params``: ``fn`` of every bucket or leaf."""
+    """A state mirroring ``params``: ``fn`` of every bucket or leaf (a
+    rank's stretches stay its stretches)."""
     if isinstance(params, PackedParams):
-        return PackedParams([fn(b) for b in params.buckets], params.layout)
+        return params.like([fn(b) for b in params.buckets])
     return tree_map(fn, params)
 
 
@@ -261,6 +263,28 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
         return tree_flatten(x.unpack() if isinstance(x, PackedParams)
                             else x)[0]
 
+    def direction(p, g):
+        pf, gf = p.float(), g.float()
+        if weight_decay:
+            gf = gf + weight_decay * pf
+        return pf, gf
+
+    def squares(ps, gs, group):
+        """Per leaf ``(|w|^2, |g + wd w|^2)`` in fp32, ``(leaves, 2)``;
+        under a replica group summed over the replicas in replica order
+        (the stacked leaf spans them all)."""
+        sq = []
+        for p, g in zip(ps, gs):
+            pf, gf = direction(p, g)
+            sq.append(torch.stack([(pf * pf).sum(), (gf * gf).sum()]))
+        sq = torch.stack(sq)
+        if group is not None and group.dp > 1:
+            acc = torch.zeros_like(sq)
+            for part in gather_rows(sq, group.cross, group.dp):
+                acc = acc + part
+            sq = acc
+        return sq
+
     @torch.no_grad()
     def update(params, grads, state):
         """In place, leaf by leaf (on the ``unpack()`` views when packed).
@@ -269,21 +293,25 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
         the reference's unfused trainer computes it on its global arrays
         (ROADMAP C); the fused backend's prepass is per replica row. On a
         shard-local layout the leaves are assembled copies, updated and
-        then packed back into the buckets."""
+        then packed back into the buckets. A rank's packed state
+        (``PackedParams.group``) gathers its replica's leaves and adds the
+        replicas' sums of squares in replica order, so its norms span what
+        the stacked ones span; it writes back its own pieces."""
         lr = sched(state["step"])
         ps, ms = leaves(params), leaves(state["mom"])
-        for p, g, m in zip(ps, leaves(grads), ms):
-            pf, gf = p.float(), g.float()
-            if weight_decay:
-                gf = gf + weight_decay * pf
-            trust = _trust(_sqrt_rn((pf * pf).sum()),
-                           _sqrt_rn((gf * gf).sum()), **hyper)
+        gs = leaves(grads)
+        group = (params.group if isinstance(params, PackedParams)
+                 else None)
+        sq = squares(ps, gs, group)
+        for i, (p, g, m) in enumerate(zip(ps, gs, ms)):
+            pf, gf = direction(p, g)
+            trust = _trust(_sqrt_rn(sq[i, 0]), _sqrt_rn(sq[i, 1]), **hyper)
             m.copy_(momentum * m + gf * trust)
             p.copy_((pf - lr * m).to(p.dtype))
         if isinstance(params, PackedParams) and params.layout.hierarchical:
-            lay = params.layout
-            lay.pack_into(params.buckets, lay.treedef.unflatten(ps))
-            lay.pack_into(state["mom"].buckets, lay.treedef.unflatten(ms))
+            td = params.layout.treedef
+            params.pack_into(td.unflatten(ps))
+            state["mom"].pack_into(td.unflatten(ms))
         return params, {"step": state["step"] + 1, "mom": state["mom"]}
 
     def fused_update(bucket_idx, p, g, partner, moments, *, step, alpha,

@@ -1,5 +1,6 @@
-"""Protocol-neutral train step over replicas stacked on one device, or one
-per process of a ``core.replica_group.ReplicaGroup`` (``group``).
+"""Protocol-neutral train step over replicas stacked on one device, or over
+one process per mesh position (a ``core.replica_group.ReplicaGroup``,
+``group``).
 
 Port of ``repro/train/step.py`` (``make_train_step_bundle``,
 ``init_train_state``). Every tensor carries the replica axis first: the
@@ -38,9 +39,23 @@ leaf in its own stretch of every bucket. On one device the replicas stay
 stacked and whole: the layout moves bytes, not arithmetic, so the step
 computes what the flat layout computes (``unpack`` assembles each leaf).
 lars's fused backend cannot run on it (fused then defaults off, and
-asking for it raises), as in the reference. One process per rank with
-in-replica shards is not ported (ROADMAP A.12b). ``dp=`` without a plan
+asking for it raises), as in the reference. ``dp=`` without a plan
 is the flat layout over dp stacked replicas.
+
+**One process per mesh position** (``group``, a ``core.replica_group.
+ReplicaGroup`` joined with the plan): each process holds one replica row,
+and under a plan that shards inside a replica only its stretch of every
+bucket (``init_train_state`` keeps its pieces of a drawn or given tree,
+or its chunk of a ready stacked ``PackedParams``). The forward all-gathers
+the replica's stretches and the backward reduce-scatters the gradient
+(``PackedParams.unpack``); the batch rows of a replica split over the
+shard axes that are batch axes (fsdp's ``data``), so a rank's loss is
+scaled by ``1 / batch_shards`` and the summed gradient is the replica's
+mean-loss gradient. The engines, the wire, the ring and the replica means
+run over the cross-replica group on the stretches. The per-leaf engine
+under in-replica shards across processes is not ported (ROADMAP A.12c).
+The step runs under ``dist_ctx.use_distribution(dist)``, as the
+reference's does.
 
 **Fused mix+apply** (default for packed sgd, adamw and lars, never
 per-leaf): steps 3-4 are one single-sweep kernel per bucket that mixes with
@@ -64,6 +79,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import (PackedParams, build_layout, make_protocol,
@@ -71,9 +87,10 @@ from repro_torch.core import (PackedParams, build_layout, make_protocol,
 from repro_torch.core.async_gossip import (init_inbox_ring,
                                            init_wire_inbox_ring,
                                            make_packed_fused_async_update)
-from repro_torch.core.gossip import (local_rows, make_packed_fused_update,
-                                     replica_mean)
+from repro_torch.core.gossip import (group_mean, local_rows,
+                                     make_packed_fused_update, replica_mean)
 from repro_torch.device import resolve_device
+from repro_torch.dist_ctx import use_distribution
 from repro_torch.core.replica_group import ReplicaGroup
 from repro_torch.kernels.quantize import WireFormat
 from repro_torch.mesh_spec import PartitionSpec
@@ -100,7 +117,7 @@ class TrainStepBundle:
         self.fused = fused          # single-sweep fused mix+apply engine
         self.device = device
         self.wire = wire            # the protocol's WireFormat
-        self.group = group          # ReplicaGroup of one replica a process, or None
+        self.group = group          # this process's ReplicaGroup, or None
         self.dist = dist            # the Distribution it was built for, or None
 
     def step(self, state, batch, phase: int, *, rotate: bool = True):
@@ -128,9 +145,11 @@ def _stacked(tree, cfg: ModelConfig, rows: int):
 
 
 def _resolve_dp(dp: Optional[int], dist: Optional[Distribution],
-                group: Optional[ReplicaGroup]) -> int:
-    """dp from ``dp=`` or from the plan (both: they must agree); a plan
-    that shards inside a replica refuses a replica group."""
+                group: Optional[ReplicaGroup], packed: bool) -> int:
+    """dp from ``dp=`` or from the plan (both: they must agree). A replica
+    group must hold the plan's shards: one joined with the plan
+    (``launch.mesh.init_replica_group(dist=...)``); with shards it needs
+    the packed engines."""
     if dist is None:
         if dp is None:
             raise TypeError("pass dp= or dist=")
@@ -138,10 +157,19 @@ def _resolve_dp(dp: Optional[int], dist: Optional[Distribution],
     if dp is not None and int(dp) != dist.dp:
         raise ValueError(f"dp={dp} but the distribution gives dp={dist.dp}")
     if group is not None and dist.shard_axes:
-        raise NotImplementedError(
-            f"one process per rank with in-replica shards (axes "
-            f"{dist.shard_axes}) is not ported yet (ROADMAP A.12b: in-pod "
-            "FSDP on a DeviceMesh)")
+        if not packed:
+            raise NotImplementedError(
+                f"the per-leaf engine with in-replica shards (axes "
+                f"{dist.shard_axes}) across processes is not ported yet "
+                "(ROADMAP A.12c); run the packed engines (gossip_packed="
+                "True, --packed)")
+        shards = int(np.prod(dist.shard_axis_sizes))
+        if group.num_shards != shards:
+            raise ValueError(
+                f"the plan shards a replica {shards} ways (axes "
+                f"{dist.shard_axes}) but the replica group holds "
+                f"{group.num_shards}: join it with the plan "
+                "(init_replica_group(dist=...))")
     return dist.dp
 
 
@@ -173,6 +201,28 @@ def _build_packed_layout(dist: Optional[Distribution], cfg: ModelConfig):
                         shard_specs=td.unflatten([inner(p) for p in full]))
 
 
+def _rank_chunk(packed: PackedParams, group: ReplicaGroup,
+                dev) -> PackedParams:
+    """This rank's part of a ready ``PackedParams``: its replica's row of
+    stacked buckets (a one-row ``PackedParams`` is every replica's), then
+    its shard's chunk."""
+    lay, out = packed.layout, []
+    for b, x in enumerate(packed.buckets):
+        x = x.detach()
+        if x.shape[0] == group.dp and group.dp > 1:
+            x = x[group.replica:group.replica + 1]
+        elif x.shape[0] != 1:
+            raise ValueError(f"bucket {b} has {x.shape[0]} rows for "
+                             f"{group.dp} replicas")
+        if x.shape[-1] != lay.bucket_sizes[b]:
+            raise ValueError(f"bucket {b} of length {x.shape[-1]}: want "
+                             f"{lay.bucket_sizes[b]}")
+        stride = lay.strides[b]
+        x = x[..., group.shard * stride:(group.shard + 1) * stride]
+        out.append(x.to(dev).clone())
+    return PackedParams(out, lay, group)
+
+
 def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
                      dp: Optional[int] = None,
                      dist: Optional[Distribution] = None,
@@ -185,17 +235,18 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
     ``(rows, *shape)``, or with ``packed`` a ``PackedParams`` of
     ``(rows, size)`` buckets (pass the bundle's ``layout``; a plan that
     shards inside a replica needs it). ``rows`` is dp (``dp=``, or
-    ``dist.dp`` of the plan ``dist``), or 1 under a replica group of dp
-    ranks (pass the bundle's ``group``). ``params`` may give that
-    replica's tree (or a ready ``PackedParams``, e.g. from
-    ``checkpoint.bridge``) instead of drawing it with ``seed``.
+    ``dist.dp`` of the plan ``dist``), or 1 under a replica group (pass
+    the bundle's ``group``), whose buckets are the rank's stretches.
+    ``params`` may give that replica's tree (or a ready ``PackedParams``,
+    e.g. from ``checkpoint.bridge``, of which a rank keeps its replica's
+    row and its shard's chunk) instead of drawing it with ``seed``.
 
     ``inbox`` is the ring depth (pass the bundle's ``protocol.staleness``;
     0 = no ring) and ``wire`` the bundle's ``wire``: gossip_async carries a
     ring bootstrapped all-invalid, its slots copies of the params or, under
     a compressed wire (packed only), zero payloads."""
     dev = resolve_device(device)
-    dp = _resolve_dp(dp, dist, group)
+    dp = _resolve_dp(dp, dist, group, packed)
     rows = local_rows(dp, group)
     if not wire.is_default and inbox and not packed:
         raise ValueError("the compressed wire needs packed state")
@@ -206,10 +257,13 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
                 f"{dist.shard_axes}); packed init needs the bundle's "
                 "shard-local layout: pass layout=bundle.layout")
         layout = layout if layout is not None else build_layout(lm_specs(cfg))
-        if not isinstance(params, PackedParams):
+        if isinstance(params, PackedParams) and group is not None:
+            params = _rank_chunk(params, group, dev)
+        elif not isinstance(params, PackedParams):
             tree = params if params is not None else lm_init(cfg, seed=seed,
                                                              device=dev)
-            params = PackedParams.pack(tree, layout, lead=(rows,), device=dev)
+            params = PackedParams.pack(tree, layout, lead=(rows,), device=dev,
+                                       group=group)
         leaves = params.buckets
     else:
         tree = params if params is not None else lm_init(cfg, seed=seed,
@@ -274,11 +328,11 @@ def make_train_step_bundle(
     same values, less activation memory, more time. ``ssm_scan_impl``
     replaces the Mamba layers' scan (e.g.
     ``models.mamba.ssm_scan_chunked_torch``, the long-sequence train scan).
-    ``group`` runs one replica per process (a
-    ``core.replica_group.ReplicaGroup`` of dp ranks; None: the dp replicas
-    stacked on ``device``)."""
+    ``group`` runs one mesh position per process (a
+    ``core.replica_group.ReplicaGroup``; None: the dp replicas stacked on
+    ``device``)."""
     dev = resolve_device(device)
-    dp = _resolve_dp(dp, dist, group)
+    dp = _resolve_dp(dp, dist, group, gossip_packed)
     local_rows(dp, group)
     mesh = dist.mesh if dist is not None else None
     wire = WireFormat(dtype=wire_dtype, subset=gossip_subset, seed=wire_seed)
@@ -354,8 +408,12 @@ def make_train_step_bundle(
 
     def grads_of(params):
         if gossip_packed:
-            return PackedParams([b.grad for b in params.buckets], layout)
+            return params.like([b.grad for b in params.buckets])
         return tree_map(lambda x: x.grad, params)
+
+    # a rank's rows are 1/batch_shards of its replica's: the batch group's
+    # summed gradient is the replica's mean-loss gradient
+    loss_scale = 1.0 / group.batch_shards if group is not None else 1.0
 
     def train_step(state, batch, phase: int, rotate: bool = True):
         params, inbox = state["params"], state.get("inbox")
@@ -364,8 +422,11 @@ def make_train_step_bundle(
             # in place on the autograd leaves, before the forward pass
             with torch.no_grad():
                 params, inbox = proto.comm_params(params, phase, inbox=inbox)
-        loss, metrics = loss_fn(as_tree(params), batch)
-        loss.sum().backward()  # replica r's grad is d loss_r / d params_r
+        with use_distribution(dist):
+            loss, metrics = loss_fn(as_tree(params), batch)
+            # replica r's grad is d loss_r / d params_r
+            total = loss.sum()
+            (total * loss_scale if loss_scale != 1.0 else total).backward()
         grads = grads_of(params)
         with torch.no_grad():
             grads = proto.comm_grads(grads, phase)
@@ -386,7 +447,9 @@ def make_train_step_bundle(
                       else batch)
         metrics = {k: v.detach() for k, v in metrics.items()}
         if group is not None:
-            metrics = {k: replica_mean(v, group) for k, v in metrics.items()}
+            metrics = {k: replica_mean(group_mean(v, group.batch,
+                                                  group.batch_shards), group)
+                       for k, v in metrics.items()}
         metrics = {k: v.mean() for k, v in metrics.items()}
         new_state = {"params": params, "opt": opt}
         if ring:

@@ -9,7 +9,9 @@ metrics on the device and reads them back only on log boundaries and at the
 end of ``run`` (the only host syncs). The caching allocator and in-place
 bucket updates take the place of the reference's buffer donation. Under a
 replica group (``bundle.group``) each process feeds its own replica's shard
-of the step's batch (row ``rank`` of the stacked batch). Every step draws
+of the step's batch (row ``replica`` of the stacked batch), cut to its
+batch position's share of the rows (fsdp's ``data``, as the reference's
+``Distribution.batch_axes`` place them). Every step draws
 its batch afresh, as the reference's loop does, so the loop asks the step
 for no ring-shuffled next batch (``rotate=False``): under a replica group
 that would be a point-to-point round that nothing reads.
@@ -49,7 +51,12 @@ class Trainer:
         toks = make_replica_batches(self.dataset, step, self.bundle.dp)["tokens"]
         group = self.bundle.group
         if group is not None:
-            toks = toks[group.rank:group.rank + 1]
+            b, n = toks.shape[1], group.batch_shards
+            if b % n:
+                raise ValueError(f"{b} rows a replica do not split over "
+                                 f"{n} batch positions")
+            lo = group.batch_index * (b // n)
+            toks = toks[group.replica:group.replica + 1, lo:lo + b // n]
         return {"tokens": torch.from_numpy(toks).to(self.bundle.device)}
 
     def _drain(self, pending: List) -> None:

@@ -447,8 +447,13 @@ def test_launcher_runs_gossip_async_wire(capsys, monkeypatch):
           "--gossip-subset", "0.5", "--no-fused-update"])
     out = capsys.readouterr().out
     assert '"staleness": 2' in out and '"fused": false' in out
-    # one process per rank with in-replica shards is not ported
+    # under WORLD_SIZE > 1 the ranks are the mesh's positions (4 here), and
+    # the per-leaf engine with in-replica shards is not ported (A.12c)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+    with pytest.raises(ValueError, match="WORLD_SIZE"):
         main(["--smoke", "--packed", "--multi-pod", "--smoke-mesh", "1,2,2",
+              "--device", "cpu"])
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12c"):
+        main(["--smoke", "--multi-pod", "--smoke-mesh", "1,2,2",
               "--device", "cpu"])

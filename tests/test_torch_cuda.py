@@ -888,6 +888,112 @@ def test_shard_local_fused_step_on_card_matches_cpu(cuda_device, opt_name):
                            b.view(ints[b.element_size()]))
 
 
+_RANKS_ON_CARD = r"""
+import dataclasses, json, sys
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.configs import get_config
+from repro_torch.data import ShardedTokenDataset
+from repro_torch.launch.mesh import (destroy_replica_group,
+                                     init_replica_group, make_smoke_mesh)
+from repro_torch.models import reduced
+from repro_torch.optim import sgd
+from repro_torch.train import (Trainer, init_train_state, make_distribution,
+                               make_train_step_bundle)
+from repro_torch.tree import tree_flatten
+rank, init, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b"), d_model=32),
+                          param_dtype="float32", compute_dtype="float32",
+                          dist_mode="fsdp")
+dist = make_distribution(make_smoke_mesh(2, 1), "fsdp")
+group = init_replica_group("cuda", dist=dist, backend="gloo", rank=rank,
+                           world_size=2, init_method=init, timeout_s=120)
+opt = sgd(0.1, momentum=0.9)
+bundle = make_train_step_bundle(cfg, opt, dist=dist, gossip_packed=True,
+                                device="cuda", group=group, remat=False)
+state = init_train_state(cfg, opt, dist=dist, packed=True,
+                         layout=bundle.layout, seed=0, device="cuda",
+                         group=group)
+ds = ShardedTokenDataset(cfg.vocab, 8, n_shards=1, batch_per_shard=4)
+tr = Trainer(bundle, state, ds, log_every=0)
+hist = tr.run(2)
+leaves = [x.detach().cpu().numpy() for x in
+          tree_flatten(tr.state["params"].unpack())[0]]
+np.savez(out, losses=np.array([h["loss"] for h in hist]),
+         **{f"p{i}": x for i, x in enumerate(leaves)})
+destroy_replica_group()
+print("RANK_OK", rank)
+"""
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_on_the_card_match_the_stacked_run(cuda_device,
+                                                       tmp_path):
+    """Two gloo ranks on the one card (fsdp on (pod 1, data 2, model 1):
+    each holds its stretch of every bucket, all-gathers the replica's
+    and reduce-scatters the gradient, their CUDA tensors carried by gloo)
+    train 2 steps within rtol = atol = 2e-4 of the stacked shard-local run
+    on the card."""
+    import dataclasses
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import ShardedTokenDataset
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import reduced
+    from repro_torch.optim import sgd
+    from repro_torch.train import (Trainer, init_train_state,
+                                   make_distribution, make_train_step_bundle)
+    from repro_torch.tree import tree_flatten
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANKS_ON_CARD, str(r), init,
+         str(tmp_path / f"rank{r}.npz")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and f"RANK_OK {r}" in log, log[-3000:]
+    cfg = dataclasses.replace(reduced(get_config("qwen3-0.6b"), d_model=32),
+                              param_dtype="float32", compute_dtype="float32",
+                              dist_mode="fsdp")
+    dist = make_distribution(make_smoke_mesh(2, 1), "fsdp")
+    opt = sgd(0.1, momentum=0.9)
+    bundle = make_train_step_bundle(cfg, opt, dist=dist, gossip_packed=True,
+                                    device=cuda_device, remat=False)
+    assert bundle.layout.num_shards == 2 and bundle.fused
+    state = init_train_state(cfg, opt, dist=dist, packed=True,
+                             layout=bundle.layout, seed=0,
+                             device=cuda_device)
+    ds = ShardedTokenDataset(cfg.vocab, 8, n_shards=1, batch_per_shard=4)
+    tr = Trainer(bundle, state, ds, log_every=0)
+    losses = [h["loss"] for h in tr.run(2)]
+    want = [x.detach().cpu().numpy()
+            for x in tree_flatten(tr.state["params"].unpack())[0]]
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        np.testing.assert_allclose(got["losses"], losses, rtol=2e-4,
+                                   atol=2e-4)
+        for i, w in enumerate(want):
+            np.testing.assert_allclose(got[f"p{i}"], w, rtol=2e-4,
+                                       atol=2e-4)
+
+
 SERVE_MODELS = [("qwen3-0.6b", None), ("qwen3-0.6b", 4),
                 ("falcon-mamba-7b", None)]
 SERVE_IDS = ["qwen3", "qwen3-sw4", "falcon-mamba"]

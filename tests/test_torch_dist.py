@@ -45,8 +45,11 @@ from repro_torch.launch.mesh import init_replica_group, destroy_replica_group
 rank, world, init, out, task = (int(sys.argv[1]), int(sys.argv[2]),
                                 sys.argv[3], sys.argv[4], sys.argv[5])
 cfg = json.loads(sys.argv[6])
-group = init_replica_group("cpu", rank=rank, world_size=world,
-                           init_method=init, timeout_s=120)
+from repro_torch.launch.mesh import make_smoke_mesh
+from repro_torch.train.sharding import make_distribution
+group = init_replica_group("cpu", dist=make_distribution(
+    make_smoke_mesh(world, 1), "replica"), rank=rank, world_size=world,
+    init_method=init, timeout_s=120)
 res = {}
 
 
@@ -295,9 +298,11 @@ def test_nccl_world_larger_than_the_cards_raises(monkeypatch):
     """NCCL takes one card per rank: a world larger than the card count
     raises before any rendezvous, and is never moved onto gloo."""
     from repro_torch.launch import mesh
+    from repro_torch.train.sharding import make_distribution
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    dist = make_distribution(mesh.make_smoke_mesh(2, 1), "replica")
     with pytest.raises(RuntimeError, match="one card per rank"):
-        mesh.init_replica_group("cuda", rank=0, world_size=2,
+        mesh.init_replica_group("cuda", dist=dist, rank=0, world_size=2,
                                 init_method="file:///nonexistent")
     assert not torch.distributed.is_initialized()
 

@@ -248,13 +248,25 @@ def test_exchange_bytes_by_protocol():
     a256 = exchange_bytes("agd", 256, 16, rb, rb, 0)
     assert g16["collective-permute_bytes"] == g256["collective-permute_bytes"]
     assert g16["collective-permute_bytes"] == rb / 16 + 4097 * 4
-    assert g16["all-reduce_bytes"] == g16["all-gather_bytes"] == 0
-    assert a16["all-gather_bytes"] == 15 * rb / 16
-    assert a256["all-gather_bytes"] == 255 * rb / 16
+    # 16 shards a replica: the stretches' all-gather, and no reduce-scatter
+    # (no batch axis among them)
+    assert g16["all-reduce_bytes"] == g16["reduce-scatter_bytes"] == 0
+    assert g16["all-gather_bytes"] == 15 * rb / 16
+    assert a16["all-gather_bytes"] == 15 * rb / 16 + 15 * rb / 16
+    assert a256["all-gather_bytes"] == 255 * rb / 16 + 15 * rb / 16
     assert a256["allreduce_equivalent_bytes"] == 2 * (rb / 16) * 255 / 256
-    assert a16["in_replica_collectives"].startswith("not modeled")
+    # a 16-shard replica spans two nodes of 8: each chip takes the other
+    # node's 8 stretches once a node (1/8 of them over its own NIC)
+    assert a16["in_replica_collectives"] == {
+        "all-gather_bytes": 15 * rb / 16, "reduce-scatter_bytes": 0.0,
+        "shards": 16, "batch_shards": 1, "net_bytes": rb * 8 / 16 / 8,
+        "nvlink_bytes": 15 * rb / 16 - rb * 8 / 16 / 8}
+    assert a16["net_bytes"] == 15 * rb / 16 + rb / 16
+    assert g16["net_bytes"] == rb / 16 + 4097 * 4 + rb / 16
+    assert g16["nvlink_bytes"] == 15 * rb / 16 - rb / 16
     one = exchange_bytes("gossip", 1, 1, rb, rb, 8)
-    assert one["wire_bytes"] == 0 and "none" in one["in_replica_collectives"]
+    assert one["wire_bytes"] == one["net_bytes"] == one["nvlink_bytes"] == 0
+    assert "none" in one["in_replica_collectives"]
     lay = build_layout(lm_specs(get_config("qwen3-0.6b")))
     w = WireFormat(dtype="int8", subset=0.5)
     wired = exchange_bytes("gossip", 4, 1, rb, rb, 0, wire=w, layout=lay)
@@ -266,6 +278,9 @@ def test_exchange_bytes_by_protocol():
     assert t["compute_s"] == pytest.approx(1.0)
     assert t["memory_s"] == pytest.approx(1.0)
     assert roofline_terms(1.0, 1.0, 50e9)["dominant"] == "collective"
+    # the two links run at once: the slower one is the term
+    assert roofline_terms(1.0, 1.0, 50e9, nvlink_bytes_per_chip=900e9)[
+        "collective_s"] == pytest.approx(2.0)
     assert H100.net_bw == 50e9 and H100.nvlink_bw == 450e9
 
 
@@ -524,6 +539,42 @@ def test_run_one_pure_dp_protocols():
     assert [exchange_bytes("gossip", dp, 1, rb, rb, 0)[
         "collective-permute_bytes"] for dp in (16, 256)] == [rb, rb]
     assert g["useful_flop_ratio"] > 0.2
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "replica"])
+def test_in_replica_bytes_on_the_16x16_mesh(mode):
+    """The in-pod FSDP collectives a chip moves a step on the (16, 16)
+    mesh: fsdp (dp 1, 256 shards, the rows over 16 ``data`` positions)
+    all-gathers 255/256 of the replica and reduce-scatters 15/256 of the
+    gradient; replica mode (dp 16, 16 ``model`` shards, no batch split)
+    all-gathers 15/16 and reduces nothing. By link (nodes of 8): a chip
+    takes 1/8 of the stretches of other nodes over its NIC, the rest of
+    the all-gather over NVLink; the batch group's members are 16 ranks
+    apart, each on another node. The roofline charges the slower link."""
+    rec = dryrun.run_one("qwen3-0.6b", "train_4k", multi_pod=False,
+                         protocol="gossip", dist_mode=mode, verbose=False)
+    rb = dryrun._replica_bytes(get_config("qwen3-0.6b"))
+    inner = rec["collectives"]["in_replica_collectives"]
+    shards, batch = (256, 16) if mode == "fsdp" else (16, 1)
+    gather_net = rb * (shards - 8) / shards / 8
+    assert inner == {"all-gather_bytes": rb * (shards - 1) / shards,
+                     "reduce-scatter_bytes": rb * (batch - 1) / shards,
+                     "shards": shards, "batch_shards": batch,
+                     "net_bytes": gather_net + rb * (batch - 1) / shards,
+                     "nvlink_bytes": rb * (shards - 1) / shards - gather_net}
+    coll = rec["collectives"]
+    assert coll["reduce-scatter_bytes"] == inner["reduce-scatter_bytes"]
+    assert coll["all-gather_bytes"] == inner["all-gather_bytes"]
+    assert coll["wire_bytes"] >= (inner["all-gather_bytes"]
+                                  + inner["reduce-scatter_bytes"])
+    assert coll["nvlink_bytes"] == inner["nvlink_bytes"]
+    assert coll["net_bytes"] == pytest.approx(
+        coll["wire_bytes"] - inner["all-gather_bytes"]
+        - inner["reduce-scatter_bytes"] + inner["net_bytes"])
+    assert rec["roofline"]["collective_s"] == pytest.approx(max(
+        coll["net_bytes"] / H100.net_bw,
+        coll["nvlink_bytes"] / H100.nvlink_bw))
+    assert "A.12b" not in json.dumps(rec)
 
 
 def test_sweep_and_report(tmp_path, capsys):

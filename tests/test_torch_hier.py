@@ -601,7 +601,9 @@ def _leaf_view(node):
 def test_fsdp_plan_runs_async_int8_and_lars_rules(deterministic):
     """fsdp on (2, 2, 2): dp 2 over pods, 4 shards; the int8 async ring
     runs fused and unfused; lars defaults to unfused there and refuses a
-    fused request; a replica group with in-replica shards is refused."""
+    fused request. Under a replica group with in-replica shards the packed
+    engines build, the per-leaf engine raises naming ROADMAP A.12c, and a
+    group joined without the plan's shards is refused."""
     dist = make_distribution(make_smoke_mesh(2, 2, pod=2), "fsdp")
     assert dist.dp == 2 and dist.shard_axes == ("data", "model")
     for fused in (True, False):
@@ -612,11 +614,25 @@ def test_fsdp_plan_runs_async_int8_and_lars_rules(deterministic):
     assert not b.fused and all(np.isfinite(losses))
     with pytest.raises(ValueError, match="shard-local"):
         _run(dist, "lars", True, "gossip")
-    from repro_torch.core import ReplicaGroup
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12b"):
+    from repro_torch.core.replica_group import mesh_tables
+    # rank 5 of the (2, 2, 2) mesh: replica 1, shard 1 (data 0, model 1);
+    # building runs no collective
+    group = mesh_tables(dist).group(5, "gloo", "cpu")
+    assert (group.replica, group.shard, group.batch_shards) == (1, 1, 2)
+    for fused in (True, False):
+        b = make_train_step_bundle(_cfg(), sgd(0.1), dist=dist, device="cpu",
+                                   group=group, gossip_packed=True,
+                                   fused_update=fused)
+        assert b.group is group and b.layout.num_shards == 4
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12c"):
         make_train_step_bundle(_cfg(), sgd(0.1), dist=dist, device="cpu",
-                               group=ReplicaGroup(0, 2, "gloo",
-                                                  torch.device("cpu")))
+                               group=group)
+    with pytest.raises(ValueError, match="init_replica_group"):
+        make_train_step_bundle(_cfg(), sgd(0.1), dist=dist, device="cpu",
+                               gossip_packed=True,
+                               group=mesh_tables(make_distribution(
+                                   make_smoke_mesh(2, 1), "replica")).group(
+                                       0, "gloo", "cpu"))
 
 
 def test_lars_fused_refused_and_unfused_trust_equals_flat(monkeypatch):

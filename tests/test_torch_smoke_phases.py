@@ -318,3 +318,32 @@ def test_examples_phase(cs):
     assert math.isfinite(out["quickstart"]["final_loss"])
     assert sorted(out["gossip_vs_agd"]) == ["agd", "gossip"]
     assert out["serve_batched"]["shape"] == [4, 24]
+
+
+def test_fsdp_ranks_phases(cs):
+    """[fsdp_ranks] and [fsdp_ranks_agree] at toy size: four gloo ranks of
+    the (1, 2, 2) fsdp mesh on the CPU, each holding its stretches; the
+    bytes their in-replica collectives receive equal the padded count,
+    the stretch sweep equals the plain version, and the ranks agree with
+    the stacked run, their checkpoints crossing both ways bit for bit."""
+    ranks = dict(cs.FSDP_RANKS, reduced=dict(d_model=32), seq=8, steps=2)
+    agree = dict(cs.FSDP_AGREE, reduced=dict(d_model=32), seq=8, steps=2)
+    out = cs.fsdp_ranks_run("cpu", ranks=ranks, agree=agree)
+    assert cs._ranks_failed(out, "fsdp_ranks") is None
+    rec = cs.check_fsdp_ranks(out, "cpu")
+    assert rec["world"] == 4 and rec["mesh"] == [1, 2, 2]
+    assert rec["num_buckets"] >= 1 and rec["tokens_per_rank"] == 8
+    for moved, r in zip(rec["bytes_per_step_by_rank"],
+                        (r["ranks"] for r, _ in out["ranks"])):
+        assert moved["all_gather"] > 0 and moved["reduce_scatter"] > 0
+        # the layout's LANE padding: the padded count is at least the
+        # dry run's count over the unpadded params
+        assert moved["all_gather"] >= r["count_per_step"]["all-gather_bytes"]
+    assert rec["peak_mem_gb_by_rank"] == [None] * 4
+    agreed = cs.check_fsdp_agree(out)
+    assert agreed["rank_file_restores_in_stacked_bit_equal"]
+    assert agreed["stacked_file_restores_in_ranks_bit_equal"]
+    assert agreed["max_abs_diff_params"] <= 2e-4
+    assert cs._refusal([({"error": "RuntimeError: ProcessGroupGloo does "
+                                   "not support send of CUDA tensors"},
+                         {})]) is not None

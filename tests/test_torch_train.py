@@ -197,8 +197,10 @@ def test_dp1_matches_reference_in_process():
 def test_launcher_runs_and_refuses_unported_meshes(capsys, monkeypatch):
     """Every --smoke-mesh runs stacked on one device (POD x DATA replicas
     in replica mode, the model axis a shard-local layout under --packed)
-    and --multi-pod is ignored there, as in the reference; one process per
-    rank with in-replica shards is refused, naming its ROADMAP entry."""
+    and --multi-pod is ignored there, as in the reference. Under
+    WORLD_SIZE > 1 the per-leaf engine with in-replica shards is refused,
+    naming its ROADMAP entry (A.12c), and so is a WORLD_SIZE other than
+    the mesh's positions, both before any rendezvous."""
     from repro_torch.launch.train import main
     small = ["--steps", "2", "--seq-len", "8", "--global-batch", "4",
              "--d-model", "32", "--log-every", "0", "--device", "cpu"]
@@ -208,8 +210,11 @@ def test_launcher_runs_and_refuses_unported_meshes(capsys, monkeypatch):
     assert '"dp": 4, "num_shards": 1' in capsys.readouterr().out
     main(["--smoke", "--multi-pod", *small])
     assert '"dp": 1' in capsys.readouterr().out
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12c"):
+        main(["--smoke", "--smoke-mesh", "1,2,2", *small])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12b"):
+    with pytest.raises(ValueError, match="WORLD_SIZE"):
         main(["--smoke", "--packed", "--smoke-mesh", "1,2,2", *small])
 
 
