@@ -304,6 +304,26 @@ package ``repro``. Phases, each of which fails the run on any error:
     and the stacked run's in the ranks. A gloo refusal of a CUDA
     collective is recorded as "not measured (needs 2+ cards)".
 
+20. The per-leaf engines (the launcher's default path) with one process
+    per mesh position (``leaf_ranks_run``, CPU-callable;
+    ``phase_leaf_ranks``), on the same four gloo ranks of the (1, 2, 2)
+    fsdp mesh: each rank holds its piece of every leaf, and the forward
+    all-gathers each leaf and the backward reduce-scatters its gradient.
+    ``[leaf_ranks]``: qwen3-0.6b at full width and depth in bf16, 1 x 256
+    tokens a rank, per-leaf ``sgd(0.1, 0.9)`` with ``mix_impl=
+    gossip_mix_1d`` (dp 1: no mix runs), 4 steps: rank 0's ms/step, every
+    rank's peak, the bytes its per-leaf all-gathers and reduce-scatters
+    received a step and their ms over one window against the padded
+    pieces' bytes (asserted equal) and ``in_replica_bytes``' count, and
+    one ``gossip_mix_1d`` launch on its largest piece at alpha 0.5 against
+    a seeded partner, bit-equal to the plain version (its launch counted
+    apart from the path's). ``[leaf_ranks_agree]``: [agree]'s reduced fp32
+    model on the same mesh, per-leaf sgd and lars on the 4 ranks against
+    the stacked per-leaf run on the card: losses and gathered params
+    within rtol = atol = 2e-4, lars's trust ratios within rtol 2e-6, and
+    the ranks' checkpoint and the stacked one restored into each other bit
+    for bit.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -3397,6 +3417,14 @@ FSDP_RANKS = dict(mesh=(1, 2, 2), arch="qwen3-0.6b", seq=SEQ,
 FSDP_AGREE = dict(mesh=(1, 2, 2), arch="qwen3-0.6b", reduced=dict(d_model=64),
                   seq=16, per_position=2, steps=SHORT_STEPS,
                   lr=AGREE_LR["sgd"], bucket_bytes=AGREE_BUCKET_BYTES)
+# [leaf_ranks]: the per-leaf engines (the launcher's default path) on the
+# same mesh and model, each rank its piece of every leaf
+LEAF_RANKS = dict(FSDP_RANKS)
+# [leaf_ranks_agree]: [agree]'s reduced fp32 model, per-leaf sgd and lars
+LEAF_AGREE = dict(mesh=(1, 2, 2), arch="qwen3-0.6b",
+                  reduced=dict(d_model=64), seq=16, per_position=2,
+                  steps=SHORT_STEPS, lr=AGREE_LR["sgd"],
+                  optimizers=("sgd", "lars"))
 FSDP_TIMEOUT_S = 300
 # what gloo says when it has no CUDA counterpart of a collective
 GLOO_REFUSAL = re.compile(r"(gloo|Gloo)[^\n]*(not supported|unsupported|"
@@ -3467,16 +3495,21 @@ def _traffic(group, dev):
         tdist.all_gather, tdist.all_to_all_single = ag, a2a
 
 
-def _rank_trainer(cfg, spec, dist, dev, group):
-    """Packed fused sgd on this rank's stretches (dp 1: alpha 0)."""
+def _rank_trainer(cfg, spec, dist, dev, group, *, packed=True,
+                  optimizer="sgd", **kw):
+    """Packed fused sgd on this rank's stretches (dp 1: alpha 0), or with
+    ``packed=False`` the per-leaf engine of ``optimizer`` on its pieces
+    (``kw`` reaches the bundle: ``mix_impl``); ``group`` None: the stacked
+    run of the plan."""
     from repro_torch.data import ShardedTokenDataset
     from repro_torch.launch.mesh import mesh_tables
     from repro_torch.train import (Trainer, init_train_state,
                                    make_train_step_bundle)
-    opt = make_optimizer("sgd", spec["steps"], spec["lr"])
-    bundle = make_train_step_bundle(cfg, opt, dist=dist, gossip_packed=True,
-                                    device=dev, group=group, remat=False)
-    state = init_train_state(cfg, opt, dist=dist, packed=True,
+    opt = make_optimizer(optimizer, spec["steps"], spec["lr"])
+    bundle = make_train_step_bundle(cfg, opt, dist=dist, gossip_packed=packed,
+                                    device=dev, group=group, remat=False,
+                                    **kw)
+    state = init_train_state(cfg, opt, dist=dist, packed=packed,
                              layout=bundle.layout, seed=0, device=dev,
                              group=group)
     rows = spec["per_position"] * mesh_tables(dist).batch_shards
@@ -3503,14 +3536,50 @@ def _stretch_sweep(dev, p, m, lr: float) -> dict:
             "max_abs_err": max(_diff(gp, wp), _diff(gm, wm))}
 
 
-def _fsdp_rank_train(group, dist, dev, spec) -> dict:
-    """[fsdp_ranks] on this rank: the launch counts reset just before the
-    steps and read just after; ms/step, the bytes its in-replica
+def _rank_window(tr, group, dev, steps: int) -> dict:
+    """``steps`` steps of a rank's Trainer, the launch counts reset just
+    before and read just after: ms/step, the bytes its in-replica
     collectives received and their ms over the steps after the first (one
-    window); its peak; then its largest stretch's sweep against the plain
+    window), the first step apart; its peak."""
+    _sync(dev)
+    _reset_peak(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    tr.run(1)
+    _sync(dev)
+    t1 = time.perf_counter()
+    with _traffic(group, dev) as (moved, coll_ms):
+        hist = tr.run(steps - 1, start_step=1)
+        _sync(dev)
+        t2 = time.perf_counter()
+    return {"steps": steps, "losses": [h["loss"] for h in hist],
+            "first_step_ms": (t1 - t0) * 1e3,
+            "ms_per_step": (t2 - t1) * 1e3 / (steps - 1),
+            "peak_mem_gb": _peak_gb(dev), "launches": _counts(),
+            "bytes_per_step": {k: v / (steps - 1) for k, v in moved.items()},
+            "collective_ms_per_step": {k: v / (steps - 1)
+                                       for k, v in coll_ms.items()}}
+
+
+def _rank_record(group, cfg, spec, replica_bytes: int) -> dict:
+    """What every rank record names: its place, its model, its tokens and
+    the dry run's count of its in-replica bytes."""
+    from repro_torch.launch.roofline import in_replica_bytes
+    return {"rank": group.rank, "replica": group.replica,
+            "shard": group.shard, "batch_index": group.batch_index,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "dtype": cfg.param_dtype,
+            "tokens_per_rank": spec["per_position"] * spec["seq"],
+            "count_per_step": in_replica_bytes(
+                group.num_shards, group.batch_shards, replica_bytes,
+                replica_bytes)}
+
+
+def _fsdp_rank_train(group, dist, dev, spec) -> dict:
+    """[fsdp_ranks] on this rank (``_rank_window``), against the padded
+    stretches' bytes; then its largest stretch's sweep against the plain
     version."""
     from repro_torch.kernels.quantize import dtype_bytes
-    from repro_torch.launch.roofline import in_replica_bytes
     from repro_torch.models import lm_specs
     from repro_torch.tree import tree_flatten
     cfg = _rank_cfg(spec)
@@ -3519,43 +3588,15 @@ def _fsdp_rank_train(group, dist, dev, spec) -> dict:
     assert bundle.fused and lay.num_shards == group.num_shards
     assert all(tuple(b.shape) == (1, n) for b, n in
                zip(tr.state["params"].buckets, lay.strides))
-    _sync(dev)
-    _reset_peak(dev)
-    _reset_counts()
-    t0 = time.perf_counter()
-    tr.run(1)
-    _sync(dev)
-    t1 = time.perf_counter()
-    # the bytes, the collectives' ms and ms/step share one window: the
-    # steps after the first
-    with _traffic(group, dev) as (moved, coll_ms):
-        hist = tr.run(steps - 1, start_step=1)
-        _sync(dev)
-        t2 = time.perf_counter()
-    counts = _counts()
     item = [dtype_bytes(dt) for dt in lay.bucket_dtypes]
     stretch_bytes = sum(n * i for n, i in zip(lay.strides, item))
     replica = sum(int(np.prod(s.shape)) * s.dtype.itemsize
                   for s in tree_flatten(lm_specs(cfg))[0])
-    count = in_replica_bytes(group.num_shards, group.batch_shards, replica,
-                             replica)
-    rec = {"rank": group.rank, "replica": group.replica,
-           "shard": group.shard, "batch_index": group.batch_index,
-           "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab, "dtype": cfg.param_dtype,
-           "num_buckets": lay.num_buckets,
-           "strides": list(lay.strides), "steps": steps,
-           "tokens_per_rank": spec["per_position"] * spec["seq"],
-           "losses": [h["loss"] for h in hist],
-           "first_step_ms": (t1 - t0) * 1e3,
-           "ms_per_step": (t2 - t1) * 1e3 / (steps - 1),
-           "peak_mem_gb": _peak_gb(dev), "launches": counts,
+    rec = {**_rank_record(group, cfg, spec, replica),
+           **_rank_window(tr, group, dev, steps),
+           "num_buckets": lay.num_buckets, "strides": list(lay.strides),
            "expected_launches": dict(dict.fromkeys(KERNELS, 0),
                                      fused_sgd=steps * lay.num_buckets),
-           "bytes_per_step": {k: v / (steps - 1) for k, v in moved.items()},
-           "collective_ms_per_step": {k: v / (steps - 1)
-                                      for k, v in coll_ms.items()},
-           "count_per_step": count,
            "count_per_step_padded": {
                "all-gather_bytes": (group.num_shards - 1) * stretch_bytes,
                "reduce-scatter_bytes": (group.batch_shards - 1)
@@ -3594,7 +3635,8 @@ def _fsdp_rank_agree(group, dist, dev, spec) -> tuple:
 
 
 def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
-    """One rank of [fsdp_ranks] / [fsdp_ranks_agree]: join the gloo world
+    """One rank of [fsdp_ranks] / [fsdp_ranks_agree] (or with ``kind``
+    "leaf" of [leaf_ranks] / [leaf_ranks_agree]): join the gloo world
     of the mesh (CUDA tensors on the card: ``backend="gloo"``, every rank
     on the one card), run the rank's parts, write its record (JSON) and
     arrays (npz) under ``out``. Returns 1 with the traceback recorded when
@@ -3615,12 +3657,13 @@ def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
                                    rank=int(rank), world_size=int(world),
                                    init_method=init,
                                    timeout_s=FSDP_TIMEOUT_S)
+        train, agree = {"packed": (_fsdp_rank_train, _fsdp_rank_agree),
+                        "leaf": (_leaf_rank_train, _leaf_rank_agree)}[
+                            spec.get("kind", "packed")]
         try:
-            res["ranks"] = _fsdp_rank_train(group, dist, group.device,
-                                            spec["ranks"])
-            res["agree"], arrays = _fsdp_rank_agree(group, dist,
-                                                    group.device,
-                                                    spec["agree"])
+            res["ranks"] = train(group, dist, group.device, spec["ranks"])
+            res["agree"], arrays = agree(group, dist, group.device,
+                                         spec["agree"])
         finally:
             destroy_replica_group()
     except Exception:  # noqa: BLE001 - the parent reads the traceback
@@ -3721,20 +3764,20 @@ def _refusal(ranks) -> str | None:
     return None
 
 
-def check_fsdp_ranks(out: dict, dev) -> dict:
-    """[fsdp_ranks]'s record from ``fsdp_ranks_run``: per rank its ms/step,
-    peak, launches and bytes a step against the dry run's count, and its
-    stretch sweep. Asserts the measured bytes equal the padded count,
-    finite losses from about ln(vocab), one replica-mean loss on every
-    rank, the sweep bit-equal, and the launch counts (as expected on the
-    card, none off it)."""
+def _check_ranks(out: dict, dev) -> tuple:
+    """The rank records of a world (``fsdp_ranks_run`` or
+    ``leaf_ranks_run``) and their common summary: per rank its ms/step,
+    peak, launches and bytes a step against the dry run's count. Asserts
+    the measured bytes equal the padded count, the launch counts (as
+    expected on the card, none off it), one replica-mean loss on every
+    rank, finite losses from about ln(vocab)."""
     recs = [r["ranks"] for r, _ in out["ranks"]]
     r0 = recs[0]
     res = {"world": out["world"], "mesh": out["mesh"],
            "dist_mode": "fsdp", "backend": "gloo",
            "layers": r0["layers"], "d_model": r0["d_model"],
-           "dtype": r0["dtype"], "num_buckets": r0["num_buckets"],
-           "steps": r0["steps"], "tokens_per_rank": r0["tokens_per_rank"],
+           "dtype": r0["dtype"], "steps": r0["steps"],
+           "tokens_per_rank": r0["tokens_per_rank"],
            "losses": r0["losses"], "first_step_ms": r0["first_step_ms"],
            "ms_per_step": r0["ms_per_step"],
            "ms_per_step_by_rank": [r["ms_per_step"] for r in recs],
@@ -3745,8 +3788,7 @@ def check_fsdp_ranks(out: dict, dev) -> dict:
            "collective_ms_per_step_by_rank": [r["collective_ms_per_step"]
                                               for r in recs],
            "count_per_step": r0["count_per_step"],
-           "count_per_step_padded": r0["count_per_step_padded"],
-           "sweep_by_rank": [r["sweep"] for r in recs]}
+           "count_per_step_padded": r0["count_per_step_padded"]}
     for r in recs:
         want = (r["expected_launches"] if _on_card(dev)
                 else dict.fromkeys(KERNELS, 0))
@@ -3755,10 +3797,20 @@ def check_fsdp_ranks(out: dict, dev) -> dict:
             r["count_per_step_padded"]["all-gather_bytes"], r
         assert r["bytes_per_step"]["reduce_scatter"] == \
             r["count_per_step_padded"]["reduce-scatter_bytes"], r
-        assert r["sweep"]["equal"], r["sweep"]
         assert r["losses"] == r0["losses"], "ranks report one replica mean"
     assert all(math.isfinite(v) for v in r0["losses"]), "non-finite loss"
     assert abs(r0["losses"][0] - math.log(r0["vocab"])) <= 1.0, r0["losses"]
+    return recs, res
+
+
+def check_fsdp_ranks(out: dict, dev) -> dict:
+    """[fsdp_ranks]'s record from ``fsdp_ranks_run`` (``_check_ranks``)
+    and each rank's stretch sweep, asserted bit-equal."""
+    recs, res = _check_ranks(out, dev)
+    res.update(num_buckets=recs[0]["num_buckets"],
+               sweep_by_rank=[r["sweep"] for r in recs])
+    for r in recs:
+        assert r["sweep"]["equal"], r["sweep"]
     return res
 
 
@@ -3831,6 +3883,244 @@ def phase_fsdp_ranks_agree(out: dict) -> dict:
     if res is None:
         res = check_fsdp_agree(out)
         log("[fsdp_ranks_agree] " + json.dumps(res))
+    return res
+
+
+def _leaf_piece_mix(dev, piece) -> dict:
+    """``gossip_mix_1d`` on a copy of one leaf piece, viewed ``(1, -1)``,
+    at alpha 0.5 against a seeded partner of its dtype, against
+    ``gossip_mix_plain`` on the same inputs, bit for bit; its launches
+    counted alone (these are not the path's)."""
+    from repro_torch.kernels import gossip_mix_1d, gossip_mix_plain
+    a = piece.detach().reshape(1, -1)
+    gen = torch.Generator(device=a.device).manual_seed(5)
+    b = torch.randn(a.shape, generator=gen, device=a.device).to(a.dtype)
+    want = gossip_mix_plain(a, b, GOSSIP_ALPHA)
+    _reset_counts()
+    got = gossip_mix_1d(a.clone(), b, GOSSIP_ALPHA)
+    _sync(dev)
+    return {"elements": a.numel(), "launches": _counts()["gossip_mix"],
+            "equal": bool(torch.equal(got, want)),
+            "max_abs_err": _diff(got, want)}
+
+
+def _leaf_rank_train(group, dist, dev, spec) -> dict:
+    """[leaf_ranks] on this rank: the per-leaf engine (``mix_impl=
+    gossip_mix_1d``; at dp 1 no mix runs) on its pieces
+    (``_rank_window``), against the padded pieces' bytes; then the kernel
+    on its largest piece against the plain version."""
+    from repro_torch.kernels import gossip_mix_1d
+    from repro_torch.tree import tree_flatten
+    cfg = _rank_cfg(spec)
+    bundle, tr = _rank_trainer(cfg, spec, dist, dev, group, packed=False,
+                               mix_impl=gossip_mix_1d)
+    pieces = bundle.pieces
+    assert bundle.layout is None and pieces.num_shards == group.num_shards
+    leaves = tree_flatten(tr.state["params"])[0]
+    assert all(tuple(x.shape) == (1,) + pieces.piece_shape(i, group.shard)
+               for i, x in enumerate(leaves))
+    sizes = [pieces.piece_len(i) * getattr(torch, dt).itemsize
+             for i, dt in enumerate(pieces.leaf_dtypes)]
+    replica = sum(math.prod(shp) * getattr(torch, dt).itemsize
+                  for shp, dt in zip(pieces.leaf_shapes, pieces.leaf_dtypes))
+    rec = {**_rank_record(group, cfg, spec, replica),
+           **_rank_window(tr, group, dev, spec["steps"]),
+           "leaves": len(leaves),
+           "piece_elements": sum(x.numel() for x in leaves),
+           "expected_launches": dict.fromkeys(KERNELS, 0),
+           "count_per_step_padded": {
+               "all-gather_bytes": (group.num_shards - 1) * sum(sizes),
+               "reduce-scatter_bytes": (group.batch_shards - 1)
+               * sum(sizes)}}
+    big = max(range(len(leaves)), key=lambda i: leaves[i].numel())
+    rec["mix"] = _leaf_piece_mix(dev, leaves[big])
+    rec["mix"]["leaf"] = big
+    del tr, bundle, leaves
+    _free_device(dev)
+    return rec
+
+
+def _leaf_rank_agree(group, dist, dev, spec) -> tuple:
+    """[leaf_ranks_agree] on this rank: per optimizer the reduced run's
+    losses and gathered leaves (lars: its trust ratios); after sgd its
+    pieces, a checkpoint of the ranks, and the stacked run's checkpoint
+    restored into a fresh rank state."""
+    from repro_torch.checkpoint import restore_state, save_state
+    from repro_torch.tree import tree_flatten
+    cfg = _rank_cfg(spec)
+    rec, arrays = {}, {}
+    for name in spec["optimizers"]:
+        with _trust_seen() as trust:
+            bundle, tr = _rank_trainer(cfg, spec, dist, dev, group,
+                                       packed=False, optimizer=name)
+            hist = tr.run(spec["steps"])
+        rec[name] = {"losses": [h["loss"] for h in hist], "trust": trust}
+        with torch.no_grad():
+            whole = bundle.pieces.gather_pieces(tr.state["params"], group)
+        for i, x in enumerate(tree_flatten(whole)[0]):
+            arrays[f"{name}/leaf{i}"] = x.float().cpu().numpy()
+        if name == "sgd":
+            for i, x in enumerate(tree_flatten(tr.state["params"])[0]):
+                arrays[f"piece{i}"] = x.detach().cpu().numpy()
+            save_state(spec["rank_ckpt"], tr.state, step=spec["steps"],
+                       group=group, pieces=bundle.pieces)
+            _, fresh = _rank_trainer(cfg, spec, dist, dev, group,
+                                     packed=False)
+            restored, _ = restore_state(spec["stacked_ckpt"], fresh.state,
+                                        group, bundle.pieces)
+            for i, x in enumerate(tree_flatten(restored["params"])[0]):
+                arrays[f"restored{i}"] = x.detach().cpu().numpy()
+    return rec, arrays
+
+
+@contextlib.contextmanager
+def _trust_seen():
+    """Every trust ratio lars computes while the block runs, as floats."""
+    import repro_torch.optim.optimizers as O
+    real, seen = O._trust, []
+
+    def rec(wn, gn, **kw):
+        t = real(wn, gn, **kw)
+        seen.append(float(t))
+        return t
+    O._trust = rec
+    try:
+        yield seen
+    finally:
+        O._trust = real
+
+
+def leaf_ranks_run(dev, *, ranks=LEAF_RANKS, agree=LEAF_AGREE) -> dict:
+    """The body of [leaf_ranks] and [leaf_ranks_agree]: the stacked
+    per-leaf runs of ``agree`` on ``dev`` (per optimizer its losses,
+    leaves and lars's trust ratios; sgd's checkpoint), then one gloo world
+    of ``prod(mesh)`` processes, each running ``ranks`` and then
+    ``agree``, then the ranks' checkpoint restored into a fresh stacked
+    state. Returns the ranks' records and arrays, the stacked runs' (and
+    the params sgd's file holds), the ranks' file restored and the plan's
+    piece table."""
+    from repro_torch.checkpoint import restore_state, save_state
+    from repro_torch.train.step import _build_packed_layout
+    from repro_torch.tree import tree_flatten
+    world = int(np.prod(ranks["mesh"]))
+    dist = _plan(*agree["mesh"], "fsdp")
+    cfg = _rank_cfg(agree)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="leaf_ranks_", dir=ROOT / "build"))
+    try:
+        agree = dict(agree, rank_ckpt=str(tmp / "rank_ckpt"),
+                     stacked_ckpt=str(tmp / "stacked_ckpt"))
+        stacked = {}
+        for name in agree["optimizers"]:
+            with _trust_seen() as trust:
+                _, tr = _rank_trainer(cfg, agree, dist, dev, None,
+                                      packed=False, optimizer=name)
+                hist = tr.run(agree["steps"])
+            stacked[name] = {"losses": [h["loss"] for h in hist],
+                             "trust": trust,
+                             "leaves": [x.float().cpu().numpy() for x in
+                                        _leaf_view(tr.state["params"])]}
+            if name == "sgd":
+                save_state(agree["stacked_ckpt"], tr.state,
+                           step=agree["steps"])
+                saved = [x.cpu() for x in _leaf_view(tr.state["params"])]
+        _, fresh = _rank_trainer(cfg, agree, dist, dev, None, packed=False)
+        del tr
+        _free_device(dev)
+        out = {"stacked": stacked, "world": world,
+               "mesh": list(ranks["mesh"]), "stacked_sgd_params": saved,
+               "pieces": _build_packed_layout(dist, cfg),
+               "ranks": _spawn_ranks(dev, world, dict(
+                   kind="leaf", ranks=ranks, agree=agree), tmp)}
+        if not any("error" in r for r, _ in out["ranks"]):
+            state, _ = restore_state(agree["rank_ckpt"], fresh.state)
+            out["rank_file_in_stacked"] = [
+                x.detach().cpu() for x in tree_flatten(state["params"])[0]]
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_leaf_ranks(out: dict, dev) -> dict:
+    """[leaf_ranks]'s record from ``leaf_ranks_run`` (``_check_ranks``: no
+    launch on the path at dp 1, where the per-leaf sgd step has no kernel
+    and no mix runs), the pieces' sizes, and the kernel on each rank's
+    largest piece, asserted bit-equal (one launch on the card, none off
+    it)."""
+    recs, res = _check_ranks(out, dev)
+    res.update(engine="per-leaf", leaves=recs[0]["leaves"],
+               piece_elements_by_rank=[r["piece_elements"] for r in recs],
+               mix_by_rank=[r["mix"] for r in recs],
+               count_equals_padded=all(
+                   res["count_per_step"][k] == res["count_per_step_padded"][k]
+                   for k in ("all-gather_bytes", "reduce-scatter_bytes")))
+    for r in recs:
+        assert r["mix"]["equal"], r["mix"]
+        assert r["mix"]["launches"] == (1 if _on_card(dev) else 0), r["mix"]
+    return res
+
+
+def check_leaf_agree(out: dict) -> dict:
+    """[leaf_ranks_agree]'s record: per optimizer the ranks' losses and
+    gathered leaves against the stacked per-leaf run's within rtol = atol
+    = 2e-4, lars's trust ratios within rtol 2e-6; the ranks' file
+    restored in the stacked run holds every rank's pieces bit for bit, and
+    the stacked file restored in the ranks is the stacked leaves'
+    pieces."""
+    st, pieces = out["stacked"], out["pieces"]
+    worst, res = {}, {}
+    for name, want in st.items():
+        worst[name] = 0.0
+        for rec, arr in out["ranks"]:
+            got = rec["agree"][name]
+            np.testing.assert_allclose(got["losses"], want["losses"],
+                                       rtol=2e-4, atol=2e-4)
+            if want["trust"]:
+                np.testing.assert_allclose(got["trust"], want["trust"],
+                                           rtol=2e-6)
+            for i, w in enumerate(want["leaves"]):
+                g = arr[f"{name}/leaf{i}"]
+                np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4)
+                worst[name] = max(worst[name], float(np.abs(g - w).max()))
+        res[name] = {"losses_stacked": want["losses"],
+                     "losses_ranks": out["ranks"][0][0]["agree"][name][
+                         "losses"], "max_abs_diff_params": worst[name],
+                     "trust_ratios": len(want["trust"])}
+
+    def cut(leaf, i, s):
+        return pieces.piece(leaf, i, s).numpy()
+    same_rank_file = all(
+        np.array_equal(arr[f"piece{i}"],
+                       cut(x, i, rec["ranks"]["shard"]))
+        for rec, arr in out["ranks"]
+        for i, x in enumerate(out["rank_file_in_stacked"]))
+    same_stacked_file = all(
+        np.array_equal(arr[f"restored{i}"],
+                       cut(x, i, rec["ranks"]["shard"]))
+        for rec, arr in out["ranks"]
+        for i, x in enumerate(out["stacked_sgd_params"]))
+    res.update(rank_file_restores_in_stacked_bit_equal=same_rank_file,
+               stacked_file_restores_in_ranks_bit_equal=same_stacked_file)
+    assert same_rank_file and same_stacked_file, res
+    return res
+
+
+def phase_leaf_ranks(out: dict, dev) -> dict:
+    """[leaf_ranks] from ``leaf_ranks_run``'s world (``check_leaf_ranks``),
+    gloo's refusal of a CUDA collective recorded as in [fsdp_ranks]."""
+    res = _ranks_failed(out, "leaf_ranks")
+    if res is None:
+        res = check_leaf_ranks(out, dev)
+        log("[leaf_ranks] " + json.dumps(res))
+    return res
+
+
+def phase_leaf_ranks_agree(out: dict) -> dict:
+    """[leaf_ranks_agree] from the same world (``check_leaf_agree``)."""
+    res = _ranks_failed(out, "leaf_ranks_agree")
+    if res is None:
+        res = check_leaf_agree(out)
+        log("[leaf_ranks_agree] " + json.dumps(res))
     return res
 
 
@@ -4067,6 +4357,10 @@ def main() -> int:
     fsdp_out = guard("fsdp_ranks_run", fsdp_ranks_run, dev)
     fsdp = guard("fsdp_ranks", phase_fsdp_ranks, fsdp_out, dev)
     guard("fsdp_ranks_agree", phase_fsdp_ranks_agree, fsdp_out)
+    # the per-leaf engines on the same ranks: each its piece of every leaf
+    leaf_out = guard("leaf_ranks_run", leaf_ranks_run, dev)
+    leaf_ranks = guard("leaf_ranks", phase_leaf_ranks, leaf_out, dev)
+    guard("leaf_ranks_agree", phase_leaf_ranks_agree, leaf_out)
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")
@@ -4118,6 +4412,15 @@ def main() -> int:
         "unfused": unfused_res["launches"]["gossip_mix"],
         "leaf_kernel": leaf_kernel_res["launches"]["gossip_mix"],
         "mix_flat_tree": mix_flat_res["tree"]["launches"]}
+    if "launches_by_rank" in leaf_ranks:   # the ranks ran
+        # the path's launches (dp 1: no mix runs), and apart from them the
+        # one check launch on each rank's largest piece
+        by_name["gossip_mix"]["launches_by_path"]["leaf_ranks"] = sum(
+            r["gossip_mix"] for r in leaf_ranks["launches_by_rank"])
+        by_name["gossip_mix"]["launches_leaf_ranks_check_by_rank"] = [
+            m["launches"] for m in leaf_ranks["mix_by_rank"]]
+        by_name["gossip_mix"]["max_abs_err_leaf_ranks"] = max(
+            m["max_abs_err"] for m in leaf_ranks["mix_by_rank"])
     by_name["gossip_mix"]["launches"] = sum(
         by_name["gossip_mix"]["launches_by_path"].values())
     by_name["gossip_mix"]["max_abs_err_leaves"] = leaf_mix["max_abs_err"]

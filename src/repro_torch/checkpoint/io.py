@@ -43,7 +43,11 @@ the npy): a ``PackedParams`` packs just the rank's pieces of that row
 (``BucketLayout.pack(shard=...)``), a wire ring's payload keeps just the
 shard's chunk, and no tensor of the stacked state is made. The buckets of
 a ``PackedParams`` and of a wire ring's slots are stretches; the leaves of
-a per-leaf tree and the ring's ``valid`` are rows.
+a per-leaf tree and the ring's ``valid`` are rows, except on a per-leaf
+rank of a plan that shards inside a replica (``pieces=``, its bundle's
+piece table): there every tree with the model's structure (the params,
+the moments, the ring's slots) holds the rank's pieces, which the save
+places at their block coordinates and the restore cuts from the row.
 
 The inbox ring (``{"slots", "valid", "t"}``) adapts on restore as the
 reference's does: a shallower checkpoint is mask-padded (the new back slots
@@ -67,7 +71,7 @@ import torch.distributed as tdist
 
 from repro_torch.core.buckets import (PackedParams, as_bits, dtype_name,
                                       torch_dtype)
-from repro_torch.tree import keystr, tree_map
+from repro_torch.tree import keystr, tree_flatten, tree_map
 
 __all__ = ["save_state", "restore_state", "checkpoint_exists",
            "read_manifest"]
@@ -144,35 +148,54 @@ def read_manifest(path: str) -> Dict:
         return json.load(f)
 
 
-def _map_rank(node, fn, stretch: bool = False):
-    """``node`` with ``fn(x, stretch)`` applied to every tensor and array
-    in a fixed order (ints kept): ``stretch`` is True for the buckets of a
-    ``PackedParams`` and the per-bucket payloads of a wire ring's slot."""
+def _is_pieces(node, pieces) -> bool:
+    """True when ``node`` is a per-leaf rank's tree of pieces: a container
+    with the model tree's structure under a piece table ``pieces``."""
+    return (pieces is not None and isinstance(node, (dict, list, tuple))
+            and tree_flatten(node)[1] == pieces.treedef)
+
+
+def _map_rank(node, fn, pieces=None, stretch: bool = False):
+    """``node`` with ``fn(x, stretch, leaf)`` applied to every tensor and
+    array in a fixed order (ints kept): ``stretch`` is True for the buckets
+    of a ``PackedParams`` and the per-bucket payloads of a wire ring's
+    slot; ``leaf`` is the leaf index of a piece of a per-leaf rank's tree
+    (``_is_pieces``), else None."""
     if node is None or _is_int(node):
         return node
     if isinstance(node, PackedParams):
-        return PackedParams([fn(b, True) for b in node.buckets], node.layout)
+        return PackedParams([fn(b, True, None) for b in node.buckets],
+                            node.layout)
     if _is_ring(node):
-        return {"slots": tuple(_map_rank(sl, fn, isinstance(sl, list))
+        return {"slots": tuple(_map_rank(sl, fn, pieces, isinstance(sl, list))
                                for sl in node["slots"]),
-                "valid": fn(node["valid"], False), "t": node["t"]}
+                "valid": fn(node["valid"], False, None), "t": node["t"]}
+    if _is_pieces(node, pieces):
+        td = pieces.treedef
+        return td.unflatten([fn(x, False, i) for i, x in
+                             enumerate(td.flatten_up_to(node))])
     if isinstance(node, dict):
-        return {k: _map_rank(node[k], fn, stretch) for k in sorted(node)}
+        return {k: _map_rank(node[k], fn, pieces, stretch)
+                for k in sorted(node)}
     if isinstance(node, (list, tuple)):
-        return type(node)(_map_rank(v, fn, stretch) for v in node)
-    return fn(node, stretch)
+        return type(node)(_map_rank(v, fn, pieces, stretch) for v in node)
+    return fn(node, stretch, None)
 
 
-def _gathered(state, group):
+def _gathered(state, group, pieces=None):
     """The stacked state on rank 0's host from every rank's part (None on
     the other ranks): per tensor one ``gather`` to rank 0 over the world
     (from the host under gloo, whose gather takes no CUDA tensor), then
     replica q's row is the parts of ``group.mesh_ranks[q]`` in shard order
-    (a row's own tensor where it is not a stretch)."""
-    def gather(x, stretch):
+    (a row's own tensor where it is not a stretch; a per-leaf rank's
+    pieces, sent padded to the leaf's longest, each placed at its block
+    coordinates)."""
+    def gather(x, stretch, leaf):
         arr = isinstance(x, np.ndarray)
         t = torch.from_numpy(np.ascontiguousarray(x)) if arr else x.detach()
         t = t.cpu() if group.backend == "gloo" else t.to(group.device)
+        if leaf is not None:
+            t = pieces.padded_piece(t, leaf)
         bits = as_bits(t)
         parts = ([torch.empty_like(bits) for _ in range(group.world_size)]
                  if group.rank == 0 else None)
@@ -180,24 +203,32 @@ def _gathered(state, group):
         if group.rank != 0:
             return None
         parts = [p.view(t.dtype).reshape(t.shape).cpu() for p in parts]
-        out = torch.cat([torch.cat([parts[r] for r in
-                                    (ranks if stretch else ranks[:1])], -1)
-                         for ranks in group.mesh_ranks], dim=0)
+        if leaf is not None:
+            rows = [pieces.place_pieces(leaf, [parts[r] for r in ranks])
+                    for ranks in group.mesh_ranks]
+        else:
+            rows = [torch.cat([parts[r] for r in
+                               (ranks if stretch else ranks[:1])], -1)
+                    for ranks in group.mesh_ranks]
+        out = torch.cat(rows, dim=0)
         return out.numpy() if arr else out
 
-    return _map_rank(state, gather)
+    return _map_rank(state, gather, pieces)
 
 
 def save_state(path: str, state, metadata: Optional[Dict] = None,
-               step: Optional[int] = None, group=None) -> None:
+               step: Optional[int] = None, group=None,
+               pieces=None) -> None:
     """Write ``state`` under ``path``. The arrays stream into the npz one at
     a time (``np.savez``'s zip64 layout), so the host holds the pulled
     state and one staged leaf, never a staged copy of all of it. Under a
     replica ``group`` every rank calls it: rank 0 writes the stacked state
-    of all ranks, and every rank returns once the files are written."""
+    of all ranks, and every rank returns once the files are written.
+    ``pieces`` is a per-leaf rank's piece table (``bundle.pieces``): its
+    trees hold pieces of the leaves."""
     if group is not None:
         with torch.no_grad():
-            full = _gathered(state, group)
+            full = _gathered(state, group, pieces)
         if group.rank == 0:
             _write(path, full, metadata, step)
         tdist.barrier()
@@ -226,12 +257,12 @@ def _write(path: str, state, metadata: Optional[Dict],
         json.dump(manifest, f, indent=1)
 
 
-def _specs(node, path: Tuple, lift, stretch: bool = False
+def _specs(node, path: Tuple, lift, pieces=None, stretch: bool = False
            ) -> Dict[str, Tuple[int, ...]]:
     """Key -> the file's shape of every leaf ``node`` restores: a
-    ``PackedParams``'s leaves from its layout (nothing unpacked), every
-    shape through ``lift(shape, stretch)`` (a rank's to the stacked
-    one's)."""
+    ``PackedParams``'s leaves and a tree of pieces' leaves from their
+    layout (nothing unpacked or gathered), every shape through
+    ``lift(shape, stretch)`` (a rank's to the stacked one's)."""
     if node is None:
         return {}
     if isinstance(node, PackedParams):
@@ -241,16 +272,21 @@ def _specs(node, path: Tuple, lift, stretch: bool = False
     out = {}
     if _is_ring(node):
         for i, sl in enumerate(node["slots"]):
-            out.update(_specs(sl, path + ("slots", i), lift,
+            out.update(_specs(sl, path + ("slots", i), lift, pieces,
                               isinstance(sl, list)))
         out.update(_specs(node["valid"], path + ("valid",), lift))
         out.update(_specs(node["t"], path + ("t",), lift))
+    elif _is_pieces(node, pieces):
+        td = pieces.treedef
+        for sub, x, shp in zip(td.paths(), td.flatten_up_to(node),
+                               pieces.leaf_shapes):
+            out[keystr(path + sub)] = lift(tuple(x.shape[:1]) + shp, False)
     elif isinstance(node, dict):
         for k in sorted(node):
-            out.update(_specs(node[k], path + (k,), lift, stretch))
+            out.update(_specs(node[k], path + (k,), lift, pieces, stretch))
     elif isinstance(node, (list, tuple)):
         for i, v in enumerate(node):
-            out.update(_specs(v, path + (i,), lift, stretch))
+            out.update(_specs(v, path + (i,), lift, pieces, stretch))
     else:
         out[keystr(path)] = (() if _is_int(node)
                              else lift(tuple(np.shape(node)), stretch))
@@ -262,9 +298,10 @@ def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def _fill(node, path: Tuple, read: Callable[..., np.ndarray],
-          stretch: bool = False):
+          pieces=None, stretch: bool = False):
     """A fresh copy of the template ``node`` holding the file's values;
-    ``read(key, n)`` gives a leaf (with ``n``, a stretch ``n`` long)."""
+    ``read(key, n)`` gives a leaf (with ``n``, a stretch ``n`` long;
+    ``read(key, leaf=i)`` the rank's piece of leaf i of ``pieces``)."""
     if node is None:
         return None
     if isinstance(node, PackedParams):
@@ -278,16 +315,23 @@ def _fill(node, path: Tuple, read: Callable[..., np.ndarray],
             b.requires_grad_(t.requires_grad)
         return PackedParams(buckets, lay, node.group)
     if _is_ring(node):
-        return {"slots": tuple(_fill(sl, path + ("slots", i), read,
+        return {"slots": tuple(_fill(sl, path + ("slots", i), read, pieces,
                                      isinstance(sl, list))
                                for i, sl in enumerate(node["slots"])),
                 "valid": _fill(node["valid"], path + ("valid",), read),
                 "t": _fill(node["t"], path + ("t",), read)}
+    if _is_pieces(node, pieces):
+        td = pieces.treedef
+        return td.unflatten([_tensor(read(keystr(path + sub), leaf=i),
+                                     x.dtype, x.device).requires_grad_(
+                                         x.requires_grad)
+                             for i, (sub, x) in enumerate(
+                                 zip(td.paths(), td.flatten_up_to(node)))])
     if isinstance(node, dict):
-        return {k: _fill(v, path + (k,), read, stretch)
+        return {k: _fill(v, path + (k,), read, pieces, stretch)
                 for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_fill(v, path + (i,), read, stretch)
+        return type(node)(_fill(v, path + (i,), read, pieces, stretch)
                           for i, v in enumerate(node))
     if _is_int(node):
         return int(read(keystr(path)))
@@ -360,15 +404,17 @@ def _adapt_ring(ring: Dict, k_t: int) -> Dict:
     return {"slots": tuple(slots), "valid": valid, "t": ring["t"]}
 
 
-def restore_state(path: str, template, group=None) -> Tuple[Any, Dict]:
+def restore_state(path: str, template, group=None,
+                  pieces=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``template`` (keys and shapes
     checked, dtypes and devices the template's). Returns (state,
     manifest). Under a replica ``group`` the template is the rank's state
     and the file a stacked one: of every leaf the rank reads its replica's
-    row, and of a stretch its shard's chunk; a ring reset to another
-    wire's bootstrap keeps the template's own."""
+    row, and of a stretch its shard's chunk, of a leaf of a per-leaf
+    rank's trees (``pieces``, the bundle's piece table) its piece; a ring
+    reset to another wire's bootstrap keeps the template's own."""
     with torch.no_grad():
-        return _restore(path, template, group)
+        return _restore(path, template, group, pieces)
 
 
 def _stacked_shape(group):
@@ -384,7 +430,8 @@ def _stacked_shape(group):
     return lift
 
 
-def _restore(path: str, template, group=None) -> Tuple[Any, Dict]:
+def _restore(path: str, template, group=None,
+             pieces=None) -> Tuple[Any, Dict]:
     manifest = read_manifest(path)
     names = manifest["keys"]
     shapes = {k: tuple(v) for k, v in manifest["shapes"].items()}
@@ -407,7 +454,7 @@ def _restore(path: str, template, group=None) -> Tuple[Any, Dict]:
                 "valid": np.zeros((dp, k_c), np.float32),
                 "t": ring_t["t"]})
             ring_adapt = (k_t, False, dp)
-    want = _specs(tpl, (), _stacked_shape(group))
+    want = _specs(tpl, (), _stacked_shape(group), pieces)
     ring_reset = False
     if set(want) != set(names):
         rest = {k for k in want if not k.startswith("['inbox']")}
@@ -429,13 +476,16 @@ def _restore(path: str, template, group=None) -> Tuple[Any, Dict]:
     index = {k: f"a{i}" for i, k in enumerate(names)}
     row = group.replica if group is not None else None
     with zipfile.ZipFile(os.path.join(path, "arrays.npz")) as zf:
-        def read(key, n=None):
+        def read(key, n=None, leaf=None):
             arr = _read_member(zf, index[key], row)
+            if leaf is not None:   # a per-leaf rank's piece
+                return pieces.piece(torch.from_numpy(arr), leaf,
+                                    group.shard).numpy()
             if n is None or group is None:
                 return arr
             return np.ascontiguousarray(
                 arr[..., group.shard * n:(group.shard + 1) * n])
-        restored = _fill(tpl, (), read)
+        restored = _fill(tpl, (), read, pieces)
     if ring_adapt is not None:
         k_t, legacy, dp = ring_adapt
         ring = restored["inbox"]

@@ -49,6 +49,18 @@ keeps the sum deterministic). The ranks of a batch group compute the same
 leaves on different rows of their replica's batch, so the sum is the
 replica's gradient; elsewhere (replica mode) the group is the rank alone
 and its chunk is kept as it is.
+
+**The per-leaf engines on one process per mesh position** use the same
+piece partition without the buckets: a rank's param tree holds exactly
+its piece of every leaf (``cut_pieces``: ``(1, *block)`` where the piece
+is a whole block, else ``(1, size)``, ``(1, 0)`` when empty), so every
+element lives on one rank of its replica and the elementwise engines run
+on the pieces unchanged. ``gather_pieces`` hands the model the whole
+leaves, one ``all_gather`` per leaf over the in-replica group (every
+piece padded to the leaf's longest, ``piece_len``, since a collective
+takes equal sizes), placed at their block coordinates (``place_pieces``);
+its backward is the same batch-group sum (``_sum_over_batch``) on each
+member's piece of the leaf gradient.
 """
 from __future__ import annotations
 
@@ -66,7 +78,8 @@ from repro_torch.tree import TreeDef, tree_flatten
 
 __all__ = ["LANE", "DEFAULT_BUCKET_BYTES", "LeafSlot", "BucketLayout",
            "PackedParams", "build_layout", "packed_param_specs",
-           "check_layout_mesh", "dtype_name", "torch_dtype", "as_bits"]
+           "check_layout_mesh", "dtype_name", "torch_dtype", "as_bits",
+           "gather_rows"]
 
 LANE = 128                       # alignment quantum (the reference's lane)
 DEFAULT_BUCKET_BYTES = 32 << 20  # ~32 MiB buckets
@@ -215,21 +228,102 @@ class BucketLayout:
                         self._write_block(buckets[b], leaves[idx], block)
 
     @functools.cached_property
+    def leaf_blocks(self) -> Tuple[Tuple[Tuple[LeafSlot, ...], ...], ...]:
+        """Per leaf, its blocks: a block is the slots of one block of the
+        leaf, in flat order (one slot unless the block is chunked over
+        unused axes)."""
+        out = []
+        for group in self.by_leaf:
+            blocks: dict = {}
+            for s in sorted((self.slots[i] for i in group),
+                            key=lambda s: (s.block, s.chunk_start)):
+                blocks.setdefault(s.block, []).append(s)
+            out.append(tuple(tuple(v) for v in blocks.values()))
+        return tuple(out)
+
+    @functools.cached_property
     def block_table(self) -> Tuple[Tuple[Tuple[int, Tuple[Tuple[
             LeafSlot, ...], ...]], ...], ...]:
         """Per bucket, its leaves in leaf order, each as ``(leaf index,
-        blocks)``: a block is the slots of one block of the leaf, in flat
-        order (one slot unless the block is chunked over unused axes). A
-        leaf's pieces all lie in one bucket."""
+        blocks)`` (``leaf_blocks``). A leaf's pieces all lie in one
+        bucket."""
         table: list = [[] for _ in range(self.num_buckets)]
-        for group in self.by_leaf:
-            slots = [self.slots[i] for i in group]
-            blocks: dict = {}
-            for s in sorted(slots, key=lambda s: (s.block, s.chunk_start)):
-                blocks.setdefault(s.block, []).append(s)
-            table[slots[0].bucket].append(
-                (slots[0].index, tuple(tuple(v) for v in blocks.values())))
+        for idx, blocks in enumerate(self.leaf_blocks):
+            table[blocks[0][0].bucket].append((idx, blocks))
         return tuple(tuple(t) for t in table)
+
+    @functools.cached_property
+    def piece_slots(self) -> Tuple[Tuple[LeafSlot | None, ...], ...]:
+        """Per leaf, per in-replica shard, the slot of the shard's piece
+        (None where the piece is empty)."""
+        out = [[None] * self.num_shards for _ in range(self.num_leaves)]
+        for s in self.slots:
+            out[s.index][s.shard] = s
+        return tuple(tuple(row) for row in out)
+
+    def piece_len(self, idx: int) -> int:
+        """The longest of leaf ``idx``'s pieces, in elements: what every
+        shard sends when the pieces travel together."""
+        return max(s.size for s in self.piece_slots[idx] if s is not None)
+
+    def piece_shape(self, idx: int, shard: int) -> Tuple[int, ...]:
+        """The shape of shard ``shard``'s piece of leaf ``idx`` (one
+        replica): its block's shape where the piece is the whole block,
+        else ``(size,)``, ``(0,)`` for an empty piece."""
+        s = self.piece_slots[idx][shard]
+        if s is None:
+            return (0,)
+        return s.shape if s.size == math.prod(s.shape) else (s.size,)
+
+    def piece(self, leaf: torch.Tensor, idx: int, shard: int
+              ) -> torch.Tensor:
+        """Shard ``shard``'s piece of leaf ``idx`` (any leading axes
+        kept), a fresh contiguous tensor of ``piece_shape``."""
+        s = self.piece_slots[idx][shard]
+        lead = tuple(leaf.shape[:leaf.dim() - len(self.leaf_shapes[idx])])
+        piece = (leaf.new_empty(lead + (0,)) if s is None
+                 else self._piece_of(leaf, s))
+        return piece.reshape(lead + self.piece_shape(idx, shard)).clone(
+            memory_format=torch.contiguous_format)
+
+    def cut_pieces(self, tree, shard: int):
+        """The tree of shard ``shard``'s pieces of ``tree``'s leaves
+        (``piece``)."""
+        return self.treedef.unflatten(
+            [self.piece(leaf, idx, shard) for idx, leaf in
+             enumerate(self.treedef.flatten_up_to(tree))])
+
+    def padded_piece(self, piece: torch.Tensor, idx: int) -> torch.Tensor:
+        """A piece of leaf ``idx`` flat after its leading axis and
+        zero-padded to ``piece_len``: how every shard's piece travels in
+        a collective, which takes equal sizes."""
+        flat, n = piece.reshape(piece.shape[0], -1), self.piece_len(idx)
+        if flat.shape[-1] == n:
+            return flat
+        out = flat.new_zeros((flat.shape[0], n))
+        out[:, :flat.shape[-1]] = flat
+        return out
+
+    def place_pieces(self, idx: int, parts: Sequence[torch.Tensor]
+                     ) -> torch.Tensor:
+        """A fresh leaf ``idx`` from its pieces: ``parts[s]`` holds shard
+        s's piece flat along its last dim (any leading axes, at least the
+        piece's length: a padded transport buffer), each placed at its
+        block coordinates and chunk."""
+        lead = tuple(parts[0].shape[:-1])
+        return self._assemble(lead, parts[0], idx, self.leaf_blocks[idx],
+                              lambda s: parts[s.shard][..., :s.size])
+
+    def gather_pieces(self, tree, group):
+        """The whole leaves of a rank's tree of pieces (``cut_pieces`` at
+        ``group.shard``, one replica row): per leaf one ``all_gather`` of
+        the pieces over the in-replica group (``_GatherPiece``, whose
+        backward reduce-scatters the leaf's gradient over the batch
+        group)."""
+        leaves = self.treedef.flatten_up_to(tree)
+        return self.treedef.unflatten(
+            [_GatherPiece.apply(x, self, idx, group)
+             for idx, x in enumerate(leaves)])
 
     @staticmethod
     def _block_of(leaf: torch.Tensor, slot: LeafSlot) -> torch.Tensor:
@@ -245,14 +339,18 @@ class BucketLayout:
         start = self.global_offset(slot)
         return bucket[..., start:start + slot.size]
 
-    def _write_piece(self, stretch, leaf, slot: LeafSlot) -> None:
-        """Copy ``slot``'s piece of ``leaf`` into its shard's stretch, at
-        the slot's in-stretch offset."""
+    def _piece_of(self, leaf, slot: LeafSlot) -> torch.Tensor:
+        """``slot``'s piece of ``leaf`` (any leading axes), flat."""
         src = self._block_of(leaf, slot)
         flat = src.reshape(tuple(src.shape[:src.dim() - len(slot.shape)])
                            + (-1,))
+        return flat[..., slot.chunk_start:slot.chunk_start + slot.size]
+
+    def _write_piece(self, stretch, leaf, slot: LeafSlot) -> None:
+        """Copy ``slot``'s piece of ``leaf`` into its shard's stretch, at
+        the slot's in-stretch offset."""
         stretch[..., slot.offset:slot.offset + slot.size].copy_(
-            flat[..., slot.chunk_start:slot.chunk_start + slot.size])
+            self._piece_of(leaf, slot))
 
     def _write_block(self, bucket, leaf, block) -> None:
         """Copy one block of ``leaf`` into its pieces of ``bucket``."""
@@ -267,16 +365,23 @@ class BucketLayout:
             self._piece(bucket, s).copy_(
                 flat[..., s.chunk_start:s.chunk_start + s.size])
 
-    def _read_leaf(self, bucket, idx: int, blocks) -> torch.Tensor:
-        """A fresh leaf ``idx`` assembled from its pieces in ``bucket``."""
-        lead = tuple(bucket.shape[:-1])
-        out = bucket.new_empty(lead + self.leaf_shapes[idx])
+    def _assemble(self, lead, like, idx: int, blocks,
+                  part_of) -> torch.Tensor:
+        """A fresh leaf ``idx`` (leading axes ``lead``, ``like``'s dtype
+        and device), each block copied from its slots' flat pieces
+        ``part_of(slot)``."""
+        out = like.new_empty(lead + self.leaf_shapes[idx])
         for block in blocks:
-            parts = [self._piece(bucket, s) for s in block]
+            parts = [part_of(s) for s in block]
             src = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
             self._block_of(out, block[0]).copy_(
-                src.view(lead + block[0].shape))
+                src.reshape(lead + block[0].shape))
         return out
+
+    def _read_leaf(self, bucket, idx: int, blocks) -> torch.Tensor:
+        """A fresh leaf ``idx`` assembled from its pieces in ``bucket``."""
+        return self._assemble(tuple(bucket.shape[:-1]), bucket, idx, blocks,
+                              lambda s: self._piece(bucket, s))
 
     @functools.cached_property
     def segments(self) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
@@ -402,38 +507,64 @@ def as_bits(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().reshape(tuple(x.shape) or (1,)).view(torch.uint8)
 
 
-def _reduce_scatter_stretch(full: torch.Tensor, group) -> torch.Tensor:
-    """This rank's stretch of the sum of ``full`` (a ``(1, num_shards *
-    stride)`` bucket gradient) over its batch group: an ``all_to_all`` of
-    each member's chunk of every member's gradient, then the fp32 sum in
-    batch order from zero, rounded once to the bucket dtype. Without a
-    batch group the rank's own chunk."""
-    stride = full.shape[-1] // group.num_shards
-    mine = full[..., group.shard * stride:(group.shard + 1) * stride]
-    if group.batch is None:
-        return mine.clone()
-    chunks = [group.inner_ranks.index(r) for r in group.batch_ranks]
-    send = torch.cat([full[..., s * stride:(s + 1) * stride]
-                      for s in chunks], dim=-1)
+def gather_rows(x: torch.Tensor, pg, n: int) -> list:
+    """``x`` of every member of the process group ``pg`` (``n`` members,
+    None: the default group), in group order, moved as raw bits (an empty
+    ``x``, empty on every member, moves nothing)."""
+    if x.numel() == 0:
+        return [x.clone() for _ in range(n)]
+    bits = as_bits(x)
+    parts = [torch.empty_like(bits) for _ in range(n)]
+    tdist.all_gather(parts, bits, group=pg)
+    return [p.view(x.dtype).reshape(x.shape) for p in parts]
+
+
+def _batch_shards_of(group) -> list:
+    """The in-replica shard index of each member of ``group``'s batch
+    group, in batch order."""
+    return [group.inner_ranks.index(r) for r in group.batch_ranks]
+
+
+def _sum_over_batch(chunks: Sequence[torch.Tensor], group) -> torch.Tensor:
+    """The sum over ``group``'s batch group of what each member sends this
+    rank: ``chunks[b]`` (equal shapes, one per member in batch order) goes
+    to member b in one ``all_to_all``, and the received chunks are summed
+    in fp32 in batch order from zero, rounded once to their dtype (a fixed
+    order, so the sum is deterministic; gloo has no CUDA
+    reduce-scatter)."""
+    send = torch.cat(list(chunks), dim=-1)
     recv = torch.empty_like(as_bits(send))
     tdist.all_to_all_single(recv.view(-1), as_bits(send).view(-1),
                             group=group.batch)
-    pieces = recv.view(full.dtype).reshape(tuple(full.shape[:-1])
-                                           + (group.batch_shards, stride))
-    acc = torch.zeros(mine.shape, dtype=torch.float32, device=full.device)
-    for b in range(group.batch_shards):
-        acc = acc + pieces[..., b, :].float()
-    return acc.to(full.dtype)
+    n = chunks[0].shape[-1]
+    got = recv.view(send.dtype).reshape(tuple(send.shape[:-1])
+                                        + (len(chunks), n))
+    acc = torch.zeros(chunks[0].shape, dtype=torch.float32,
+                      device=send.device)
+    for b in range(len(chunks)):
+        acc = acc + got[..., b, :].float()
+    return acc.to(send.dtype)
+
+
+def _reduce_scatter_stretch(full: torch.Tensor, group) -> torch.Tensor:
+    """This rank's stretch of the sum of ``full`` (a ``(1, num_shards *
+    stride)`` bucket gradient) over its batch group (``_sum_over_batch``
+    of each member's chunk). Without a batch group the rank's own
+    chunk."""
+    stride = full.shape[-1] // group.num_shards
+    if group.batch is None:
+        return full[..., group.shard * stride:
+                    (group.shard + 1) * stride].clone()
+    return _sum_over_batch([full[..., s * stride:(s + 1) * stride]
+                            for s in _batch_shards_of(group)], group)
 
 
 def _gather_stretches(stretch: torch.Tensor, group) -> torch.Tensor:
     """The replica's whole ``(1, num_shards * stride)`` bucket from its
     ranks' stretches: ``all_gather`` over the in-replica group, in shard
     order."""
-    bits = as_bits(stretch)
-    parts = [torch.empty_like(bits) for _ in range(group.num_shards)]
-    tdist.all_gather(parts, bits, group=group.inner)
-    return torch.cat(parts, dim=-1).view(stretch.dtype)
+    return torch.cat(gather_rows(stretch, group.inner, group.num_shards),
+                     dim=-1)
 
 
 class _GatherStretch(torch.autograd.Function):
@@ -450,6 +581,37 @@ class _GatherStretch(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         return _reduce_scatter_stretch(grad, ctx.group), None
+
+
+class _GatherPiece(torch.autograd.Function):
+    """The per-leaf counterpart of ``_GatherStretch``. Forward: leaf
+    ``idx`` of the replica from this rank's ``(1, *piece_shape)`` piece,
+    one ``all_gather`` of the pieces (padded to ``piece_len``, as raw
+    bits) over the in-replica group, each placed at its block coordinates
+    and chunk (``place_pieces``). Backward: the rank's piece of the leaf
+    gradient summed over its batch group (``_sum_over_batch`` of each
+    member's piece), or its own piece without a batch group."""
+
+    @staticmethod
+    def forward(ctx, piece, layout: BucketLayout, idx: int, group):
+        ctx.layout, ctx.idx, ctx.group = layout, idx, group
+        ctx.shape = tuple(piece.shape)
+        return layout.place_pieces(
+            idx, gather_rows(layout.padded_piece(piece, idx), group.inner,
+                             group.num_shards))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        layout, idx, group = ctx.layout, ctx.idx, ctx.group
+        if group.batch is None:
+            return layout.piece(grad, idx, group.shard), None, None, None
+        # every member takes part, with an empty piece too
+        summed = _sum_over_batch(
+            [layout.padded_piece(layout.piece(grad, idx, s), idx)
+             for s in _batch_shards_of(group)], group)
+        size = math.prod(ctx.shape)
+        return summed[..., :size].reshape(ctx.shape), None, None, None
 
 
 def _leaf_pieces(shape: Tuple[int, ...], spec, shard_axes: Tuple[str, ...],

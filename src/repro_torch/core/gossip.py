@@ -68,8 +68,8 @@ from repro_torch.kernels.quantize import (WireFormat, encode_wire, wire_itemsize
                                           wire_key)
 from repro_torch.tree import tree_flatten
 
-from .buckets import (LANE, BucketLayout, PackedParams, as_bits,
-                      check_layout_mesh)
+from .buckets import (LANE, BucketLayout, PackedParams, check_layout_mesh,
+                      gather_rows)
 from .replica_group import ReplicaGroup
 from .topology import (BucketSubsetSchedule, GossipSchedule,
                        build_subset_schedule)
@@ -113,7 +113,9 @@ def _exchange_ranks(x, recv_from, group):
     """``exchange`` between processes: this replica sends its tensors to
     every replica j with ``recv_from[j] == replica`` and receives from
     ``recv_from[replica]``, all in one batch of point-to-point operations
-    over the cross-replica group (peers named by their global ranks)."""
+    over the cross-replica group (peers named by their global ranks). An
+    empty tensor (a per-leaf rank's empty piece, empty at every replica of
+    its shard) moves nothing."""
     rf = np.asarray(recv_from.cpu() if isinstance(recv_from, torch.Tensor)
                     else recv_from).reshape(-1)
     if rf.shape[0] != group.dp:
@@ -126,6 +128,8 @@ def _exchange_ranks(x, recv_from, group):
     outs = [t.clone() if src == me else torch.empty_like(t) for t in ins]
     ops = []
     for tag, (t, o) in enumerate(zip(ins, outs)):
+        if t.numel() == 0:
+            continue
         t = t.contiguous()
         ops += [dist.P2POp(dist.isend, t, peer[d], group=group.cross,
                            tag=tag) for d in dsts]
@@ -172,15 +176,6 @@ def replica_mean(x: torch.Tensor,
         acc = acc + r.float()
     recip = device_scalar(np.float32(1) / np.float32(len(rows)), x)
     return (acc * recip).to(x.dtype).expand_as(x)
-
-
-def gather_rows(x: torch.Tensor, pg, n: int) -> list:
-    """``x`` of every member of the process group ``pg`` (``n`` members,
-    None: the default group), in group order, moved as raw bits."""
-    bits = as_bits(x)
-    parts = [torch.empty_like(bits) for _ in range(n)]
-    dist.all_gather(parts, bits, group=pg)
-    return [p.view(x.dtype).reshape(x.shape) for p in parts]
 
 
 def group_mean(x: torch.Tensor, pg, n: int) -> torch.Tensor:
@@ -306,6 +301,8 @@ def _mix_leaf(x: torch.Tensor, recv: torch.Tensor, alpha, mix_impl):
     With ``mix_impl(a, b, alpha)``: called on the leaf and its partner
     viewed as ``(rows, -1)``, its result written back unless it wrote in
     place."""
+    if x.numel() == 0:   # a per-leaf rank's empty piece
+        return x
     if mix_impl is not None:
         a = x.view(x.shape[0], -1)
         out = mix_impl(a, recv.reshape(a.shape), alpha)

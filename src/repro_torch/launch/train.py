@@ -33,16 +33,18 @@ it on one device, where it always takes the smoke mesh.
 When ``WORLD_SIZE`` > 1 (``torchrun``) every mesh position of
 ``--smoke-mesh`` is one process over ``torch.distributed`` (gloo with
 ``--device cpu``, NCCL on ``cuda:LOCAL_RANK``), ``WORLD_SIZE`` equal to
-POD x DATA x MODEL (``launch.mesh.init_replica_group(dist=...)``). Under
-``--packed`` a plan that shards inside a replica runs in-pod FSDP: each
+POD x DATA x MODEL (``launch.mesh.init_replica_group(dist=...)``). A plan
+that shards inside a replica runs in-pod FSDP: under ``--packed`` each
 process holds its stretch of every bucket, the forward all-gathers the
-replica's stretches and the backward reduce-scatters the gradient; the
-gossip runs between the processes at the same shard position. Without
-``--packed`` such a plan raises ``NotImplementedError`` (ROADMAP A.12c:
-the per-leaf engines across processes). ``--checkpoint`` and
-``--resume`` work per rank: the ranks gather to rank 0, which writes the
-stacked run's files, and each restores its own row and stretch. Only rank
-0 prints.
+replica's stretches and the backward reduce-scatters the gradient;
+without it (the per-leaf engines) each process holds its piece of every
+leaf, and the forward all-gathers each leaf and the backward
+reduce-scatters its gradient. The gossip runs between the processes at
+the same shard position. ``--checkpoint`` and ``--resume`` work per
+rank: the ranks gather to rank 0, which writes the stacked run's files,
+and each restores its own row and its stretch or pieces. Only rank 0
+prints; the final JSON line's ``num_shards`` is the shards a replica is
+split into on the ranks (1 when stacked without ``--packed``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
@@ -50,6 +52,8 @@ stacked run's files, and each restores its own row and stretch. Only rank
         --smoke --packed --smoke-mesh 1,2,2 --steps 8 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --smoke --smoke-mesh 1,4,1 --steps 8 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --smoke-mesh 1,2,2 --steps 8 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --smoke --packed --smoke-mesh 2,2,2 --steps 8 --device cpu \
         --checkpoint /tmp/ck
@@ -160,11 +164,6 @@ def main(argv=None) -> None:
             raise ValueError(f"--smoke-mesh {args.smoke_mesh} has "
                              f"{pod * data * model} positions but WORLD_SIZE "
                              f"is {world}")
-        if dist.shard_axes and not args.packed:
-            raise NotImplementedError(
-                f"the per-leaf engine with in-replica shards (axes "
-                f"{dist.shard_axes}) across processes is not ported yet "
-                "(ROADMAP A.12c); pass --packed")
         group = init_replica_group(args.device, dist=dist)
         try:
             _run(args, dist, group.device, group.rank == 0, group)
@@ -198,7 +197,8 @@ def _run(args, dist, device, report: bool, group=None) -> None:
             raise SystemExit(
                 f"checkpoint was written by protocol {meta['protocol']!r}; "
                 f"refusing to resume it as {args.protocol!r}")
-        state, manifest = restore_state(args.checkpoint, state, group)
+        state, manifest = restore_state(args.checkpoint, state, group,
+                                        bundle.pieces)
         start_step = int(manifest.get("step") or 0)
         if report:
             print(f"resumed {args.checkpoint} at step {start_step} "
@@ -211,8 +211,10 @@ def _run(args, dist, device, report: bool, group=None) -> None:
     if report:
         print(json.dumps({"arch": cfg.name, "protocol": args.protocol,
                           "packed": args.packed, "fused": bundle.fused,
-                          "dp": dp, "num_shards": (bundle.layout.num_shards
-                                                   if bundle.layout else 1),
+                          "dp": dp, "num_shards": next(
+                              (t.num_shards for t in (bundle.layout,
+                                                      bundle.pieces)
+                               if t is not None), 1),
                           "staleness": bundle.protocol.staleness,
                           "wire_dtype": args.wire_dtype,
                           "gossip_subset": args.gossip_subset,
@@ -229,7 +231,7 @@ def _run(args, dist, device, report: bool, group=None) -> None:
                              "gossip_subset": args.gossip_subset,
                              "wire_seed": args.wire_seed,
                              "phase": end_step % period},
-                   step=end_step, group=group)
+                   step=end_step, group=group, pieces=bundle.pieces)
         if report:
             print(f"checkpoint -> {args.checkpoint}")
 

@@ -35,7 +35,11 @@ sweep any bucket layout; lars reads per-layer norms through the
 unpacked leaves are assembled copies, so lars's tree-level update takes
 each norm over the whole leaf and writes the results back into the
 buckets; its fused backend, whose prepass reads one bucket at a time, is
-refused there, as in the reference.
+refused there, as in the reference. On one process per mesh position
+lars's norms span what the stacked run's span: a rank's packed state
+gathers its replica's leaves, and a per-leaf rank (``update(...,
+group=)``) adds its pieces' squares over the in-replica group in shard
+order, then every rank's over the replicas in replica order.
 """
 from __future__ import annotations
 
@@ -62,6 +66,9 @@ __all__ = ["Optimizer", "sgd", "adamw", "lars"]
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable
+    # update(params, grads, state, group=None) -> (params, state), in
+    # place; ``group`` is a per-leaf rank's ReplicaGroup (read by lars's
+    # norms; the elementwise rules need no other rank)
     update: Callable
     # state keys (beyond "step") holding per-param moment buffers, in the
     # order fused_update takes and returns them
@@ -120,7 +127,7 @@ def sgd(schedule: Schedule | float, momentum: float = 0.9,
         return {"step": 0, "mom": mom}
 
     @torch.no_grad()
-    def update(params, grads, state):
+    def update(params, grads, state, group=None):
         lr = sched(state["step"])
         moms = _parts(state["mom"]) if momentum else None
         for i, (p, g) in enumerate(zip(_parts(params), _parts(grads))):
@@ -164,7 +171,7 @@ def adamw(schedule: Schedule | float, b1: float = 0.9, b2: float = 0.95,
         return {"step": 0, "m": _zeros_f32(params), "v": _zeros_f32(params)}
 
     @torch.no_grad()
-    def update(params, grads, state):
+    def update(params, grads, state, group=None):
         lr, t = sched(state["step"]), state["step"] + 1
         ms, vs = _parts(state["m"]), _parts(state["v"])
         for i, (p, g) in enumerate(zip(_parts(params), _parts(grads))):
@@ -269,24 +276,35 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
             gf = gf + weight_decay * pf
         return pf, gf
 
-    def squares(ps, gs, group):
+    def summed(sq, pg, n):
+        """``sq`` added over the ``n`` members of ``pg`` in member order
+        from zero (``sq`` itself for one member)."""
+        if n <= 1:
+            return sq
+        acc = torch.zeros_like(sq)
+        for part in gather_rows(sq, pg, n):
+            acc = acc + part
+        return acc
+
+    def squares(ps, gs, group, pieces):
         """Per leaf ``(|w|^2, |g + wd w|^2)`` in fp32, ``(leaves, 2)``;
-        under a replica group summed over the replicas in replica order
-        (the stacked leaf spans them all)."""
+        with ``pieces`` (a per-leaf rank's pieces, which tile each leaf
+        once) first added over the in-replica group in shard order; under
+        a replica group then over the replicas in replica order (the
+        stacked leaf spans them all)."""
         sq = []
         for p, g in zip(ps, gs):
             pf, gf = direction(p, g)
             sq.append(torch.stack([(pf * pf).sum(), (gf * gf).sum()]))
         sq = torch.stack(sq)
-        if group is not None and group.dp > 1:
-            acc = torch.zeros_like(sq)
-            for part in gather_rows(sq, group.cross, group.dp):
-                acc = acc + part
-            sq = acc
-        return sq
+        if group is None:
+            return sq
+        if pieces:
+            sq = summed(sq, group.inner, group.num_shards)
+        return summed(sq, group.cross, group.dp)
 
     @torch.no_grad()
-    def update(params, grads, state):
+    def update(params, grads, state, group=None):
         """In place, leaf by leaf (on the ``unpack()`` views when packed).
         Each norm spans
         the leaf AS GIVEN, i.e. across the stacked replica axis, exactly as
@@ -296,13 +314,17 @@ def lars(schedule: Schedule | float, momentum: float = 0.9,
         then packed back into the buckets. A rank's packed state
         (``PackedParams.group``) gathers its replica's leaves and adds the
         replicas' sums of squares in replica order, so its norms span what
-        the stacked ones span; it writes back its own pieces."""
+        the stacked ones span; it writes back its own pieces. A per-leaf
+        rank passes its ``group``: its tree holds its replica's leaves, or
+        under in-replica shards its pieces of them, whose squares are
+        added over the replica's shards before the replicas."""
         lr = sched(state["step"])
         ps, ms = leaves(params), leaves(state["mom"])
         gs = leaves(grads)
-        group = (params.group if isinstance(params, PackedParams)
-                 else None)
-        sq = squares(ps, gs, group)
+        packed = isinstance(params, PackedParams)
+        group = params.group if packed else group
+        sq = squares(ps, gs, group, pieces=not packed and group is not None
+                     and group.num_shards > 1)
         for i, (p, g, m) in enumerate(zip(ps, gs, ms)):
             pf, gf = direction(p, g)
             trust = _trust(_sqrt_rn(sq[i, 0]), _sqrt_rn(sq[i, 1]), **hyper)

@@ -52,8 +52,15 @@ the replica's stretches and the backward reduce-scatters the gradient
 shard axes that are batch axes (fsdp's ``data``), so a rank's loss is
 scaled by ``1 / batch_shards`` and the summed gradient is the replica's
 mean-loss gradient. The engines, the wire, the ring and the replica means
-run over the cross-replica group on the stretches. The per-leaf engine
-under in-replica shards across processes is not ported (ROADMAP A.12c).
+run over the cross-replica group on the stretches. The per-leaf engines
+hold the rank's piece of every leaf instead (the same partition,
+``BucketLayout.cut_pieces``; ``bundle.pieces`` is its table): the forward
+all-gathers each leaf over the in-replica group and the backward
+reduce-scatters its gradient over the batch group
+(``BucketLayout.gather_pieces``), the optimizer runs on the pieces (lars
+adds its squares over the replica's shards, then the replicas), and the
+mix, the ring and the replica means run on them over the cross-replica
+group, as the reference's per-leaf engine runs on its sharded arrays.
 The step runs under ``dist_ctx.use_distribution(dist)``, as the
 reference's does.
 
@@ -107,7 +114,7 @@ __all__ = ["TrainStepBundle", "make_train_step_bundle", "init_train_state"]
 
 class TrainStepBundle:
     def __init__(self, *, step_fn, protocol, cfg, optimizer, dp, layout,
-                 fused, device, wire, group, dist=None):
+                 fused, device, wire, group, dist=None, pieces=None):
         self.step_fn = step_fn      # (state, batch, phase, rotate) -> (state, next_batch, metrics)
         self.protocol = protocol
         self.cfg = cfg
@@ -119,6 +126,8 @@ class TrainStepBundle:
         self.wire = wire            # the protocol's WireFormat
         self.group = group          # this process's ReplicaGroup, or None
         self.dist = dist            # the Distribution it was built for, or None
+        self.pieces = pieces        # a per-leaf rank's piece table (a
+                                    # shard-local BucketLayout), or None
 
     def step(self, state, batch, phase: int, *, rotate: bool = True):
         """``(state, next_batch, metrics)``; ``rotate=False`` skips the ring
@@ -145,11 +154,10 @@ def _stacked(tree, cfg: ModelConfig, rows: int):
 
 
 def _resolve_dp(dp: Optional[int], dist: Optional[Distribution],
-                group: Optional[ReplicaGroup], packed: bool) -> int:
+                group: Optional[ReplicaGroup]) -> int:
     """dp from ``dp=`` or from the plan (both: they must agree). A replica
     group must hold the plan's shards: one joined with the plan
-    (``launch.mesh.init_replica_group(dist=...)``); with shards it needs
-    the packed engines."""
+    (``launch.mesh.init_replica_group(dist=...)``)."""
     if dist is None:
         if dp is None:
             raise TypeError("pass dp= or dist=")
@@ -157,12 +165,6 @@ def _resolve_dp(dp: Optional[int], dist: Optional[Distribution],
     if dp is not None and int(dp) != dist.dp:
         raise ValueError(f"dp={dp} but the distribution gives dp={dist.dp}")
     if group is not None and dist.shard_axes:
-        if not packed:
-            raise NotImplementedError(
-                f"the per-leaf engine with in-replica shards (axes "
-                f"{dist.shard_axes}) across processes is not ported yet "
-                "(ROADMAP A.12c); run the packed engines (gossip_packed="
-                "True, --packed)")
         shards = int(np.prod(dist.shard_axis_sizes))
         if group.num_shards != shards:
             raise ValueError(
@@ -199,6 +201,19 @@ def _build_packed_layout(dist: Optional[Distribution], cfg: ModelConfig):
     return build_layout(specs, shard_axes=dist.shard_axes,
                         shard_axis_sizes=dist.shard_axis_sizes,
                         shard_specs=td.unflatten([inner(p) for p in full]))
+
+
+def _piece_layout(dist: Optional[Distribution], cfg: ModelConfig,
+                  group: Optional[ReplicaGroup], packed: bool):
+    """A per-leaf rank's piece table: the plan's shard-local layout
+    (``_build_packed_layout``; only its slots are read) when the rank holds
+    one shard of a replica that the plan splits, else None."""
+    if packed or group is None or group.num_shards <= 1:
+        return None
+    if dist is None:
+        raise ValueError("a replica group with in-replica shards needs the "
+                         "plan it was joined with: pass dist=")
+    return _build_packed_layout(dist, cfg)
 
 
 def _rank_chunk(packed: PackedParams, group: ReplicaGroup,
@@ -239,14 +254,16 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
     the bundle's ``group``), whose buckets are the rank's stretches.
     ``params`` may give that replica's tree (or a ready ``PackedParams``,
     e.g. from ``checkpoint.bridge``, of which a rank keeps its replica's
-    row and its shard's chunk) instead of drawing it with ``seed``.
+    row and its shard's chunk) instead of drawing it with ``seed``. A
+    per-leaf rank of a plan that shards inside a replica keeps its piece
+    of every leaf (``BucketLayout.cut_pieces``).
 
     ``inbox`` is the ring depth (pass the bundle's ``protocol.staleness``;
     0 = no ring) and ``wire`` the bundle's ``wire``: gossip_async carries a
     ring bootstrapped all-invalid, its slots copies of the params or, under
     a compressed wire (packed only), zero payloads."""
     dev = resolve_device(device)
-    dp = _resolve_dp(dp, dist, group, packed)
+    dp = _resolve_dp(dp, dist, group)
     rows = local_rows(dp, group)
     if not wire.is_default and inbox and not packed:
         raise ValueError("the compressed wire needs packed state")
@@ -269,6 +286,9 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
         tree = params if params is not None else lm_init(cfg, seed=seed,
                                                          device=dev)
         params = _stacked(tree_map(lambda x: x.to(dev), tree), cfg, rows)
+        pieces = _piece_layout(dist, cfg, group, packed)
+        if pieces is not None:
+            params = pieces.cut_pieces(params, group.shard)
         leaves = tree_flatten(params)[0]
     for x in leaves:
         x.requires_grad_(True)
@@ -332,7 +352,7 @@ def make_train_step_bundle(
     ``core.replica_group.ReplicaGroup``; None: the dp replicas stacked on
     ``device``)."""
     dev = resolve_device(device)
-    dp = _resolve_dp(dp, dist, group, gossip_packed)
+    dp = _resolve_dp(dp, dist, group)
     local_rows(dp, group)
     mesh = dist.mesh if dist is not None else None
     wire = WireFormat(dtype=wire_dtype, subset=gossip_subset, seed=wire_seed)
@@ -400,8 +420,12 @@ def make_train_step_bundle(
     shuffle = (make_ring_shuffle(dp, group) if rotate_samples and dp > 1
                else None)
 
+    pieces = _piece_layout(dist, cfg, group, gossip_packed)
+
     def as_tree(params):
-        return params.unpack() if gossip_packed else params
+        if gossip_packed:
+            return params.unpack()
+        return pieces.gather_pieces(params, group) if pieces else params
 
     def autograd_leaves(params):
         return params.buckets if gossip_packed else tree_flatten(params)[0]
@@ -438,7 +462,8 @@ def make_train_step_bundle(
                 if proto.name == "every_logp":
                     params = proto.comm_params(params, phase)
             else:
-                params, opt = optimizer.update(params, grads, state["opt"])
+                params, opt = optimizer.update(params, grads, state["opt"],
+                                               group=group)
                 if not ring:
                     params = proto.comm_params(params, phase)
         for x in autograd_leaves(params):
@@ -459,4 +484,5 @@ def make_train_step_bundle(
     return TrainStepBundle(step_fn=train_step, protocol=proto, cfg=cfg,
                            optimizer=optimizer, dp=dp, layout=layout,
                            fused=bool(fused_update), device=dev,
-                           wire=proto.wire, group=group, dist=dist)
+                           wire=proto.wire, group=group, dist=dist,
+                           pieces=pieces)

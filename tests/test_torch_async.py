@@ -23,6 +23,7 @@
 """
 import dataclasses
 import functools
+import json
 import os
 import pickle
 import subprocess
@@ -438,6 +439,34 @@ def test_step_rotates_batches_under_gossip_async():
     assert state["inbox"]["t"] == 1
 
 
+def _launch_ranks(argv, world: int) -> dict:
+    """The launcher's final JSON line from ``world`` processes of
+    ``python -m repro_torch.launch.train argv`` joined as ``torchrun``
+    joins them (gloo on localhost); every wait has a time limit."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1", RANK=str(r), LOCAL_RANK=str(r),
+                 WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                 MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
 def test_launcher_runs_gossip_async_wire(capsys, monkeypatch):
     from repro_torch.launch.train import main
     main(["--smoke", "--packed", "--smoke-mesh", "1,4,1", "--steps", "2",
@@ -447,13 +476,20 @@ def test_launcher_runs_gossip_async_wire(capsys, monkeypatch):
           "--gossip-subset", "0.5", "--no-fused-update"])
     out = capsys.readouterr().out
     assert '"staleness": 2' in out and '"fused": false' in out
-    # under WORLD_SIZE > 1 the ranks are the mesh's positions (4 here), and
-    # the per-leaf engine with in-replica shards is not ported (A.12c)
+    # under WORLD_SIZE > 1 the ranks are the mesh's positions (4 here); the
+    # per-leaf ring runs on each rank's pieces of its replica's leaves, as
+    # the stacked per-leaf ring runs on the whole leaves
+    leaf = ["--smoke", "--multi-pod", "--smoke-mesh", "1,2,2", "--steps",
+            "2", "--seq-len", "8", "--global-batch", "4", "--d-model", "32",
+            "--log-every", "0", "--device", "cpu", "--protocol",
+            "gossip_async", "--staleness", "2", "--drop-timeout", "0.2"]
+    main(leaf)
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    got = _launch_ranks(leaf, 4)
+    assert (got["dp"], got["num_shards"], got["staleness"]) == (2, 2, 2)
+    for key in ("first_loss", "final_loss"):
+        assert abs(got[key] - want[key]) <= 2e-4 * abs(want[key]), key
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(ValueError, match="WORLD_SIZE"):
         main(["--smoke", "--packed", "--multi-pod", "--smoke-mesh", "1,2,2",
-              "--device", "cpu"])
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12c"):
-        main(["--smoke", "--multi-pod", "--smoke-mesh", "1,2,2",
               "--device", "cpu"])

@@ -602,8 +602,9 @@ def test_fsdp_plan_runs_async_int8_and_lars_rules(deterministic):
     """fsdp on (2, 2, 2): dp 2 over pods, 4 shards; the int8 async ring
     runs fused and unfused; lars defaults to unfused there and refuses a
     fused request. Under a replica group with in-replica shards the packed
-    engines build, the per-leaf engine raises naming ROADMAP A.12c, and a
-    group joined without the plan's shards is refused."""
+    engines build, and so does the per-leaf engine, whose state holds the
+    rank's piece of every leaf of the drawn tree; a group joined without
+    the plan's shards is refused."""
     dist = make_distribution(make_smoke_mesh(2, 2, pod=2), "fsdp")
     assert dist.dp == 2 and dist.shard_axes == ("data", "model")
     for fused in (True, False):
@@ -624,9 +625,20 @@ def test_fsdp_plan_runs_async_int8_and_lars_rules(deterministic):
                                    group=group, gossip_packed=True,
                                    fused_update=fused)
         assert b.group is group and b.layout.num_shards == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12c"):
-        make_train_step_bundle(_cfg(), sgd(0.1), dist=dist, device="cpu",
+    from repro_torch.models import lm_init
+    opt = sgd(0.1)
+    b = make_train_step_bundle(_cfg(), opt, dist=dist, device="cpu",
                                group=group)
+    assert b.layout is None and b.pieces.num_shards == 4
+    state = init_train_state(_cfg(), opt, dist=dist, device="cpu", seed=3,
+                             group=group)
+    whole = tree_flatten(lm_init(_cfg(), seed=3, device="cpu"))[0]
+    for i, (x, w) in enumerate(zip(tree_flatten(state["params"])[0],
+                                   whole)):
+        assert x.requires_grad and tuple(x.shape) == (
+            1,) + b.pieces.piece_shape(i, group.shard)
+        assert torch.equal(x.detach(), b.pieces.piece(w[None], i,
+                                                      group.shard))
     with pytest.raises(ValueError, match="init_replica_group"):
         make_train_step_bundle(_cfg(), sgd(0.1), dist=dist, device="cpu",
                                gossip_packed=True,

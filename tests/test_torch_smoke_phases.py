@@ -347,3 +347,37 @@ def test_fsdp_ranks_phases(cs):
     assert cs._refusal([({"error": "RuntimeError: ProcessGroupGloo does "
                                    "not support send of CUDA tensors"},
                          {})]) is not None
+
+
+def test_leaf_ranks_phases(cs):
+    """[leaf_ranks] and [leaf_ranks_agree] at toy size: four gloo ranks of
+    the (1, 2, 2) fsdp mesh on the CPU, each holding its piece of every
+    leaf; the bytes their per-leaf gathers and reduce-scatters receive
+    equal the padded pieces' bytes (at least the dry run's count, which
+    they equal where no piece is padded), the kernel's plain version on
+    each rank's largest piece is bit-equal, and the per-leaf sgd and lars
+    runs agree with the stacked per-leaf run, lars's trust ratios within
+    rtol 2e-6, the checkpoints crossing both ways bit for bit."""
+    ranks = dict(cs.LEAF_RANKS, reduced=dict(d_model=32), seq=8, steps=2)
+    agree = dict(cs.LEAF_AGREE, reduced=dict(d_model=32), seq=8, steps=2)
+    out = cs.leaf_ranks_run("cpu", ranks=ranks, agree=agree)
+    assert cs._ranks_failed(out, "leaf_ranks") is None
+    rec = cs.check_leaf_ranks(out, "cpu")
+    assert rec["world"] == 4 and rec["mesh"] == [1, 2, 2]
+    assert rec["engine"] == "per-leaf" and rec["tokens_per_rank"] == 8
+    # the pieces tile the replica once
+    assert sum(rec["piece_elements_by_rank"]) == sum(
+        int(np.prod(s)) for s in out["pieces"].leaf_shapes)
+    for moved in rec["bytes_per_step_by_rank"]:
+        assert moved["all_gather"] >= rec["count_per_step"][
+            "all-gather_bytes"] > 0
+        assert moved["reduce_scatter"] >= rec["count_per_step"][
+            "reduce-scatter_bytes"] > 0
+    assert rec["peak_mem_gb_by_rank"] == [None] * 4
+    assert all(m["equal"] and m["launches"] == 0
+               for m in rec["mix_by_rank"])
+    agreed = cs.check_leaf_agree(out)
+    assert agreed["rank_file_restores_in_stacked_bit_equal"]
+    assert agreed["stacked_file_restores_in_ranks_bit_equal"]
+    assert agreed["lars"]["trust_ratios"] > 0
+    assert agreed["sgd"]["max_abs_diff_params"] <= 2e-4

@@ -13,6 +13,7 @@ reference's ``make_train_step_bundle``.
 """
 import ast
 import dataclasses
+import json
 import os
 import pickle
 import subprocess
@@ -194,13 +195,42 @@ def test_dp1_matches_reference_in_process():
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **TOL)
 
 
+def _launch_ranks(argv, world: int) -> dict:
+    """The launcher's final JSON line from ``world`` processes of
+    ``python -m repro_torch.launch.train argv`` joined as ``torchrun``
+    joins them (gloo on localhost); every wait has a time limit."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 OMP_NUM_THREADS="1", RANK=str(r), LOCAL_RANK=str(r),
+                 WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                 MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
 def test_launcher_runs_and_refuses_unported_meshes(capsys, monkeypatch):
     """Every --smoke-mesh runs stacked on one device (POD x DATA replicas
     in replica mode, the model axis a shard-local layout under --packed)
     and --multi-pod is ignored there, as in the reference. Under
-    WORLD_SIZE > 1 the per-leaf engine with in-replica shards is refused,
-    naming its ROADMAP entry (A.12c), and so is a WORLD_SIZE other than
-    the mesh's positions, both before any rendezvous."""
+    WORLD_SIZE > 1 the per-leaf engine with in-replica shards runs, each
+    rank holding its piece of every leaf (its losses the stacked
+    launcher's within 2e-4), and a WORLD_SIZE other than the mesh's
+    positions is refused before any rendezvous."""
     from repro_torch.launch.train import main
     small = ["--steps", "2", "--seq-len", "8", "--global-batch", "4",
              "--d-model", "32", "--log-every", "0", "--device", "cpu"]
@@ -210,9 +240,13 @@ def test_launcher_runs_and_refuses_unported_meshes(capsys, monkeypatch):
     assert '"dp": 4, "num_shards": 1' in capsys.readouterr().out
     main(["--smoke", "--multi-pod", *small])
     assert '"dp": 1' in capsys.readouterr().out
-    monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12c"):
-        main(["--smoke", "--smoke-mesh", "1,2,2", *small])
+    leaf = ["--smoke", "--smoke-mesh", "1,2,2", *small]
+    main(leaf)
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    got = _launch_ranks(leaf, 4)
+    assert (got["dp"], got["num_shards"], got["packed"]) == (2, 2, False)
+    for key in ("first_loss", "final_loss"):
+        assert abs(got[key] - want[key]) <= 2e-4 * abs(want[key]), key
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(ValueError, match="WORLD_SIZE"):
         main(["--smoke", "--packed", "--smoke-mesh", "1,2,2", *small])
