@@ -324,6 +324,31 @@ package ``repro``. Phases, each of which fails the run on any error:
     the ranks' checkpoint and the stacked one restored into each other bit
     for bit.
 
+21. Expert parallelism over ``model`` and serving over the ranks
+    (``moe_ranks_run``, CPU-callable; one world of four gloo ranks of the
+    (1, 2, 2) fsdp mesh, as in 19-20). ``[moe_ranks]``: jamba-v0.1-52b at
+    full width (d 4096, 16 experts top-2, d_ff 14,336, vocab 65,536,
+    bf16) cut to 2 of 32 layers (layer 1 carries the MoE), 1 x 256 tokens
+    a rank, per-leaf ``sgd(0.1, 0.9)``, 3 steps: each rank runs its 8 of
+    16 experts (``models.moe._expert_compute_manual``), gathers them over
+    its batch group only and sums the partial outputs over its model
+    group; the bytes of every collective a step (asserted equal to
+    ``_moe_counts``, from the leaf shapes), their ms, the collectives'
+    share of ms/step over one window, the peak a rank, the first loss;
+    then the same steps with the experts gathered whole
+    (``_no_model_group``) where four such ranks fit the card
+    (``_whole_fits``; else "not measured"). ``[moe_ranks_agree]``:
+    reduced fp32 jamba, packed and per-leaf (remat off, on and
+    ``save_moe_combine``), 3 steps, against the stacked runs on the card
+    within 1e-5, remat bit-equal, the model-group collectives of a step
+    counted. ``[serve_ranks]``: the same 2-layer jamba served over the
+    ranks (batch 4, 2 rows a rank, prompt 512, 32 new tokens,
+    ``max_seq`` 4096): the weights' one gather (bytes against the
+    pieces' count), prefill ms, decode ms a token, the peak; the
+    first-token logits and greedy tokens against the one-process
+    ``ServingEngine`` on the same weights; reduced fp32: tokens equal and
+    logits within 1e-5. No kernel is on these paths.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -3442,11 +3467,14 @@ sys.exit(cs.fsdp_rank_child(*sys.argv[2:]))
 
 
 def _rank_cfg(spec):
-    """The model of a rank spec: ``arch`` in its dtypes, or reduced fp32
-    with ``reduced``; fsdp mode, as the reference's e2e test forces it."""
+    """The model of a rank spec: ``arch`` in its dtypes (cut to its first
+    ``layers``), or reduced fp32 with ``reduced``; fsdp mode, as the
+    reference's e2e test forces it."""
     from repro_torch.configs import get_config
     from repro_torch.models import reduced
     cfg = get_config(spec["arch"])
+    if spec.get("layers"):
+        cfg = _depth(cfg, spec["layers"])
     if spec.get("reduced"):
         cfg = dataclasses.replace(reduced(cfg, **spec["reduced"]),
                                   param_dtype="float32",
@@ -3459,11 +3487,13 @@ def _traffic(group, dev):
     """Bytes this rank receives from the others in the in-replica
     collectives while the block runs, and the host ms spent in them
     (the device synchronized before and after each call): the stretches'
-    ``all_gather`` over the in-replica group and the gradient's
-    ``all_to_all`` over the batch group (the metrics' small gathers
-    counted apart)."""
+    ``all_gather`` over the in-replica group, the gradient's
+    ``all_to_all`` over the batch group, the ``all_gather`` over the batch
+    group (expert parallelism's expert gather, and the metrics' means)
+    and over the model group (its partial sums), the rest apart."""
     import torch.distributed as tdist
-    moved = {"all_gather": 0, "reduce_scatter": 0, "other": 0}
+    moved = {"all_gather": 0, "reduce_scatter": 0, "batch_gather": 0,
+             "model_sum": 0, "other": 0}
     ms = dict.fromkeys(moved, 0.0)
     ag, a2a = tdist.all_gather, tdist.all_to_all_single
 
@@ -3478,7 +3508,10 @@ def _traffic(group, dev):
 
     def all_gather(parts, x, group=None, **kw):
         n = x.numel() * x.element_size() * (len(parts) - 1)
-        key = "all_gather" if group is grp.inner else "other"
+        key = ("all_gather" if group is grp.inner else
+               "batch_gather" if group is grp.batch and group is not None
+               else "model_sum" if group is grp.model and group is not None
+               else "other")
         return timed(key, n, ag, parts, x, group=group, **kw)
 
     def all_to_all_single(out, x, group=None, **kw):
@@ -3499,16 +3532,16 @@ def _rank_trainer(cfg, spec, dist, dev, group, *, packed=True,
                   optimizer="sgd", **kw):
     """Packed fused sgd on this rank's stretches (dp 1: alpha 0), or with
     ``packed=False`` the per-leaf engine of ``optimizer`` on its pieces
-    (``kw`` reaches the bundle: ``mix_impl``); ``group`` None: the stacked
-    run of the plan."""
+    (``kw`` reaches the bundle: ``mix_impl``, ``remat`` (default off));
+    ``group`` None: the stacked run of the plan."""
     from repro_torch.data import ShardedTokenDataset
     from repro_torch.launch.mesh import mesh_tables
     from repro_torch.train import (Trainer, init_train_state,
                                    make_train_step_bundle)
     opt = make_optimizer(optimizer, spec["steps"], spec["lr"])
+    kw.setdefault("remat", False)
     bundle = make_train_step_bundle(cfg, opt, dist=dist, gossip_packed=packed,
-                                    device=dev, group=group, remat=False,
-                                    **kw)
+                                    device=dev, group=group, **kw)
     state = init_train_state(cfg, opt, dist=dist, packed=packed,
                              layout=bundle.layout, seed=0, device=dev,
                              group=group)
@@ -3636,7 +3669,8 @@ def _fsdp_rank_agree(group, dist, dev, spec) -> tuple:
 
 def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
     """One rank of [fsdp_ranks] / [fsdp_ranks_agree] (or with ``kind``
-    "leaf" of [leaf_ranks] / [leaf_ranks_agree]): join the gloo world
+    "leaf" of [leaf_ranks] / [leaf_ranks_agree], with "moe" of
+    [moe_ranks] / [moe_ranks_agree] / [serve_ranks]): join the gloo world
     of the mesh (CUDA tensors on the card: ``backend="gloo"``, every rank
     on the one card), run the rank's parts, write its record (JSON) and
     arrays (npz) under ``out``. Returns 1 with the traceback recorded when
@@ -3648,6 +3682,9 @@ def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
                                              init_replica_group)
         if spec["device"] == "cuda":
             os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            if spec.get("kind") == "moe":   # four ranks near the card's size
+                os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                                      "expandable_segments:True")
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         else:
@@ -3657,13 +3694,20 @@ def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
                                    rank=int(rank), world_size=int(world),
                                    init_method=init,
                                    timeout_s=FSDP_TIMEOUT_S)
-        train, agree = {"packed": (_fsdp_rank_train, _fsdp_rank_agree),
-                        "leaf": (_leaf_rank_train, _leaf_rank_agree)}[
-                            spec.get("kind", "packed")]
+        parts = {"packed": (("ranks", _fsdp_rank_train),
+                            ("agree", _fsdp_rank_agree)),
+                 "leaf": (("ranks", _leaf_rank_train),
+                          ("agree", _leaf_rank_agree)),
+                 "moe": (("ranks", _moe_rank_train),
+                         ("agree", _moe_rank_agree),
+                         ("serve", _serve_rank))}[spec.get("kind", "packed")]
         try:
-            res["ranks"] = train(group, dist, group.device, spec["ranks"])
-            res["agree"], arrays = agree(group, dist, group.device,
-                                         spec["agree"])
+            for key, fn in parts:
+                got = fn(group, dist, group.device, spec[key])
+                if isinstance(got, tuple):   # (record, arrays)
+                    got, more = got
+                    arrays.update(more)
+                res[key] = got
         finally:
             destroy_replica_group()
     except Exception:  # noqa: BLE001 - the parent reads the traceback
@@ -4124,6 +4168,506 @@ def phase_leaf_ranks_agree(out: dict) -> dict:
     return res
 
 
+# ------------------------------ expert parallelism and serving on the ranks
+# [moe_ranks]: jamba-v0.1-52b at full width (d 4096, 16 experts, top-2,
+# d_ff 14,336, vocab 65,536, bf16) cut to 2 of 32 layers (layer 1 carries
+# the MoE), fsdp on (1, 2, 2), 1 x 256 tokens a data position, per-leaf
+# sgd(0.1, 0.9) at dp 1, 3 steps
+MOE_RANKS = dict(mesh=(1, 2, 2), arch="jamba-v0.1-52b", layers=2, seq=SEQ,
+                 per_position=1, steps=3, lr=0.1)
+# [moe_ranks_agree]: reduced fp32 jamba on the same mesh, packed and
+# per-leaf (remat off, on and save_moe_combine) against the stacked runs
+MOE_AGREE = dict(mesh=(1, 2, 2), arch="jamba-v0.1-52b",
+                 reduced=dict(d_model=64), seq=16, per_position=2, steps=3,
+                 lr=AGREE_LR["sgd"], bucket_bytes=AGREE_BUCKET_BYTES)
+MOE_AGREE_RUNS = (("leaf", False, {}), ("packed", True, {}),
+                  ("leaf_remat", False, dict(remat=True)),
+                  ("leaf_save", False, dict(remat=True,
+                                            remat_policy="save_moe_combine")))
+MOE_AGREE_TOL = 1e-5
+# [serve_ranks]: the same full-width 2-layer jamba at JAMBA_SERVE's sizes
+# (2 rows a rank), and reduced fp32 against the one-process engine
+SERVE_RANKS = dict(mesh=(1, 2, 2), arch="jamba-v0.1-52b", layers=2,
+                   **JAMBA_SERVE,
+                   small=dict(reduced=dict(d_model=64), batch=4, prompt=12,
+                              new=6, max_seq=32))
+SERVE_RANKS_TOL = 1e-5
+MOE_SLACK_GB = 2.0   # a rank's CUDA context and allocator slack
+
+
+def _moe_counts(cfg, dist, group, pieces, spec, ep: bool,
+                n_metrics: int) -> dict:
+    """The bytes a per-leaf rank receives a step in each collective,
+    counted from the leaf shapes: the non-expert pieces (every piece
+    without expert parallelism) over the in-replica group, the expert
+    pieces and the metrics' fp32 means over the batch group, every piece's
+    gradient over the batch group, and per MoE layer the fp32 partial
+    outputs forward and the token and slot-weight gradients backward over
+    the model group."""
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.train.step import expert_dims
+    dims = (expert_dims(cfg, dist, group) if ep else None) or (
+        (None,) * pieces.num_leaves)
+    size = [pieces.piece_len(i) * getattr(torch, dt).itemsize
+            for i, dt in enumerate(pieces.leaf_dtypes)]
+    expert = sum(n for n, d in zip(size, dims) if d is not None)
+    rows, seq = spec["per_position"], spec["seq"]
+    tokens = rows * seq * cfg.d_model
+    sums = sum(4 * (2 * tokens + rows * b.moe.n_experts
+                    * moe_capacity(seq, b.moe))
+               for b in cfg.blocks if b.moe is not None)
+    return {"all_gather": (group.num_shards - 1) * (sum(size) - expert),
+            "batch_gather": (group.batch_shards - 1)
+            * (expert + 4 * n_metrics),
+            "reduce_scatter": (group.batch_shards - 1) * sum(size),
+            "model_sum": (group.model_shards - 1) * sums if ep else 0}
+
+
+def _expert_bytes(cfg) -> int:
+    """The bytes of every expert leaf of one replica."""
+    from repro_torch.models import lm_specs
+    from repro_torch.tree import tree_flatten
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for s in tree_flatten(lm_specs(cfg))[0]
+               if "experts" in s.axes.split(","))
+
+
+def _whole_fits(group, dev, cfg, ep_peak) -> str | None:
+    """None when every rank can gather the experts whole on the shared
+    card: the largest expert-parallel peak among the ranks plus the
+    gathered experts and their gradients the rank did not hold, times the
+    ranks, within the card's memory; else why not (an all-gather of the
+    peaks, so that every rank decides alike)."""
+    import torch.distributed as tdist
+    if not _on_card(dev):
+        return None
+    peaks = [torch.zeros(1, dtype=torch.float64) for _ in
+             range(group.world_size)]
+    tdist.all_gather(peaks, torch.tensor([ep_peak], dtype=torch.float64))
+    extra = 2 * _expert_bytes(cfg) * (1 - 1 / group.model_shards) / 1e9
+    want = group.world_size * (max(float(p) for p in peaks) + extra
+                               + MOE_SLACK_GB)
+    have = torch.cuda.get_device_properties(0).total_memory / 1e9
+    if want <= have:
+        return None
+    return (f"predicted {want:.1f} GB for {group.world_size} ranks with the "
+            f"experts whole, the card has {have:.1f} GB")
+
+
+def _no_model_group(group):
+    """``group`` as if its model group were the rank alone: every expert
+    gathered whole and run on every rank, the path without expert
+    parallelism."""
+    return dataclasses.replace(group, model=None, model_ranks=(group.rank,))
+
+
+def _moe_rank_train(group, dist, dev, spec) -> dict:
+    """[moe_ranks] on this rank: the per-leaf engine under expert
+    parallelism (its ``E / M`` experts gathered over the batch group, the
+    partial outputs summed over the model group), then the same steps with
+    the experts gathered whole (``_no_model_group``, where the card holds
+    the four ranks so): each a ``_rank_window``, its bytes against
+    ``_moe_counts``, its model-group collectives counted."""
+    from repro_torch.models import moe
+    cfg = _rank_cfg(spec)
+    E = max(b.moe.n_experts for b in cfg.blocks if b.moe is not None)
+    rec = {"rank": group.rank, "shard": group.shard,
+           "batch_index": group.batch_index,
+           "model_index": group.model_index, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "dtype": cfg.param_dtype, "n_experts": E,
+           "tokens_per_rank": spec["per_position"] * spec["seq"]}
+    for tag, ep in (("ep", True), ("whole", False)):
+        if not ep:
+            why = _whole_fits(group, dev, cfg, rec["ep"]["peak_mem_gb"] or 0)
+            if why is not None:
+                rec[tag] = {"not_measured": why}
+                continue
+        bundle, tr = _rank_trainer(cfg, spec, dist, dev,
+                                   group if ep else _no_model_group(group),
+                                   packed=False)
+        before = dict(moe.model_collectives)
+        win = _rank_window(tr, group, dev, spec["steps"])
+        n_metrics = len([k for k in tr.history[0] if k != "step"])
+        win.update(
+            first_loss=tr.history[0]["loss"],
+            experts_a_rank=E // group.model_shards if ep else E,
+            model_collectives_per_step={
+                k: (v - before[k]) / spec["steps"]
+                for k, v in moe.model_collectives.items()},
+            count_per_step=_moe_counts(cfg, dist, group, bundle.pieces, spec,
+                                       ep, n_metrics),
+            collective_share=sum(win["collective_ms_per_step"].values())
+            / win["ms_per_step"])
+        rec[tag] = win
+        del tr, bundle
+        _free_device(dev)
+    return rec
+
+
+def _moe_rank_agree(group, dist, dev, spec) -> tuple:
+    """[moe_ranks_agree] on this rank: reduced fp32 jamba, 3 steps of each
+    of ``MOE_AGREE_RUNS``: the losses, the gathered params and the
+    model-group collectives of the second step."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_flatten
+    cfg = _rank_cfg(spec)
+    rec, arrays = {}, {}
+    with _bucket_bytes(spec["bucket_bytes"]):
+        for tag, packed, kw in MOE_AGREE_RUNS:
+            bundle, tr = _rank_trainer(cfg, spec, dist, dev, group,
+                                       packed=packed, **kw)
+            tr.run(1)
+            before = dict(moe.model_collectives)
+            tr.run(1, start_step=1)
+            per_step = {k: v - before[k]
+                        for k, v in moe.model_collectives.items()}
+            tr.run(spec["steps"] - 2, start_step=2)
+            rec[tag] = {"losses": [h["loss"] for h in tr.history],
+                        "model_collectives_per_step": per_step}
+            with torch.no_grad():
+                whole = (tr.state["params"].unpack() if packed else
+                         bundle.pieces.gather_pieces(tr.state["params"],
+                                                     group))
+            for i, x in enumerate(tree_flatten(whole)[0]):
+                arrays[f"moe/{tag}/leaf{i}"] = x.float().cpu().numpy()
+            del tr, bundle, whole
+    return rec, arrays
+
+
+def _serve_prompts(cfg, sizes):
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab, (sizes["batch"], sizes["prompt"])).astype(np.int32)
+
+
+def _serve_loop(dev, params, prefill, decode, cache, toks, sizes,
+                keep_logits: bool) -> tuple:
+    """Prefill timed (the first call apart, the median of 3 more), then
+    ``new`` greedy decode steps timed on the host clock (the device
+    synchronized around each); the prefill's logits (and with
+    ``keep_logits`` every decode step's), fp32 on the host."""
+    pre = []
+    for _ in range(4):
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cache, toks)
+        _sync(dev)
+        pre.append((time.perf_counter() - t0) * 1e3)
+    kept = [logits.float().cpu().numpy()]
+    tok = logits.argmax(-1)
+    pos = torch.full((), sizes["prompt"], dtype=torch.int64, device=dev)
+    steps = []
+    for t in range(sizes["new"]):
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok, pos + t)
+        tok = logits.argmax(-1)
+        _sync(dev)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        if keep_logits:
+            kept.append(logits.float().cpu().numpy())
+    return {"prefill_first_ms": pre[0],
+            "prefill_ms": statistics.median(pre[1:]),
+            "decode_ms_per_token": statistics.median(steps),
+            "decode_ms_min_max": [min(steps), max(steps)]}, kept
+
+
+def _serve_rank(group, dist, dev, spec) -> tuple:
+    """[serve_ranks] on this rank, full width and then reduced fp32: its
+    pieces of the seeded weights (``serve_pieces``) gathered once into
+    ``ServingEngine(dist=, group=)`` (bytes and seconds, against the
+    pieces' count), ``generate`` (the global greedy tokens), then the
+    serve steps over the group timed (``_serve_loop``) and the peak."""
+    from repro_torch.models import lm_axes, lm_cache_init, lm_init
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve.step import (make_decode_step, make_prefill_step,
+                                        serve_pieces)
+    from repro_torch.train.step import expert_dims
+    from repro_torch.tree import tree_flatten
+    rec, arrays = {}, {}
+    for tag, sizes in (("full", spec), ("small", spec["small"])):
+        cfg = _rank_cfg(dict(spec, reduced=sizes.get("reduced")))
+        table = serve_pieces(cfg, dist)
+        _reset_peak(dev)
+        pieces = table.cut_pieces(lm_init(cfg, seed=0, device=dev),
+                                  group.shard)
+        _free_device(dev)
+        with _traffic(group, dev) as (moved, coll_ms):
+            _sync(dev)
+            t0 = time.perf_counter()
+            engine = ServingEngine(cfg, pieces, sizes["max_seq"], device=dev,
+                                   dist=dist, group=group)
+            _sync(dev)
+            gather_ms = (time.perf_counter() - t0) * 1e3
+        del pieces
+        dims = expert_dims(cfg, dist, group)
+        size = [table.piece_len(i) * getattr(torch, dt).itemsize
+                for i, dt in enumerate(table.leaf_dtypes)]
+        expert = sum(n for n, d in zip(size, dims) if d is not None)
+        prompts = _serve_prompts(cfg, sizes)
+        rows = sizes["batch"] // group.batch_shards
+        with torch.inference_mode():
+            out = engine.generate(prompts, sizes["new"])
+            cache = lm_cache_init(cfg, rows, sizes["max_seq"], device=dev)
+            kw = dict(param_shapes=engine.params, param_axes=lm_axes(cfg),
+                      cache_shapes=cache, group=group)
+            timed, logits = _serve_loop(
+                dev, engine.params,
+                make_prefill_step(cfg, dist, **kw).step_fn,
+                make_decode_step(cfg, dist, **kw).step_fn, cache,
+                torch.as_tensor(prompts, dtype=torch.int64).to(dev), sizes,
+                keep_logits=tag == "small")
+        rec[tag] = dict(
+            timed, rows_a_rank=rows, batch=sizes["batch"],
+            prompt=sizes["prompt"], new_tokens=sizes["new"],
+            max_seq=sizes["max_seq"], layers=cfg.n_layers,
+            d_model=cfg.d_model, dtype=cfg.param_dtype,
+            weight_gather_ms=gather_ms,
+            weight_gather_bytes={k: moved[k] for k in ("all_gather",
+                                                       "batch_gather")},
+            weight_gather_count={
+                "all_gather": (group.num_shards - 1) * (sum(size) - expert),
+                "batch_gather": (group.batch_shards - 1) * expert},
+            weight_gather_collective_ms=sum(coll_ms.values()),
+            serving_weights_gb=_tree_bytes(engine.params) / 1e9,
+            experts_a_rank=sorted({int(x.shape[d]) for x, d in zip(
+                tree_flatten(engine.params)[0], dims) if d is not None}),
+            peak_mem_gb=_peak_gb(dev))
+        arrays[f"serve/{tag}/tokens"] = out
+        for i, x in enumerate(logits):
+            arrays[f"serve/{tag}/logits{i}"] = x
+        del engine, cache
+        _free_device(dev)
+    return rec, arrays
+
+
+def _serve_one(cfg, dev, sizes, keep_logits: bool) -> dict:
+    """The one-process ``ServingEngine`` on the same seeded weights: its
+    greedy tokens, and the prefill's (and with ``keep_logits`` every
+    decode step's) logits from ``lm_prefill`` / ``lm_decode``."""
+    from repro_torch.models import lm_cache_init, lm_decode, lm_init, lm_prefill
+    from repro_torch.serve import ServingEngine
+    engine = ServingEngine(cfg, lm_init(cfg, seed=0, device=dev),
+                           sizes["max_seq"], device=dev)
+    prompts = _serve_prompts(cfg, sizes)
+    with torch.inference_mode():
+        out = engine.generate(prompts, sizes["new"])
+        cache = lm_cache_init(cfg, sizes["batch"], sizes["max_seq"],
+                              device=dev)
+        _, logits = _serve_loop(
+            dev, engine.params,
+            lambda p, c, t: lm_prefill(p, cfg, t, c),
+            lambda p, c, t, pos: lm_decode(p, cfg, t, c, pos), cache,
+            torch.as_tensor(prompts, dtype=torch.int64).to(dev), sizes,
+            keep_logits)
+    del engine, cache
+    _free_device(dev)
+    return {"tokens": out, "logits": logits}
+
+
+def moe_ranks_run(dev, *, ranks=MOE_RANKS, agree=MOE_AGREE,
+                  serve=SERVE_RANKS) -> dict:
+    """The body of [moe_ranks], [moe_ranks_agree] and [serve_ranks]: the
+    stacked reduced runs of ``agree`` on ``dev`` (packed and per-leaf:
+    losses and leaves) and the one-process engine on ``serve``'s weights
+    (full width and reduced), then one gloo world of ``prod(mesh)``
+    processes, each running ``ranks``, ``agree`` and ``serve``. Returns
+    the ranks' records and arrays and this process's runs."""
+    world = int(np.prod(ranks["mesh"]))
+    dist = _plan(*agree["mesh"], "fsdp")
+    cfg = _rank_cfg(agree)
+    stacked = {}
+    with _bucket_bytes(agree["bucket_bytes"]):
+        for tag, packed in (("leaf", False), ("packed", True)):
+            _, tr = _rank_trainer(cfg, agree, dist, dev, None, packed=packed)
+            stacked[tag] = {
+                "losses": [h["loss"] for h in tr.run(agree["steps"])],
+                "leaves": [x.float().cpu().numpy()
+                           for x in _leaf_view(tr.state["params"])]}
+            del tr
+    _free_device(dev)
+    one = {tag: _serve_one(_rank_cfg(dict(serve, reduced=s.get("reduced"))),
+                           dev, s, keep_logits=tag == "small")
+           for tag, s in (("full", serve), ("small", serve["small"]))}
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="moe_ranks_", dir=ROOT / "build"))
+    try:
+        return {"stacked": stacked, "one": one, "world": world,
+                "mesh": list(ranks["mesh"]),
+                "ranks": _spawn_ranks(dev, world, dict(
+                    kind="moe", ranks=ranks, agree=agree, serve=serve), tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_moe_ranks(out: dict, dev) -> dict:
+    """[moe_ranks]'s record: per rank its experts (``E / M``), and for the
+    expert-parallel run and the whole-expert run the bytes of each
+    collective a step (asserted equal to ``_moe_counts``), their ms, the
+    collectives' share of ms/step, the peak, no kernel launched; one
+    replica-mean loss on every rank, the first within 1 of ln(vocab)."""
+    recs = [r["ranks"] for r, _ in out["ranks"]]
+    r0 = recs[0]
+    for r in recs:
+        assert r["ep"]["experts_a_rank"] == r["n_experts"] // 2, r["ep"]
+        for tag in ("ep", "whole"):
+            w = r[tag]
+            if "not_measured" in w:
+                continue
+            for key, n in w["count_per_step"].items():
+                assert w["bytes_per_step"][key] == n, (tag, key, w)
+            assert w["launches"] == dict.fromkeys(KERNELS, 0), w["launches"]
+            assert w["losses"] == r0[tag]["losses"], "one replica mean"
+            assert math.isfinite(w["first_loss"]), w
+            assert abs(w["first_loss"] - math.log(r["vocab"])) <= 1.0, w
+    res = {"world": out["world"], "mesh": out["mesh"], "dist_mode": "fsdp",
+           "engine": "per-leaf", "backend": "gloo", "layers": r0["layers"],
+           "d_model": r0["d_model"], "vocab": r0["vocab"],
+           "dtype": r0["dtype"], "n_experts": r0["n_experts"],
+           "tokens_per_rank": r0["tokens_per_rank"],
+           "model_index_by_rank": [r["model_index"] for r in recs]}
+    for tag in ("ep", "whole"):
+        if "not_measured" in r0[tag]:
+            res[tag] = r0[tag]
+            continue
+        res[tag] = {
+            "experts_a_rank": r0[tag]["experts_a_rank"],
+            "first_loss": r0[tag]["first_loss"],
+            "losses_window": r0[tag]["losses"],
+            "ms_per_step_by_rank": [r[tag]["ms_per_step"] for r in recs],
+            "first_step_ms_by_rank": [r[tag]["first_step_ms"] for r in recs],
+            "collective_share_by_rank": [r[tag]["collective_share"]
+                                         for r in recs],
+            "bytes_per_step_by_rank": [r[tag]["bytes_per_step"]
+                                       for r in recs],
+            "count_per_step_by_rank": [r[tag]["count_per_step"]
+                                       for r in recs],
+            "collective_ms_per_step_by_rank": [
+                r[tag]["collective_ms_per_step"] for r in recs],
+            "model_collectives_per_step_by_rank": [
+                r[tag]["model_collectives_per_step"] for r in recs],
+            "peak_mem_gb_by_rank": [r[tag]["peak_mem_gb"] for r in recs]}
+    return res
+
+
+def check_moe_agree(out: dict) -> dict:
+    """[moe_ranks_agree]'s record: the ranks' per-leaf and packed losses
+    and gathered params against the stacked runs (the whole experts on
+    every row) within ``MOE_AGREE_TOL``; remat on and
+    ``save_moe_combine`` equal to remat off bit for bit; the model-group
+    collectives of one step under each."""
+    st = out["stacked"]
+    worst = {}
+    for rec, arr in out["ranks"]:
+        got = rec["agree"]
+        for tag, packed, _ in MOE_AGREE_RUNS:
+            want = st["packed" if packed else "leaf"]
+            np.testing.assert_allclose(got[tag]["losses"], want["losses"],
+                                       rtol=MOE_AGREE_TOL, atol=MOE_AGREE_TOL)
+            for i, w in enumerate(want["leaves"]):
+                g = arr[f"moe/{tag}/leaf{i}"]
+                np.testing.assert_allclose(g, w, rtol=MOE_AGREE_TOL,
+                                           atol=MOE_AGREE_TOL)
+                worst[tag] = max(worst.get(tag, 0.0),
+                                 float(np.abs(g - w).max()))
+        for tag in ("leaf_remat", "leaf_save"):
+            assert got[tag]["losses"] == got["leaf"]["losses"], tag
+            assert all(np.array_equal(arr[f"moe/{tag}/leaf{i}"],
+                                      arr[f"moe/leaf/leaf{i}"])
+                       for i in range(len(st["leaf"]["leaves"]))), tag
+    r0 = out["ranks"][0][0]["agree"]
+    return {"losses_stacked": {k: v["losses"] for k, v in st.items()},
+            "losses_ranks": {k: v["losses"] for k, v in r0.items()},
+            "max_abs_diff_params": worst,
+            "remat_bit_equal": True,
+            "model_collectives_per_step": {
+                k: v["model_collectives_per_step"] for k, v in r0.items()}}
+
+
+def check_serve_ranks(out: dict, dev) -> dict:
+    """[serve_ranks]'s record: every rank's weight gather equal to the
+    pieces' count and its ``E / M`` experts, every rank's tokens the same;
+    full width: the first-token logits' largest difference from the
+    one-process engine's and how many greedy tokens agree (EP's fp32
+    boundary rounds bf16 otherwise); reduced fp32: tokens equal and the
+    prefill and decode logits within ``SERVE_RANKS_TOL``."""
+    recs = [(r["serve"], arr) for r, arr in out["ranks"]]
+    res = {"world": out["world"], "mesh": out["mesh"]}
+    for tag in ("full", "small"):
+        one = out["one"][tag]
+        r0, a0 = recs[0]
+        for r, arr in recs:
+            rec = r[tag]
+            assert rec["weight_gather_bytes"] == rec["weight_gather_count"], \
+                rec
+            assert np.array_equal(arr[f"serve/{tag}/tokens"],
+                                  a0[f"serve/{tag}/tokens"]), "every rank"
+        got, want = a0[f"serve/{tag}/tokens"], one["tokens"]
+        first = a0[f"serve/{tag}/logits0"]
+        assert first.shape == one["logits"][0].shape
+        assert np.isfinite(first).all()
+        row = {k: r0[tag][k] for k in (
+            "batch", "rows_a_rank", "prompt", "new_tokens", "max_seq",
+            "layers", "d_model", "dtype", "experts_a_rank",
+            "serving_weights_gb", "weight_gather_bytes",
+            "weight_gather_ms", "weight_gather_collective_ms")}
+        row.update(
+            prefill_ms_by_rank=[r[tag]["prefill_ms"] for r, _ in recs],
+            prefill_first_ms=r0[tag]["prefill_first_ms"],
+            decode_ms_per_token_by_rank=[r[tag]["decode_ms_per_token"]
+                                         for r, _ in recs],
+            decode_ms_min_max=r0[tag]["decode_ms_min_max"],
+            peak_mem_gb_by_rank=[r[tag]["peak_mem_gb"] for r, _ in recs],
+            first_token_logits_max_abs_diff=_np_diff(first,
+                                                     one["logits"][0]),
+            greedy_tokens_equal=int((got == want).sum()),
+            greedy_tokens=int(want.size))
+        if tag == "small":
+            assert np.array_equal(got, want), (got, want)
+            for i, w in enumerate(one["logits"]):
+                np.testing.assert_allclose(a0[f"serve/{tag}/logits{i}"], w,
+                                           rtol=SERVE_RANKS_TOL,
+                                           atol=SERVE_RANKS_TOL)
+            row["logits_max_abs_diff"] = max(
+                _np_diff(a0[f"serve/{tag}/logits{i}"], w)
+                for i, w in enumerate(one["logits"]))
+        res[tag] = row
+    return res
+
+
+def _np_diff(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def phase_moe_ranks(out: dict, dev) -> dict:
+    """[moe_ranks] from ``moe_ranks_run``'s world (``check_moe_ranks``),
+    gloo's refusal of a CUDA collective recorded as in [fsdp_ranks]."""
+    res = _ranks_failed(out, "moe_ranks")
+    if res is None:
+        res = check_moe_ranks(out, dev)
+        log("[moe_ranks] " + json.dumps(res))
+    return res
+
+
+def phase_moe_ranks_agree(out: dict) -> dict:
+    """[moe_ranks_agree] from the same world (``check_moe_agree``)."""
+    res = _ranks_failed(out, "moe_ranks_agree")
+    if res is None:
+        res = check_moe_agree(out)
+        log("[moe_ranks_agree] " + json.dumps(res))
+    return res
+
+
+def phase_serve_ranks(out: dict, dev) -> dict:
+    """[serve_ranks] from the same world (``check_serve_ranks``)."""
+    res = _ranks_failed(out, "serve_ranks")
+    if res is None:
+        res = check_serve_ranks(out, dev)
+        log("[serve_ranks] " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4361,6 +4905,15 @@ def main() -> int:
     leaf_out = guard("leaf_ranks_run", leaf_ranks_run, dev)
     leaf_ranks = guard("leaf_ranks", phase_leaf_ranks, leaf_out, dev)
     guard("leaf_ranks_agree", phase_leaf_ranks_agree, leaf_out)
+    # expert parallelism over model on the same ranks (full-width 2-layer
+    # jamba), then serving over them
+    moe_out = guard("moe_ranks_run", moe_ranks_run, dev)
+    guard("moe_ranks", phase_moe_ranks, moe_out, dev)
+    guard("moe_ranks_agree", phase_moe_ranks_agree, moe_out)
+    guard("serve_ranks", phase_serve_ranks, moe_out, dev)
+    log("[moe phases] seconds " + json.dumps(
+        {k: seconds.get(k) for k in ("moe_ranks_run", "moe_ranks",
+                                     "moe_ranks_agree", "serve_ranks")}))
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")

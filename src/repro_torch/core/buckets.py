@@ -314,16 +314,55 @@ class BucketLayout:
         return self._assemble(lead, parts[0], idx, self.leaf_blocks[idx],
                               lambda s: parts[s.shard][..., :s.size])
 
-    def gather_pieces(self, tree, group):
+    def gather_pieces(self, tree, group, experts=None):
         """The whole leaves of a rank's tree of pieces (``cut_pieces`` at
         ``group.shard``, one replica row): per leaf one ``all_gather`` of
         the pieces over the in-replica group (``_GatherPiece``, whose
         backward reduce-scatters the leaf's gradient over the batch
-        group)."""
+        group). Under expert parallelism ``experts`` gives, per leaf, the
+        dim (of the leaf, after its leading axes) of the experts that the
+        plan splits over ``model``, or None: such a leaf is gathered over
+        the batch group only, into this rank's block of ``E / M`` experts
+        at its model index (the reference's explicit all-gather of the
+        expert weights over ``data``, ``src/repro/models/moe.py:135-145``)."""
         leaves = self.treedef.flatten_up_to(tree)
+        experts = experts or (None,) * len(leaves)
         return self.treedef.unflatten(
-            [_GatherPiece.apply(x, self, idx, group)
-             for idx, x in enumerate(leaves)])
+            [_GatherPiece.apply(x, self, idx, group) if dim is None
+             else _GatherExperts.apply(x, self, idx, group, dim)
+             for idx, (x, dim) in enumerate(zip(leaves, experts))])
+
+    def expert_block(self, idx: int, dim: int, coord: int,
+                     parts: Sequence[torch.Tensor],
+                     shards: Sequence[int]) -> torch.Tensor:
+        """Block ``coord`` of leaf ``idx`` along ``dim`` (the experts of one
+        model index) from the pieces of ``shards``, which must tile it:
+        ``parts[i]`` is shard ``shards[i]``'s piece flat along its last dim
+        (any leading axes, padded or not)."""
+        at = {s: i for i, s in enumerate(shards)}
+        blocks = [b for b in self.leaf_blocks[idx] if b[0].block[dim] == coord]
+        shape = list(self.leaf_shapes[idx])
+        shape[dim] = blocks[0][0].shape[dim]
+        lead = tuple(parts[0].shape[:-1])
+        out = parts[0].new_empty(lead + tuple(shape))
+        for block in blocks:
+            got = [parts[at[s.shard]][..., :s.size] for s in block]
+            src = got[0] if len(got) == 1 else torch.cat(got, dim=-1)
+            self._block_of(out, _at_block(block[0], dim)).copy_(
+                src.reshape(lead + block[0].shape))
+        return out
+
+    def expert_piece(self, sub: torch.Tensor, idx: int, dim: int,
+                     shard: int) -> torch.Tensor:
+        """Shard ``shard``'s piece of leaf ``idx``, cut from ``sub``, the
+        block of the leaf along ``dim`` that holds it (``expert_block``):
+        flat after the leading axes, padded to ``piece_len``."""
+        s = self.piece_slots[idx][shard]
+        src = self._block_of(sub, _at_block(s, dim))
+        flat = src.reshape(tuple(src.shape[:src.dim() - len(s.shape)])
+                           + (-1,))
+        return self.padded_piece(
+            flat[..., s.chunk_start:s.chunk_start + s.size], idx)
 
     @staticmethod
     def _block_of(leaf: torch.Tensor, slot: LeafSlot) -> torch.Tensor:
@@ -612,6 +651,47 @@ class _GatherPiece(torch.autograd.Function):
              for s in _batch_shards_of(group)], group)
         size = math.prod(ctx.shape)
         return summed[..., :size].reshape(ctx.shape), None, None, None
+
+
+def _at_block(slot: LeafSlot, dim: int) -> LeafSlot:
+    """``slot`` within its block along ``dim``: its block coordinate there
+    set to 0, so that ``_block_of`` finds it in a tensor that holds only
+    that block along ``dim``."""
+    block = list(slot.block)
+    block[dim] = 0
+    return dataclasses.replace(slot, block=tuple(block))
+
+
+class _GatherExperts(torch.autograd.Function):
+    """``_GatherPiece`` for a leaf whose experts the plan splits over
+    ``model``, under expert parallelism. Forward: the rank's block of
+    ``E / M`` experts at its model index, one ``all_gather`` of the pieces
+    over the batch group (its members hold the block's pieces; the rank
+    alone in replica mode, where its piece is the block). Backward: the
+    rank's piece of the block's gradient summed over the batch group, as
+    ``_GatherPiece``'s: only the members of this model index computed
+    these experts, each on its rows."""
+
+    @staticmethod
+    def forward(ctx, piece, layout: BucketLayout, idx: int, group, dim: int):
+        ctx.layout, ctx.idx, ctx.group, ctx.dim = layout, idx, group, dim
+        ctx.shape = tuple(piece.shape)
+        shards = _batch_shards_of(group)
+        flat = layout.padded_piece(piece, idx)
+        parts = (gather_rows(flat, group.batch, group.batch_shards)
+                 if group.batch is not None else [flat])
+        return layout.expert_block(idx, dim, group.model_index, parts, shards)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        layout, idx, group, dim = ctx.layout, ctx.idx, ctx.group, ctx.dim
+        chunks = [layout.expert_piece(grad, idx, dim, s)
+                  for s in _batch_shards_of(group)]
+        summed = (_sum_over_batch(chunks, group) if group.batch is not None
+                  else chunks[0])
+        size = math.prod(ctx.shape)
+        return summed[..., :size].reshape(ctx.shape), None, None, None, None
 
 
 def _leaf_pieces(shape: Tuple[int, ...], spec, shard_axes: Tuple[str, ...],

@@ -14,7 +14,7 @@ position). Its **replica index** is its row-major position over
 ``dist.shard_axes``; its **batch index** its position over the shard axes
 that also split the batch (fsdp's ``data``).
 
-Three subgroups reach the other processes:
+Four subgroups reach the other processes:
 
 * the *cross-replica* group (``cross``): the ranks at this shard index, one
   per replica, in replica order. The gossip exchange, the replica mean and
@@ -26,10 +26,19 @@ Three subgroups reach the other processes:
   process's coordinates on the shard axes that do not split the batch, in
   batch order. They compute the same leaves on different rows, so a
   stretch's gradient is the sum over this group (fsdp's ``data``); in
-  replica mode it is the process alone.
+  replica mode it is the process alone;
+* the *model* group (``model``): the ranks of this replica at this
+  process's batch index, in shard order: the positions that differ only
+  on the shard axes that do not split the batch (``model``). It is the
+  complement of the batch group, and the two tile the replica: fsdp's
+  ranks at one ``data`` coordinate, replica mode's in-replica group. Its
+  members compute the same rows, so expert parallelism
+  (``models.moe``) splits the experts over it and sums their partial
+  outputs across it; ``model_index`` is this process's place in it.
 
 Without shards (``num_shards`` 1) every process is a whole replica, the
-cross-replica group is the world and the other two are the process alone;
+cross-replica group is the world and the other three are the process
+alone;
 that is the one-shard case, not a separate path. A group of size one is
 kept as ``None`` and never communicates. The engines take the group when
 they are built and pass it to the primitives that reach the other
@@ -85,8 +94,17 @@ class MeshTables:
         return tuple(int(self.rank_of[self.replica[rank], b * stride + rest])
                      for b in range(self.batch_shards))
 
+    def model_ranks(self, rank: int) -> Tuple[int, ...]:
+        """The ranks of ``rank``'s replica at its batch index, by shard:
+        the shards whose index differs from ``rank``'s only off the batch
+        coordinate (the batch group's complement)."""
+        stride = self.num_shards // self.batch_shards
+        b = int(self.shard[rank]) // stride
+        return tuple(int(self.rank_of[self.replica[rank], b * stride + j])
+                     for j in range(stride))
+
     def group(self, rank: int, backend: str, device, *, cross=None,
-              inner=None, batch=None) -> "ReplicaGroup":
+              inner=None, batch=None, model=None) -> "ReplicaGroup":
         """Rank ``rank``'s ``ReplicaGroup`` over these tables, with the
         subgroups made by the caller (``launch.mesh.init_replica_group``;
         none: a group that runs no collective)."""
@@ -96,8 +114,9 @@ class MeshTables:
             mesh_ranks=tuple(tuple(int(r) for r in row)
                              for row in self.rank_of),
             replica=int(self.replica[rank]), shard=int(self.shard[rank]),
-            batch_ranks=self.batch_ranks(rank), cross=cross, inner=inner,
-            batch=batch)
+            batch_ranks=self.batch_ranks(rank),
+            model_ranks=self.model_ranks(rank), cross=cross, inner=inner,
+            batch=batch, model=model)
 
 
 def _linear(coords: dict, axes, sizes: dict) -> int:
@@ -150,7 +169,8 @@ class ReplicaGroup:
     ``world_size`` on ``device``; ``mesh_ranks[q][s]`` is the global rank
     of shard ``s`` of replica ``q`` (every position of the mesh), of which
     this process is ``(replica, shard)``; ``batch_ranks`` are the ranks of
-    its batch group, by batch index. ``cross``, ``inner`` and ``batch``
+    its batch group, by batch index, and ``model_ranks`` those of its model
+    group, by model index. ``cross``, ``inner``, ``batch`` and ``model``
     are the ``torch.distributed`` subgroups (None: the default group for
     ``cross`` without shards, no communication otherwise). Made by
     ``MeshTables.group``, the one place that maps ranks to positions."""
@@ -163,9 +183,11 @@ class ReplicaGroup:
     replica: int
     shard: int
     batch_ranks: Tuple[int, ...]
+    model_ranks: Tuple[int, ...]
     cross: Any = None
     inner: Any = None
     batch: Any = None
+    model: Any = None
 
     @property
     def dp(self) -> int:
@@ -182,6 +204,14 @@ class ReplicaGroup:
     @property
     def batch_index(self) -> int:
         return self.batch_ranks.index(self.rank)
+
+    @property
+    def model_shards(self) -> int:
+        return len(self.model_ranks)
+
+    @property
+    def model_index(self) -> int:
+        return self.model_ranks.index(self.rank)
 
     @property
     def cross_ranks(self) -> Tuple[int, ...]:

@@ -3,10 +3,14 @@ model code without threading it through every call.
 
 Port of ``repro/dist_ctx.py`` (``use_distribution``,
 ``current_distribution``, ``constrain_logical``). The train step enters
-``use_distribution(dist)`` around its forward and backward, as the
-reference's step factory does inside its traced function
-(``src/repro/train/step.py:368``); outside a step ``current_distribution()``
-is None.
+``use_distribution(dist, group)`` around its forward and backward, and the
+serve steps around theirs, as the reference's step factories do inside
+their traced functions (``src/repro/train/step.py:368``,
+``src/repro/serve/step.py:96, :118``); outside a step
+``current_distribution()`` is None. The port adds the rank's
+``core.replica_group.ReplicaGroup`` (``current_group()``), which the
+reference reads from its mesh inside ``shard_map``: the MoE layers split
+their experts over its model group (``models.moe``).
 
 ``constrain_logical`` is the identity here. The reference attaches a
 sharding constraint by logical axes so that GSPMD places the arithmetic;
@@ -18,21 +22,29 @@ from __future__ import annotations
 
 import contextlib
 
-__all__ = ["use_distribution", "constrain_logical", "current_distribution"]
+__all__ = ["use_distribution", "constrain_logical", "current_distribution",
+           "current_group"]
 
-_CURRENT: list = []
+_CURRENT: list = []   # (dist, group) pairs, innermost last
 
 
 def current_distribution():
     """The active ``train.sharding.Distribution``, or None outside a
     step."""
-    return _CURRENT[-1] if _CURRENT else None
+    return _CURRENT[-1][0] if _CURRENT else None
+
+
+def current_group():
+    """The active step's ``ReplicaGroup``: None outside a step, and in a
+    step without ranks (stacked replicas, one device, the dry run)."""
+    return _CURRENT[-1][1] if _CURRENT else None
 
 
 @contextlib.contextmanager
-def use_distribution(dist):
-    """Make ``dist`` the active plan for the duration of the block."""
-    _CURRENT.append(dist)
+def use_distribution(dist, group=None):
+    """Make ``dist`` the active plan, and ``group`` this rank's place on
+    its process mesh, for the duration of the block."""
+    _CURRENT.append((dist, group))
     try:
         yield
     finally:

@@ -28,12 +28,17 @@ Per chip, a train record traces the fewest replicas that run the exchange
 ``global_batch / dp``, divides by the traced replicas for one replica, then
 by the in-replica shard count ``chips / dp`` for one chip. That even split
 of the arithmetic is a model: the port's ranks of one replica each run the
-whole forward on their rows (no tensor parallelism over ``model``, ROADMAP
+whole forward on their rows but for the MoE experts, which expert
+parallelism splits over ``model`` (no tensor parallelism elsewhere, ROADMAP
 B). The collectives are the bytes the rank path moves
 (``roofline.exchange_bytes``): the exchange between replicas, and in-pod
 FSDP's all-gather and reduce-scatter inside one. A serve record traces the
-global batch and divides by ``chips``, an even split likewise (serving over
-a process mesh is ROADMAP A.12e).
+global batch and divides by ``chips``, an even split likewise: the port's
+serve steps over a process mesh split the batch over the batch group and
+the experts over the model group (``serve/step.py``). The dry run traces
+without a group, so every rank holds and runs every expert and no
+expert-parallel byte is counted: a rank's ``E / M`` experts, the per-leaf
+path's smaller expert gather and the model-group sums are ROADMAP B.
 
 Usage::
 
@@ -298,7 +303,8 @@ def run_one(arch: str, shape: str, *, multi_pod: bool,
         div = chips
         notes["per_chip"] = (f"traced the global batch {global_batch}; / "
                              f"{chips} chips (an even split: a model; "
-                             "serving over ranks is ROADMAP A.12e)")
+                             "traced without ranks, so every expert on "
+                             "every chip, ROADMAP B)")
         coll = exchange_bytes(None, dp, chips, 0, 0, 0)
         rec["tokens_per_step"] = (global_batch if kind == "decode"
                                   else global_batch * seq_len)

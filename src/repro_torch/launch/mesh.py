@@ -28,7 +28,11 @@ shards inside a replica only its stretch of every bucket:
 * the ring shuffle: a send to the next replica at the same shard;
 * ``PackedParams.unpack``: ``all_gather`` of the replica's stretches over
   the in-replica group, and in the backward a reduce-scatter over the
-  batch group (``core.buckets``).
+  batch group (``core.buckets``);
+* expert parallelism (``models.moe``): the partial outputs of each rank's
+  experts summed over the model group (an ``all_gather`` and an fp32 sum
+  in model order), and under fsdp each rank's experts gathered over its
+  batch group only.
 
 The plan (``dist=``) gives the world: every mesh position (pod x data x
 model), rank r the row-major position r; under a plan that shards nothing
@@ -167,12 +171,14 @@ def _mesh_group(tables, rank: int, backend: str, dev) -> ReplicaGroup:
     inner = [tables.inner_ranks(tables.rank_of[q, 0])
              for q in range(tables.dp)]
     batch = sorted({tables.batch_ranks(r) for r in range(world)})
-    for ranks in cross + inner + batch:
+    model = sorted({tables.model_ranks(r) for r in range(world)})
+    for ranks in cross + inner + batch + model:
         assert list(ranks) == sorted(ranks), ranks
     return tables.group(rank, backend, dev,
                         cross=_subgroups(cross, rank) if shards > 1 else None,
                         inner=_subgroups(inner, rank),
-                        batch=_subgroups(batch, rank))
+                        batch=_subgroups(batch, rank),
+                        model=_subgroups(model, rank))
 
 
 def destroy_replica_group() -> None:

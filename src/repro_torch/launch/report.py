@@ -91,8 +91,9 @@ def lever(r: Dict) -> str:
     is_ssm = arch in ("falcon-mamba-7b", "jamba-v0.1-52b")
     if dom == "collective":
         if r["kind"] != "train":
-            return ("serving over a process mesh (ROADMAP A.12e): gather "
-                    "weights per layer group over NVLink inside a node")
+            return ("serving over a process mesh gathers its weights "
+                    "once; split the non-expert weights over model too "
+                    "(tensor parallelism, ROADMAP B)")
         if mode == "replica":
             return ("drop the model axis where a replica fits a card "
                     "(pure_dp): gossip's O(1) exchange is already small")

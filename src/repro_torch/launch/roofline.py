@@ -166,7 +166,9 @@ def exchange_bytes(protocol: Optional[str], dp: int, model_shards: int,
                                          if dp > 1 and protocol else 0.0)
     out["in_replica_collectives"] = (
         inner if inner is not None else "none (one replica a chip)"
-        if shards == 1 else "none (serving: not ported, ROADMAP A.12e)")
+        if shards == 1 else "none counted (serving gathers its weights "
+        "once, before its steps; a step's logits gather and expert-parallel "
+        "sums are not modelled, ROADMAP B)")
     return out
 
 

@@ -39,8 +39,10 @@ process holds its stretch of every bucket, the forward all-gathers the
 replica's stretches and the backward reduce-scatters the gradient;
 without it (the per-leaf engines) each process holds its piece of every
 leaf, and the forward all-gathers each leaf and the backward
-reduce-scatters its gradient. The gossip runs between the processes at
-the same shard position. ``--checkpoint`` and ``--resume`` work per
+reduce-scatters its gradient. The MoE layers of ``--arch
+jamba-v0.1-52b`` or ``kimi-k2-1t-a32b`` split their experts over the
+ranks of one batch index (``models.moe._expert_compute_manual``). The
+gossip runs between the processes at the same shard position. ``--checkpoint`` and ``--resume`` work per
 rank: the ranks gather to rank 0, which writes the stacked run's files,
 and each restores its own row and its stretch or pieces. Only rank 0
 prints; the final JSON line's ``num_shards`` is the shards a replica is
@@ -57,6 +59,9 @@ split into on the ranks (1 when stacked without ``--packed``).
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --smoke --packed --smoke-mesh 2,2,2 --steps 8 --device cpu \
         --checkpoint /tmp/ck
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --smoke --arch jamba-v0.1-52b --smoke-mesh 1,2,2 --steps 2 \
+        --device cpu
 """
 from __future__ import annotations
 

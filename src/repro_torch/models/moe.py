@@ -28,11 +28,19 @@ The combined output's last add runs under ``moe_combine_output()``, which
 ``blocks.stack_apply``'s ``remat_policy="save_moe_combine"`` reads, as the
 reference names it ``checkpoint_name(y, "moe_combine")``.
 
-``_expert_compute_manual`` (expert parallelism under ``shard_map``, ref
-``moe.py:109-166``) is not ported: every process runs
-``_expert_compute_auto`` on its replica's whole expert weights, the ranks
-of one replica gathering them with the rest of its stretches (ROADMAP
-A.12d).
+``_expert_compute_manual`` is expert parallelism (ref ``moe.py:109-166``,
+under ``shard_map``), on one process per mesh position: a rank whose
+model group (``core.replica_group``) has ``M > 1`` members, under a plan
+with ``model`` in its axes and ``E % M == 0`` (the reference's condition,
+``moe.py:192-200``; a rank's rows are its batch index's already), computes
+only its ``E / M`` experts and sums the partial outputs over the model
+group in fp32, in model order, then rounds once to the compute dtype, as
+the reference's ``parts.sum(axis=0).astype(dtype)``. The per-leaf path
+hands it those experts (``core.buckets.BucketLayout.gather_pieces``), the
+packed path all ``E`` (the whole buckets), of which it slices its own.
+Every run without ranks (stacked replicas, one device, the dry run) and
+every ``M = 1`` keeps ``_expert_compute_auto``, which the manual path
+equals there but for the rounding at its fp32 boundary.
 """
 from __future__ import annotations
 
@@ -42,6 +50,9 @@ import math
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.core.buckets import gather_rows
+from repro_torch.dist_ctx import current_distribution, current_group
 
 from .config import MoESpec
 from .layers import (Param, dense_param, mlp_apply, mlp_init, replica_matmul,
@@ -150,10 +161,14 @@ def _expert_ffn(wg, wi, wo, xe, out_dtype):
     return weight_einsum("rbecf,refd->rbecd", h, wo).to(out_dtype)
 
 
-def _combine(ye: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+def _combine(ye: torch.Tensor, inv: torch.Tensor,
+             output: bool = True) -> torch.Tensor:
     """ye (G, E*C, d) weighted slot outputs, inv (G, S, k) -> (G, S, d):
     each token's slot outputs added into zeros in ascending slot order (a
-    dropped choice reads a zero row), the reference's scatter-add order."""
+    dropped choice reads a zero row), the reference's scatter-add order.
+    With ``output`` the last add is the layer's combined output
+    (``_combine_output``); a rank's partial under expert parallelism is
+    not."""
     G, _, d = ye.shape
     k = inv.shape[2]
     ye = torch.cat([ye, ye.new_zeros(G, 1, d)], dim=1)
@@ -161,7 +176,7 @@ def _combine(ye: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     y = ye.new_zeros(G, inv.shape[1], d)
     for j in range(k):
         rows = _gather_rows(ye, slots[:, :, j])
-        if j < k - 1:
+        if j < k - 1 or not output:
             y = y + rows
         else:
             with _combine_output():
@@ -180,6 +195,114 @@ def _expert_compute_auto(p, x: torch.Tensor, table, wslot, inv, C: int):
     ye = _expert_ffn(p["w_gate"], p["w_in"], p["w_out"], xe, x.dtype)
     ye = ye * wslot[..., None]
     return _combine(ye.reshape(dp * B, E * C, d), inv).view(dp, B, S, d)
+
+
+# Collectives over the model group, counted where they are issued: the
+# partial sum of each manual forward (remat's recompute replays it) and
+# the entry op's gradient sum of each backward.
+model_collectives = {"partial_sum": 0, "grad_sum": 0}
+
+
+def _sum_over_model(parts, dtype) -> torch.Tensor:
+    """fp32 tensors of one shape, one per model index: their sum from zero
+    in model order, rounded once to ``dtype``, its last op under
+    ``_combine_output`` (the layer's combined output)."""
+    acc = torch.zeros_like(parts[0])
+    for part in parts[:-1]:
+        acc = acc + part
+    if dtype == torch.float32:
+        with _combine_output():
+            return acc + parts[-1]
+    acc = acc + parts[-1]
+    with _combine_output():
+        return acc.to(dtype)
+
+
+class _GatherPartials(torch.autograd.Function):
+    """Forward: every model-group member's partial output, in fp32 and in
+    model order, one ``all_gather`` moved as raw bits. Backward: the
+    cotangent of this rank's own partial, passed on unchanged (rounded to
+    the partial's dtype, exact where it came from it)."""
+
+    @staticmethod
+    def forward(ctx, part, group):
+        ctx.index, ctx.dtype = group.model_index, part.dtype
+        model_collectives["partial_sum"] += 1
+        return torch.stack(gather_rows(part.float(), group.model,
+                                       group.model_shards))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return grad[ctx.index].to(ctx.dtype), None
+
+
+class _ModelEntry(torch.autograd.Function):
+    """The identity on the tokens and the slot weights that every member
+    of the model group holds alike; backward sums their gradients over the
+    group in fp32, in model order, and rounds once: the transpose of the
+    reference's inputs replicated over ``model``, without which ``dx`` and
+    the router's gradient would miss the other ranks' experts."""
+
+    @staticmethod
+    def forward(ctx, x, wslot, group):
+        ctx.group = group
+        return x.view_as(x), wslot.view_as(wslot)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gx, gw):
+        group = ctx.group
+        model_collectives["grad_sum"] += 1
+        flat = torch.cat([gx.reshape(-1).float(), gw.reshape(-1).float()])
+        acc = torch.zeros_like(flat)
+        for part in gather_rows(flat, group.model, group.model_shards):
+            acc = acc + part
+        n = gx.numel()
+        return (acc[:n].view(gx.shape).to(gx.dtype),
+                acc[n:].view(gw.shape).to(gw.dtype), None)
+
+
+def _expert_parallel(E: int):
+    """The active step's ``ReplicaGroup`` where its rank computes only
+    ``E / M`` experts (expert parallelism): a plan with ``model`` in its
+    axes, a model group of ``M > 1`` members and ``E % M == 0``, the
+    reference's condition (``src/repro/models/moe.py:192-200``); else
+    None."""
+    dist, group = current_distribution(), current_group()
+    if (dist is None or group is None or group.model is None
+            or "model" not in dist.axis_names):
+        return None
+    return group if E % group.model_shards == 0 else None
+
+
+def _expert_compute_manual(p, x: torch.Tensor, table, wslot, inv, C: int,
+                           group):
+    """``_expert_compute_auto`` on this rank's experts ``[m E/M, (m+1)
+    E/M)`` (m its model index): their columns of the dispatch table and
+    of ``wslot``, their FFN, the combine of their slots (the other
+    experts' slots read the zero row, as dropped choices do), then the
+    fp32 sum of every rank's partial in model order, rounded once to the
+    compute dtype (ref ``moe.py:109-166``). The expert leaves hold either
+    all ``E`` experts (the packed path) or this rank's (the per-leaf
+    path)."""
+    dp, B, S, d = x.shape
+    E = wslot.shape[2]
+    e, m = E // group.model_shards, group.model_index
+    lo = m * e
+    w = [p[k] if p[k].shape[-3] == e else p[k][..., lo:lo + e, :, :]
+         for k in ("w_gate", "w_in", "w_out")]
+    x, wslot = _ModelEntry.apply(x, wslot, group)
+    x_pad = torch.cat([x, x.new_zeros(dp, B, 1, d)], dim=2)
+    mine = table.view(dp * B, E, C)[:, lo:lo + e].reshape(dp * B, e * C)
+    xe = _gather_rows(x_pad.view(dp * B, S + 1, d), mine).view(
+        dp, B, e, C, d)
+    ye = _expert_ffn(*w, xe, x.dtype) * wslot[:, :, lo:lo + e, :, None]
+    own = (inv >= lo * C) & (inv < (lo + e) * C)
+    part = _combine(ye.reshape(dp * B, e * C, d),
+                    torch.where(own, inv - lo * C, e * C), output=False)
+    parts = _GatherPartials.apply(part, group).unbind(0)
+    return _sum_over_model(parts, x.dtype).view(dp, B, S, d)
 
 
 def moe_apply(p, spec: MoESpec, x: torch.Tensor
@@ -203,7 +326,10 @@ def moe_apply(p, spec: MoESpec, x: torch.Tensor
     w = torch.cat([topw.reshape(G, S * k).to(x.dtype),
                    x.new_zeros(G, 1)], dim=1)
     wslot = w.gather(1, choice).view(dp, B, E, C)
-    y = _expert_compute_auto(p, x, table, wslot, inv, C)
+    group = _expert_parallel(E)
+    y = (_expert_compute_manual(p, x, table, wslot, inv, C, group)
+         if group is not None
+         else _expert_compute_auto(p, x, table, wslot, inv, C))
     if spec.n_shared:
         y = y + mlp_apply(p["shared"], x, "swiglu")
     # Switch-style load-balance loss: E * sum_e f_e * P_e

@@ -1,4 +1,4 @@
-"""Minimal batched serving engine (one device; what the CLI runs).
+"""Minimal batched serving engine (what the CLI runs).
 
 Port of ``repro/serve/engine.py``. Greedy decoding over a fixed request
 batch: one prefill, then single-token decode steps, through the same
@@ -6,6 +6,14 @@ batch: one prefill, then single-token decode steps, through the same
 reference jits both; here they run eagerly under ``torch.inference_mode``.
 Tokens and positions stay on the device through the loop (no ``.item()``),
 and the tokens come back to the host in one transfer after it.
+
+On one device by default; over a process mesh with ``dist`` and ``group``
+(a ``core.replica_group.ReplicaGroup``), as the serve steps run there: the
+rank's pieces of the weights gathered once into its serving weights
+(``serve.step.rank_serving_params``), its rows of the batch and of the
+cache, the steps under ``use_distribution(dist, group)`` (the MoE layers'
+experts split over the model group), and every step's logits gathered
+over the batch group, so every rank returns the global greedy tokens.
 """
 from __future__ import annotations
 
@@ -15,22 +23,34 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist_ctx import use_distribution
 from repro_torch.models import lm_cache_init, lm_decode, lm_prefill
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
+
+from .step import global_logits, local_rows, rank_serving_params
 
 __all__ = ["ServingEngine"]
 
 
 class ServingEngine:
     """``params`` is one replica's tree (``lm_init``'s), moved to
-    ``device`` (default cuda, which raises without a card)."""
+    ``device`` (default cuda, which raises without a card). Under a
+    ``group`` (with the plan ``dist`` it was joined with) ``params`` are
+    the rank's pieces of that tree (``serve.step.serve_pieces(cfg,
+    dist).cut_pieces(tree, group.shard)``), gathered here once."""
 
     def __init__(self, cfg: ModelConfig, params: Any, max_seq: int,
-                 device="cuda"):
+                 device="cuda", dist=None, group=None):
+        if group is not None and dist is None:
+            raise ValueError("a group serves under the plan it was joined "
+                             "with: pass dist=")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = tree_map(lambda w: w.to(self.device), params)
+        self.dist, self.group = dist, group
+        params = tree_map(lambda w: w.to(self.device), params)
+        self.params = (params if group is None
+                       else rank_serving_params(cfg, dist, params, group))
         self.max_seq = max_seq
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
@@ -45,23 +65,27 @@ class ServingEngine:
         n_img = self.cfg.vision.n_image_tokens if (
             self.cfg.vision is not None and image_embeds is not None) else 0
         assert S + n_img + max_new_tokens <= self.max_seq, "cache too small"
-        dev = self.device
-        with torch.inference_mode():
-            cache = lm_cache_init(self.cfg, B, self.max_seq, device=dev)
+        dev, group = self.device, self.group
+
+        def rows(x):   # this rank's rows of a global input
+            return None if x is None else local_rows(
+                torch.as_tensor(x).to(dev), group)
+
+        with torch.inference_mode(), use_distribution(self.dist, group):
+            toks = rows(np.asarray(prompts, dtype=np.int64))
+            cache = lm_cache_init(self.cfg, toks.shape[0], self.max_seq,
+                                  device=dev)
             pos = torch.full((), S + n_img, dtype=torch.int64, device=dev)
-            if image_embeds is not None:
-                image_embeds = torch.as_tensor(image_embeds).to(dev)
-            if audio_frames is not None:
-                audio_frames = torch.as_tensor(audio_frames).to(dev)
             logits, cache = lm_prefill(
-                self.params, self.cfg,
-                torch.as_tensor(prompts, dtype=torch.int64).to(dev), cache,
-                image_embeds=image_embeds, audio_frames=audio_frames)
+                self.params, self.cfg, toks, cache,
+                image_embeds=rows(image_embeds),
+                audio_frames=rows(audio_frames))
             out = []
-            tok = logits.argmax(-1)
+            tok = global_logits(logits, group).argmax(-1)
             for t in range(max_new_tokens):
                 out.append(tok)
-                logits, cache = lm_decode(self.params, self.cfg, tok, cache,
+                logits, cache = lm_decode(self.params, self.cfg,
+                                          local_rows(tok, group), cache,
                                           pos + t)
-                tok = logits.argmax(-1)
+                tok = global_logits(logits, group).argmax(-1)
             return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()

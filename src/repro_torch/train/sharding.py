@@ -29,7 +29,7 @@ import numpy as np
 
 from repro_torch.mesh_spec import MeshSpec, PartitionSpec as P
 from repro_torch.models.layers import ax_names
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map
 
 __all__ = ["Distribution", "make_distribution"]
 
@@ -142,6 +142,20 @@ class Distribution:
             return self.leaf_spec(shape, a, False)
 
         return tree_map(one, params, axes)
+
+    def expert_dims(self, specs) -> Tuple:
+        """Per leaf of ``specs`` (a tree of ``ParamSpec``s of one replica,
+        in flatten order): the dim of its ``experts`` axis where the plan
+        puts that axis on ``model`` (expert parallelism: each position on
+        ``model`` owns ``E / M`` experts), else None."""
+        out = []
+        for s in tree_flatten(specs)[0]:
+            names = ax_names(s.axes)
+            dim = names.index("experts") if "experts" in names else None
+            spec = self.leaf_spec(tuple(s.shape), s.axes, True)
+            out.append(dim if dim is not None and spec[1 + dim] == "model"
+                       else None)
+        return tuple(out)
 
     # -------------------------------------------------- data specs
     def batch_spec(self, ndim: int) -> P:

@@ -61,8 +61,19 @@ reduce-scatters its gradient over the batch group
 adds its squares over the replica's shards, then the replicas), and the
 mix, the ring and the replica means run on them over the cross-replica
 group, as the reference's per-leaf engine runs on its sharded arrays.
-The step runs under ``dist_ctx.use_distribution(dist)``, as the
-reference's does.
+The step runs under ``dist_ctx.use_distribution(dist, group)``, as the
+reference's runs under its plan.
+
+**Expert parallelism** (a group whose model group has ``M > 1`` members,
+MoE layers with ``E % M == 0``): a rank computes only its ``E / M``
+experts and sums the partial outputs over its model group
+(``models.moe._expert_compute_manual``). The per-leaf engines then
+gather an expert leaf over the batch group only, the rank's block of its
+experts (``BucketLayout.gather_pieces(experts=)``); the packed engines
+gather whole buckets and the layer slices its experts. A stretch's or
+piece's gradient stays the batch-group sum: rank ``(d, m)``'s piece of an
+expert leaf lies in expert block ``m``, which only the members ``(d',
+m)`` compute.
 
 **Fused mix+apply** (default for packed sgd, adamw and lars, never
 per-leaf): steps 3-4 are one single-sweep kernel per bucket that mixes with
@@ -109,7 +120,8 @@ from repro_torch.tree import tree_flatten, tree_map
 from .loss import make_loss_fn
 from .sharding import Distribution
 
-__all__ = ["TrainStepBundle", "make_train_step_bundle", "init_train_state"]
+__all__ = ["TrainStepBundle", "make_train_step_bundle", "init_train_state",
+           "expert_dims"]
 
 
 class TrainStepBundle:
@@ -188,19 +200,23 @@ def _build_packed_layout(dist: Optional[Distribution], cfg: ModelConfig):
         return build_layout(specs)
     leaves, td = tree_flatten(specs)
     full = [dist.leaf_spec(s.shape, s.axes, True) for s in leaves]
-
-    def inner(spec):
-        # drop size-1 mesh axes: they shard nothing
-        dims = []
-        for dim in tuple(spec)[1:]:
-            axes = dim if isinstance(dim, tuple) else (dim,) if dim else ()
-            kept = tuple(a for a in axes if a in dist.shard_axes)
-            dims.append(kept if len(kept) > 1 else kept[0] if kept else None)
-        return PartitionSpec(*dims)
-
     return build_layout(specs, shard_axes=dist.shard_axes,
                         shard_axis_sizes=dist.shard_axis_sizes,
-                        shard_specs=td.unflatten([inner(p) for p in full]))
+                        shard_specs=td.unflatten(
+                            [in_replica_spec(dist, tuple(p)[1:])
+                             for p in full]))
+
+
+def in_replica_spec(dist: Distribution, dims) -> PartitionSpec:
+    """A leaf's in-replica spec from its per-replica ``dims``: the mesh
+    axes that shard inside a replica, size-1 axes dropped (they shard
+    nothing)."""
+    out = []
+    for dim in dims:
+        axes = dim if isinstance(dim, tuple) else (dim,) if dim else ()
+        kept = tuple(a for a in axes if a in dist.shard_axes)
+        out.append(kept if len(kept) > 1 else kept[0] if kept else None)
+    return PartitionSpec(*out)
 
 
 def _piece_layout(dist: Optional[Distribution], cfg: ModelConfig,
@@ -214,6 +230,17 @@ def _piece_layout(dist: Optional[Distribution], cfg: ModelConfig,
         raise ValueError("a replica group with in-replica shards needs the "
                          "plan it was joined with: pass dist=")
     return _build_packed_layout(dist, cfg)
+
+
+def expert_dims(cfg: ModelConfig, dist: Optional[Distribution],
+                group: Optional[ReplicaGroup]):
+    """Per leaf of ``lm_specs(cfg)``, the dim of the experts that a rank of
+    ``group`` owns ``E / M`` of (``Distribution.expert_dims``), where the
+    rank has a model group of ``M > 1`` members; else None (no expert
+    parallelism: every leaf is gathered whole)."""
+    if dist is None or group is None or group.model is None:
+        return None
+    return dist.expert_dims(lm_specs(cfg))
 
 
 def _rank_chunk(packed: PackedParams, group: ReplicaGroup,
@@ -350,7 +377,8 @@ def make_train_step_bundle(
     ``models.mamba.ssm_scan_chunked_torch``, the long-sequence train scan).
     ``group`` runs one mesh position per process (a
     ``core.replica_group.ReplicaGroup``; None: the dp replicas stacked on
-    ``device``)."""
+    ``device``); with a model group the MoE layers split their experts
+    over it."""
     dev = resolve_device(device)
     dp = _resolve_dp(dp, dist, group)
     local_rows(dp, group)
@@ -421,11 +449,13 @@ def make_train_step_bundle(
                else None)
 
     pieces = _piece_layout(dist, cfg, group, gossip_packed)
+    experts = expert_dims(cfg, dist, group)
 
     def as_tree(params):
         if gossip_packed:
             return params.unpack()
-        return pieces.gather_pieces(params, group) if pieces else params
+        return (pieces.gather_pieces(params, group, experts) if pieces
+                else params)
 
     def autograd_leaves(params):
         return params.buckets if gossip_packed else tree_flatten(params)[0]
@@ -446,7 +476,7 @@ def make_train_step_bundle(
             # in place on the autograd leaves, before the forward pass
             with torch.no_grad():
                 params, inbox = proto.comm_params(params, phase, inbox=inbox)
-        with use_distribution(dist):
+        with use_distribution(dist, group):
             loss, metrics = loss_fn(as_tree(params), batch)
             # replica r's grad is d loss_r / d params_r
             total = loss.sum()

@@ -381,3 +381,40 @@ def test_leaf_ranks_phases(cs):
     assert agreed["stacked_file_restores_in_ranks_bit_equal"]
     assert agreed["lars"]["trust_ratios"] > 0
     assert agreed["sgd"]["max_abs_diff_params"] <= 2e-4
+
+
+def test_moe_ranks_phases(cs):
+    """[moe_ranks], [moe_ranks_agree] and [serve_ranks] at toy size: four
+    gloo ranks of the (1, 2, 2) fsdp mesh on the CPU running reduced
+    jamba. Under expert parallelism each rank runs its 2 of 4 experts and
+    the bytes of every collective equal the count from the leaf shapes,
+    with and without it; the reduced runs agree with the stacked ones and
+    remat changes no bit; served over the ranks, the weights' one gather
+    equals its count, every rank returns the one-process engine's tokens
+    and the logits agree."""
+    small = dict(reduced=dict(d_model=32))
+    ranks = dict(cs.MOE_RANKS, seq=8, **small)
+    agree = dict(cs.MOE_AGREE, seq=8, **small)
+    serve = dict(cs.SERVE_RANKS, batch=4, prompt=6, new=3, max_seq=16,
+                 small=dict(cs.SERVE_RANKS["small"], **small), **small)
+    out = cs.moe_ranks_run("cpu", ranks=ranks, agree=agree, serve=serve)
+    assert cs._ranks_failed(out, "moe_ranks") is None
+    rec = cs.check_moe_ranks(out, "cpu")
+    assert rec["world"] == 4 and rec["n_experts"] == 4
+    assert rec["ep"]["experts_a_rank"] == 2
+    assert rec["whole"]["experts_a_rank"] == 4
+    for ep, whole in zip(rec["ep"]["bytes_per_step_by_rank"],
+                         rec["whole"]["bytes_per_step_by_rank"]):
+        assert ep["model_sum"] > 0 == whole["model_sum"]
+        assert ep["all_gather"] < whole["all_gather"]
+        assert ep["batch_gather"] > whole["batch_gather"] > 0
+    agreed = cs.check_moe_agree(out)
+    assert agreed["model_collectives_per_step"]["leaf"] == {
+        "partial_sum": 1, "grad_sum": 1}
+    assert agreed["model_collectives_per_step"]["leaf_save"] == {
+        "partial_sum": 2, "grad_sum": 1}
+    served = cs.check_serve_ranks(out, "cpu")
+    for tag in ("full", "small"):
+        assert served[tag]["experts_a_rank"] == [2]
+        assert served[tag]["greedy_tokens_equal"] == \
+            served[tag]["greedy_tokens"]
