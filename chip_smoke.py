@@ -349,6 +349,24 @@ package ``repro``. Phases, each of which fails the run on any error:
     ``ServingEngine`` on the same weights; reduced fp32: tokens equal and
     logits within 1e-5. No kernel is on these paths.
 
+22. The sequence-parallel decode cache (``seq_ranks_run``, CPU-callable;
+    ``[serve_seq_ranks]``, one world of four gloo ranks of the same
+    mesh): batch 1 does not split over the batch group, so each rank
+    holds its stretch of every attention / MLA leaf (``serve.step.
+    rank_cache_init``) and the decode attention combines the ranks'
+    partial softmaxes in one all-gather a layer. qwen3-0.6b at full
+    width and depth (bf16) with decode_32k's cache (``max_seq`` 32,768)
+    and as long_500k's windowed variant (``resolve_config``: window
+    8,192), prompt 4,096; deepseek-v3 at full width cut to its 3 dense
+    MLA layers, ``max_seq`` 32,768, prompt 1,024; 32 new tokens each:
+    the cache's bytes a rank against the whole, prefill ms, decode ms a
+    token (CUDA events), the serving peak, the combine's bytes a token
+    against the count from the shapes, the first-token logits against
+    the one-process engine and how many greedy tokens agree; every rank
+    bit-equal; each run's reduced fp32 twin (the windowed one a wrapping
+    16-slot ring): tokens equal and logits within 1e-5. No kernel is on
+    this path.
+
 Prints each phase's wall seconds on the ``[done]`` line, the kernels' JSON
 line, the card's name and power limit, and last the line ``{"ok": true,
 "device": {...}}``. Exits non-zero on any failure.
@@ -3670,7 +3688,8 @@ def _fsdp_rank_agree(group, dist, dev, spec) -> tuple:
 def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
     """One rank of [fsdp_ranks] / [fsdp_ranks_agree] (or with ``kind``
     "leaf" of [leaf_ranks] / [leaf_ranks_agree], with "moe" of
-    [moe_ranks] / [moe_ranks_agree] / [serve_ranks]): join the gloo world
+    [moe_ranks] / [moe_ranks_agree] / [serve_ranks], with "seq" of
+    [serve_seq_ranks]): join the gloo world
     of the mesh (CUDA tensors on the card: ``backend="gloo"``, every rank
     on the one card), run the rank's parts, write its record (JSON) and
     arrays (npz) under ``out``. Returns 1 with the traceback recorded when
@@ -3682,7 +3701,7 @@ def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
                                              init_replica_group)
         if spec["device"] == "cuda":
             os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-            if spec.get("kind") == "moe":   # four ranks near the card's size
+            if spec.get("kind") in ("moe", "seq"):   # four ranks, big
                 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                                       "expandable_segments:True")
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -3700,7 +3719,9 @@ def fsdp_rank_child(rank, world, init, out, spec_json) -> int:
                           ("agree", _leaf_rank_agree)),
                  "moe": (("ranks", _moe_rank_train),
                          ("agree", _moe_rank_agree),
-                         ("serve", _serve_rank))}[spec.get("kind", "packed")]
+                         ("serve", _serve_rank)),
+                 "seq": (("seq", _serve_seq_rank),)}[spec.get("kind",
+                                                          "packed")]
         try:
             for key, fn in parts:
                 got = fn(group, dist, group.device, spec[key])
@@ -4341,11 +4362,13 @@ def _serve_prompts(cfg, sizes):
 
 
 def _serve_loop(dev, params, prefill, decode, cache, toks, sizes,
-                keep_logits: bool) -> tuple:
+                keep_logits: bool, events: bool = False) -> tuple:
     """Prefill timed (the first call apart, the median of 3 more), then
     ``new`` greedy decode steps timed on the host clock (the device
-    synchronized around each); the prefill's logits (and with
-    ``keep_logits`` every decode step's), fp32 on the host."""
+    synchronized around each), with ``events`` on the card by CUDA events
+    around each step (the host clock's median kept beside them); the
+    prefill's logits (and with ``keep_logits`` every decode step's), fp32
+    on the host."""
     pre = []
     for _ in range(4):
         _sync(dev)
@@ -4356,20 +4379,30 @@ def _serve_loop(dev, params, prefill, decode, cache, toks, sizes,
     kept = [logits.float().cpu().numpy()]
     tok = logits.argmax(-1)
     pos = torch.full((), sizes["prompt"], dtype=torch.int64, device=dev)
-    steps = []
+    steps, host = [], []
+    use_events = events and _on_card(dev)
     for t in range(sizes["new"]):
         _sync(dev)
         t0 = time.perf_counter()
+        if use_events:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
         logits, cache = decode(params, cache, tok, pos + t)
         tok = logits.argmax(-1)
+        if use_events:
+            ev[1].record()
         _sync(dev)
-        steps.append((time.perf_counter() - t0) * 1e3)
+        host.append((time.perf_counter() - t0) * 1e3)
+        steps.append(ev[0].elapsed_time(ev[1]) if use_events else host[-1])
         if keep_logits:
             kept.append(logits.float().cpu().numpy())
-    return {"prefill_first_ms": pre[0],
-            "prefill_ms": statistics.median(pre[1:]),
-            "decode_ms_per_token": statistics.median(steps),
-            "decode_ms_min_max": [min(steps), max(steps)]}, kept
+    timed = {"prefill_first_ms": pre[0],
+             "prefill_ms": statistics.median(pre[1:]),
+             "decode_ms_per_token": statistics.median(steps),
+             "decode_ms_min_max": [min(steps), max(steps)]}
+    if use_events:
+        timed["decode_host_ms_per_token"] = statistics.median(host)
+    return timed, kept
 
 
 def _serve_rank(group, dist, dev, spec) -> tuple:
@@ -4668,6 +4701,247 @@ def phase_serve_ranks(out: dict, dev) -> dict:
     return res
 
 
+# ------------------------------------- the sequence-parallel decode cache
+# [serve_seq_ranks]: batch 1 served over the same four gloo ranks of the
+# (1, 2, 2) fsdp mesh (the batch does not split over the batch group, so
+# each rank holds its stretch of every attention / MLA leaf and the
+# decode attention combines the ranks' partial softmaxes): qwen3-0.6b at
+# full width and depth with decode_32k's cache and as long_500k's
+# windowed variant (``launch.specs.resolve_config``: window 8,192),
+# prompt 4,096; deepseek-v3 at full width cut to its 3 dense MLA layers,
+# prompt 1,024; 32 new tokens each. Each with its reduced fp32 twin
+# against the one-process engine (``small``; the windowed twin's 16-slot
+# ring wraps).
+SEQ_SMALL = dict(reduced=dict(d_model=64), prompt=12, new=6, max_seq=32)
+SERVE_SEQ_RANKS = dict(mesh=(1, 2, 2), runs=(
+    dict(tag="qwen3_decode_32k", arch="qwen3-0.6b", batch=1, prompt=4096,
+         new=32, max_seq=32768, small=SEQ_SMALL),
+    dict(tag="qwen3_long_500k", arch="qwen3-0.6b", shape="long_500k",
+         batch=1, prompt=4096, new=32, max_seq=524288,
+         small=dict(SEQ_SMALL, window=16)),
+    dict(tag="deepseek_v3", arch="deepseek-v3-671b", layers=3, batch=1,
+         prompt=1024, new=32, max_seq=32768, small=SEQ_SMALL)))
+
+
+def _seq_cfg(run):
+    """The model of a [serve_seq_ranks] run: ``arch`` as
+    ``resolve_config`` specializes it for ``shape`` (default decode_32k),
+    cut to its first ``layers``; with ``reduced`` the reduced fp32 model
+    instead, windowed to ``window`` where given; fsdp mode."""
+    from repro_torch.configs import get_config, with_sliding_window
+    from repro_torch.launch.specs import resolve_config
+    from repro_torch.models import reduced
+    if run.get("reduced"):
+        cfg = dataclasses.replace(reduced(get_config(run["arch"]),
+                                          **run["reduced"]),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        if run.get("window"):
+            cfg = with_sliding_window(cfg, run["window"])
+    else:
+        cfg = resolve_config(run["arch"], run.get("shape", "decode_32k"))[0]
+        if run.get("layers"):
+            cfg = _depth(cfg, run["layers"])
+    return dataclasses.replace(cfg, dist_mode="fsdp")
+
+
+def _seq_sizes(run):
+    """(tag, sizes) of a run at full width and of its reduced twin."""
+    return ((run["tag"], run),
+            (run["tag"] + "/small", dict(run, **run["small"])))
+
+
+def _combine_count(cfg, seq, batch: int) -> int:
+    """The bytes a rank receives a decode step in the sequence-parallel
+    combine, from the shapes: per split attention layer one all-gather of
+    the fp32 ``(m, l, o)`` of every row from each other member of the
+    batch group, ``(H * d_v + 2 H) * 4`` bytes a row (MLA: ``d_v`` is
+    the latent's ``kv_lora_rank``)."""
+    from repro_torch.models.attention import cache_len
+    per = 0
+    for b in cfg.blocks:
+        if b.kind == "attn" and not b.attn.cross:
+            H, dv, window = b.attn.n_heads, b.attn.head_dim, b.attn.window
+        elif b.kind == "mla":
+            H, dv, window = b.mla.n_heads, b.mla.kv_lora_rank, b.mla.window
+        else:
+            continue
+        if cache_len(seq.max_seq, window) in seq.split:
+            per += (H * dv + 2 * H) * 4
+    return (seq.n - 1) * batch * per
+
+
+def _serve_seq_rank(group, dist, dev, spec) -> tuple:
+    """[serve_seq_ranks] on this rank, every run at full width and then
+    reduced fp32: its pieces of the seeded weights gathered once into
+    ``ServingEngine(dist=, group=)``, ``generate`` (the global greedy
+    tokens; the bytes its combine receives a token, against
+    ``_combine_count``, and the host ms of its all-gathers, the device
+    synchronized around each), then the serve steps on
+    ``rank_cache_init``'s cache timed (``_serve_loop``, CUDA events a
+    decode step), the cache's bytes against the whole cache's, the
+    serving peak, the launches (no kernel serves)."""
+    from repro_torch.models import lm_axes, lm_cache_init, lm_init
+    from repro_torch.serve import ServingEngine
+    from repro_torch.serve.step import (make_decode_step, make_prefill_step,
+                                        rank_cache_init, seq_shards,
+                                        serve_pieces)
+    rec, arrays = {}, {}
+    for run in spec["runs"]:
+        for tag, sizes in _seq_sizes(run):
+            cfg = _seq_cfg(sizes)
+            B, max_seq = sizes["batch"], sizes["max_seq"]
+            _reset_peak(dev)
+            pieces = serve_pieces(cfg, dist).cut_pieces(
+                lm_init(cfg, seed=0, device=dev), group.shard)
+            _free_device(dev)
+            engine = ServingEngine(cfg, pieces, max_seq, device=dev,
+                                   dist=dist, group=group)
+            del pieces
+            load_peak = _peak_gb(dev)
+            _free_device(dev)
+            _reset_peak(dev)
+            _reset_counts()
+            prompts = _serve_prompts(cfg, sizes)
+            with _traffic(group, dev) as (moved, coll_ms):
+                out = engine.generate(prompts, sizes["new"])
+            seq = seq_shards(cfg, dist, group, B, max_seq)
+            with torch.inference_mode():
+                cache = rank_cache_init(cfg, dist, group, B, max_seq,
+                                        device=dev)
+                kw = dict(param_shapes=engine.params,
+                          param_axes=lm_axes(cfg), cache_shapes=cache,
+                          group=group, max_seq=max_seq)
+                timed, logits = _serve_loop(
+                    dev, engine.params,
+                    make_prefill_step(cfg, dist, **kw).step_fn,
+                    make_decode_step(cfg, dist, **kw).step_fn, cache,
+                    torch.as_tensor(prompts, dtype=torch.int64).to(dev),
+                    sizes, keep_logits=tag.endswith("/small"), events=True)
+            rec[tag] = dict(
+                timed, batch=B, prompt=sizes["prompt"],
+                new_tokens=sizes["new"], max_seq=max_seq,
+                layers=cfg.n_layers, d_model=cfg.d_model,
+                dtype=cfg.param_dtype, split_lengths=sorted(seq.split),
+                cache_bytes_rank=_tree_bytes(cache),
+                cache_bytes_whole=_tree_bytes(lm_cache_init(
+                    cfg, B, max_seq, device="meta")),
+                combine_bytes_per_token=moved["batch_gather"]
+                / sizes["new"],
+                combine_count_per_token=_combine_count(cfg, seq, B),
+                combine_ms_per_token=coll_ms["batch_gather"] / sizes["new"],
+                other_bytes=sum(v for k, v in moved.items()
+                                if k != "batch_gather"),
+                serving_weights_gb=_tree_bytes(engine.params) / 1e9,
+                load_peak_gb=load_peak, peak_mem_gb=_peak_gb(dev),
+                launches=_counts())
+            arrays[f"seq/{tag}/tokens"] = out
+            for i, x in enumerate(logits):
+                arrays[f"seq/{tag}/logits{i}"] = x
+            del engine, cache, kw
+            _free_device(dev)
+    return rec, arrays
+
+
+def seq_ranks_run(dev, *, serve=SERVE_SEQ_RANKS) -> dict:
+    """The body of [serve_seq_ranks]: the one-process engine on every
+    run's seeded weights (full width and reduced), then one gloo world of
+    ``prod(mesh)`` processes serving them over the sequence-parallel
+    cache. Returns the ranks' records and arrays and this process's
+    runs."""
+    one = {}
+    for run in serve["runs"]:
+        for tag, sizes in _seq_sizes(run):
+            one[tag] = _serve_one(_seq_cfg(sizes), dev, sizes,
+                                  keep_logits=tag.endswith("/small"))
+    world = int(np.prod(serve["mesh"]))
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="seq_ranks_", dir=ROOT / "build"))
+    try:
+        return {"one": one, "world": world, "mesh": list(serve["mesh"]),
+                "ranks": _spawn_ranks(dev, world, dict(
+                    kind="seq", ranks=dict(mesh=serve["mesh"]), seq=serve),
+                    tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_serve_seq_ranks(out: dict, dev) -> dict:
+    """[serve_seq_ranks]'s record: on every rank the same tokens and the
+    same first-token logits bit for bit, finite, of the one-process
+    shape; the rank's cache half the whole cache's bytes (every attention
+    and MLA leaf split); the combine's bytes a token equal to
+    ``_combine_count`` and no other collective while serving; no kernel
+    launched. Full width: the first-token logits' largest difference from
+    the one-process engine's and how many greedy tokens agree; reduced
+    fp32: tokens equal and every step's logits within
+    ``SERVE_RANKS_TOL``."""
+    recs = [(r["seq"], arr) for r, arr in out["ranks"]]
+    res = {"world": out["world"], "mesh": out["mesh"]}
+    for tag, one in out["one"].items():
+        r0, a0 = recs[0]
+        for r, arr in recs:
+            rec = r[tag]
+            assert np.array_equal(arr[f"seq/{tag}/tokens"],
+                                  a0[f"seq/{tag}/tokens"]), "every rank"
+            assert np.array_equal(arr[f"seq/{tag}/logits0"],
+                                  a0[f"seq/{tag}/logits0"]), "bit-equal"
+            assert 2 * rec["cache_bytes_rank"] == rec["cache_bytes_whole"], \
+                rec
+            assert rec["combine_bytes_per_token"] == \
+                rec["combine_count_per_token"] > 0, rec
+            assert rec["other_bytes"] == 0, rec
+            assert rec["launches"] == dict.fromkeys(KERNELS, 0), rec
+        got, want = a0[f"seq/{tag}/tokens"], one["tokens"]
+        first = a0[f"seq/{tag}/logits0"]
+        assert first.shape == one["logits"][0].shape
+        assert np.isfinite(first).all()
+        row = {k: r0[tag][k] for k in (
+            "batch", "prompt", "new_tokens", "max_seq", "layers", "d_model",
+            "dtype", "split_lengths", "cache_bytes_rank",
+            "cache_bytes_whole", "combine_bytes_per_token",
+            "combine_count_per_token", "serving_weights_gb",
+            "prefill_first_ms")}
+        row["combine_ms_per_token_by_rank"] = [r[tag]["combine_ms_per_token"]
+                                               for r, _ in recs]
+        row.update(
+            prefill_ms_by_rank=[r[tag]["prefill_ms"] for r, _ in recs],
+            decode_ms_per_token_by_rank=[r[tag]["decode_ms_per_token"]
+                                         for r, _ in recs],
+            decode_ms_min_max=r0[tag]["decode_ms_min_max"],
+            decode_host_ms_per_token=r0[tag].get(
+                "decode_host_ms_per_token"),
+            peak_mem_gb_by_rank=[r[tag]["peak_mem_gb"] for r, _ in recs],
+            load_peak_gb_by_rank=[r[tag]["load_peak_gb"] for r, _ in recs],
+            first_token_logits_max_abs_diff=_np_diff(first,
+                                                     one["logits"][0]),
+            greedy_tokens_equal=int((got == want).sum()),
+            greedy_tokens=int(want.size))
+        if tag.endswith("/small"):
+            assert np.array_equal(got, want), (tag, got, want)
+            for i, w in enumerate(one["logits"]):
+                np.testing.assert_allclose(a0[f"seq/{tag}/logits{i}"], w,
+                                           rtol=SERVE_RANKS_TOL,
+                                           atol=SERVE_RANKS_TOL)
+            row["logits_max_abs_diff"] = max(
+                _np_diff(a0[f"seq/{tag}/logits{i}"], w)
+                for i, w in enumerate(one["logits"]))
+        res[tag] = row
+    return res
+
+
+def phase_serve_seq_ranks(dev) -> dict:
+    """[serve_seq_ranks]: ``seq_ranks_run``'s world, checked
+    (``check_serve_seq_ranks``); gloo's refusal of a CUDA collective is
+    recorded as in [fsdp_ranks]."""
+    out = seq_ranks_run(dev)
+    res = _ranks_failed(out, "serve_seq_ranks")
+    if res is None:
+        res = check_serve_seq_ranks(out, dev)
+        log("[serve_seq_ranks] " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4914,6 +5188,9 @@ def main() -> int:
     log("[moe phases] seconds " + json.dumps(
         {k: seconds.get(k) for k in ("moe_ranks_run", "moe_ranks",
                                      "moe_ranks_agree", "serve_ranks")}))
+    del moe_out
+    # batch 1 over the same ranks: the sequence-parallel decode cache
+    guard("serve_seq_ranks", phase_serve_seq_ranks, dev)
     if failures:
         log(f"[done] {time.perf_counter() - t_start:.1f}s; failed phases: "
             f"{failures}; phase seconds {json.dumps(seconds)}")

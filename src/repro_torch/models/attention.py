@@ -26,6 +26,18 @@ its keys and values from the encoder's output ``memory``, unmasked and
 unrotated; its decode reads them from the cache (``memory_kv``, filled by
 prefill) and writes nothing.
 
+**Sequence-parallel decode** (a serve step under a
+``dist_ctx.SeqShards``, ``current_seq()``: the batch does not split over
+the rank's batch group, as long_500k's batch of 1): a cache leaf whose
+length the plan splits holds the rank's stretch, ``L / n`` positions from
+``lo``. The slot rule and the validity mask stay global (over ``L`` and
+the stretch's global indices ``lo + t``); only the stretch that holds the
+slot writes the new token (``_write_slot``, no host read of ``pos``);
+each rank's partial softmax over its stretch, fp32 ``(m, l, o)``, is
+all-gathered over the batch group once a layer and combined in batch
+order (``_seq_combine``), so every rank holds the same bits. A leaf that
+does not split runs the one-process arithmetic on every rank.
+
 MLA caches one latent per token, ``c_kv`` (b, L, kv_lora) and the shared
 RoPE key ``k_rope`` (b, L, rope_dim), a full cache or a ring as above.
 Its decode absorbs ``wk_b`` into the query and ``wv_b`` into the output,
@@ -42,6 +54,9 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.core.buckets import gather_rows
+from repro_torch.dist_ctx import current_seq
 
 from .config import AttnSpec, MLASpec
 from .layers import (Param, dense_param, per_replica, replica_matmul,
@@ -104,9 +119,9 @@ def _project_qkv(p, spec: AttnSpec, x, kv_x, q_positions, kv_positions):
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, n_kv: int):
-    """q (..., b, S, H, hd), k/v (..., b, T, K, hd), mask (b, S, T) or
-    (S, T) bool or None."""
+def _gqa_scores(q, k, v, mask, n_kv: int):
+    """The fp32 scores (..., b, H, S, T) of ``_sdpa``, ``NEG_INF`` where
+    ``mask`` is False, and ``v`` repeated to every head."""
     *lead, S, H, hd = q.shape
     T, K = k.shape[-3], n_kv
     G = H // K
@@ -119,12 +134,105 @@ def _sdpa(q, k, v, mask, n_kv: int):
     scores = torch.einsum("...shd,...thd->...hst", q, k).float()
     scores = scores / math.sqrt(hd)
     if mask is not None:
-        m = mask[:, None] if mask.dim() == 3 else mask
-        scores = torch.where(m, scores,
-                             torch.full((), NEG_INF, dtype=scores.dtype,
-                                        device=scores.device))
+        scores = _masked(scores, mask[:, None] if mask.dim() == 3 else mask)
+    return scores, v
+
+
+def _masked(scores, valid):
+    """``scores`` where ``valid``, ``NEG_INF`` elsewhere."""
+    return torch.where(valid, scores,
+                       torch.full((), NEG_INF, dtype=scores.dtype,
+                                  device=scores.device))
+
+
+def _sdpa(q, k, v, mask, n_kv: int):
+    """q (..., b, S, H, hd), k/v (..., b, T, K, hd), mask (b, S, T) or
+    (S, T) bool or None."""
+    scores, v = _gqa_scores(q, k, v, mask, n_kv)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("...hst,...thd->...shd", w, v)
+
+
+# ------------------------------------------------------ the decode cache
+def _slot(window, pos, L: int):
+    """The token's slot in a cache of ``L`` positions: ``pos % L`` in a
+    ring buffer, else ``pos`` clamped into the cache (the reference's
+    dynamic_update_slice clamps its start)."""
+    return pos % L if window is not None else pos.clamp(0, L - 1)
+
+
+def _valid(window, L: int, lo: int, part: int, slot, pos, device):
+    """Which of the slots ``lo .. lo + part - 1`` of a cache of ``L``
+    positions hold a token up to ``pos``: in a ring buffer those written
+    within the last L steps (a floor-mod: ``%`` on tensors takes the
+    divisor's sign)."""
+    idx = torch.arange(lo, lo + part, device=device)
+    if window is None:
+        return idx <= pos
+    return (slot - idx) % L < torch.clamp(pos + 1, max=L)
+
+
+def _seq_stretch(window, leaf: torch.Tensor):
+    """(seq, L, lo) when this step is sequence-parallel and the plan
+    splits this cache leaf (a stretch of ``L / n`` positions from ``lo``
+    of its global length ``L``), else None: the leaf is whole."""
+    seq = current_seq()
+    if seq is None:
+        return None
+    L = cache_len(seq.max_seq, window)
+    lo, part = seq.stretch(L)
+    if part == L:
+        return None
+    if leaf.shape[2] != part:
+        raise ValueError(f"a stretch of {part} of {L} positions, the cache "
+                         f"holds {leaf.shape[2]}")
+    return seq, L, lo
+
+
+def _write_slot(leaf: torch.Tensor, new: torch.Tensor, slot, lo: int,
+                stretch: bool):
+    """Write the token's entry ``new`` (one position on dim 2) at the
+    global ``slot``: into a whole leaf directly; into a stretch starting
+    at ``lo`` only where it holds the slot, every other stretch rewriting
+    the entry it already holds (``slot`` stays on the device)."""
+    new = new.to(leaf.dtype)
+    if stretch:
+        local = slot - lo
+        at = local.clamp(0, leaf.shape[2] - 1).reshape(1).long()
+        owner = (local >= 0) & (local < leaf.shape[2])
+        new = torch.where(owner, new, leaf.index_select(2, at))
+    else:
+        at = slot.reshape(1).long()
+    leaf.index_copy_(2, at, new)
+
+
+def _seq_combine(scores, valid, vals, eq: str, seq, dtype):
+    """Softmax over every rank's stretch: this rank's masked fp32
+    ``scores`` (..., H, S, T) give its partial ``m`` (the row maximum),
+    ``l`` (the sum of ``exp(s - m)`` over its valid slots, 0 where it has
+    none) and ``o`` (``einsum(eq, exp(s - m), vals)`` in fp32, (..., H, S,
+    e)); one ``all_gather`` of the three over the batch group, then in
+    batch order ``l = sum exp(m_i - m) l_i`` and ``o = sum exp(m_i - m)
+    o_i`` against the largest ``m``, and ``o / l`` rounded once to
+    ``dtype``."""
+    m = scores.amax(-1, keepdim=True)
+    e = torch.where(valid, torch.exp(scores - m),
+                    torch.zeros((), dtype=scores.dtype, device=scores.device))
+    mine = (m, e.sum(-1, keepdim=True), torch.einsum(eq, e, vals.float()))
+    sizes = [t.numel() for t in mine]
+    parts = [[x.view(t.shape) for x, t in zip(torch.split(g, sizes), mine)]
+             for g in gather_rows(torch.cat([t.reshape(-1) for t in mine]),
+                                  seq.group.batch, seq.n)]
+    top = parts[0][0]
+    for mi, _, _ in parts[1:]:
+        top = torch.maximum(top, mi)
+    l_sum = torch.zeros_like(m)
+    o_sum = torch.zeros_like(mine[2])
+    for mi, li, oi in parts:
+        w = torch.exp(mi - top)
+        l_sum = l_sum + w * li
+        o_sum = o_sum + w * oi
+    return (o_sum / l_sum).to(dtype)
 
 
 def causal_window_mask(S: int, T: int, window: Optional[int],
@@ -188,22 +296,21 @@ def attn_decode(p, spec: AttnSpec, x1: torch.Tensor, cache: dict, pos,
     pos = torch.as_tensor(pos, device=x1.device)
     p1 = pos.reshape(1, 1)
     q, k1, v1 = _project_qkv(p, spec, x1, x1, p1, p1)
-    L = cache["k"].shape[2]
-    # the reference's dynamic_update_slice clamps its start into the cache
-    slot = pos % L if spec.window is not None else pos.clamp(0, L - 1)
-    at = slot.reshape(1).long()
-    cache["k"].index_copy_(2, at, k1.to(cache["k"].dtype))
-    cache["v"].index_copy_(2, at, v1.to(cache["v"].dtype))
-    idx = torch.arange(L, device=x1.device)
-    if spec.window is None:
-        valid = idx <= pos
-    else:
-        # ring buffer: valid slots were written within the last L steps
-        # (a floor-mod: ``%`` on tensors takes the divisor's sign)
-        age = (slot - idx) % L
-        valid = age < torch.clamp(pos + 1, max=L)
-    mask = valid[None, None, :].expand(B, 1, L)
-    out = _sdpa(q, cache["k"], cache["v"], mask, spec.n_kv_heads)
+    sp = _seq_stretch(spec.window, cache["k"])
+    part = cache["k"].shape[2]
+    L, lo = (part, 0) if sp is None else sp[1:]
+    slot = _slot(spec.window, pos, L)
+    _write_slot(cache["k"], k1, slot, lo, sp is not None)
+    _write_slot(cache["v"], v1, slot, lo, sp is not None)
+    valid = _valid(spec.window, L, lo, part, slot, pos, x1.device)
+    if sp is None:
+        mask = valid[None, None, :].expand(B, 1, L)
+        out = _sdpa(q, cache["k"], cache["v"], mask, spec.n_kv_heads)
+    else:   # the partial attention over the stretch, combined
+        scores, v = _gqa_scores(q, cache["k"], cache["v"],
+                                valid[None, None, :], spec.n_kv_heads)
+        out = _seq_combine(scores, valid, v, "...hst,...thd->...hsd",
+                           sp[0], v.dtype).transpose(-3, -2)
     return torch.einsum("rbshk,rhkd->rbsd", out, p["wo"]), cache
 
 
@@ -263,10 +370,7 @@ def _mla_latent_kv(p, spec: MLASpec, x, positions):
 def _mla_weights(scores, valid, dtype):
     """Masked fp32 softmax of the scores (``NEG_INF`` where ``valid`` is
     False), cast to ``dtype``."""
-    scores = torch.where(valid, scores,
-                         torch.full((), NEG_INF, dtype=scores.dtype,
-                                    device=scores.device))
-    return torch.softmax(scores, dim=-1).to(dtype)
+    return torch.softmax(_masked(scores, valid), dim=-1).to(dtype)
 
 
 def _rope_scores(q_rope, k_rope):
@@ -317,22 +421,24 @@ def mla_decode(p, spec: MLASpec, x1: torch.Tensor, cache: dict, pos):
     p1 = pos.reshape(1, 1)
     q_nope, q_rope = _mla_q(p, spec, x1, p1)
     c1, kr1 = _mla_latent_kv(p, spec, x1, p1)
-    L = cache["c_kv"].shape[2]
-    slot = pos % L if spec.window is not None else pos.clamp(0, L - 1)
-    at = slot.reshape(1).long()
-    c_kv = cache["c_kv"].index_copy_(2, at, c1.to(cache["c_kv"].dtype))
-    k_rope = cache["k_rope"].index_copy_(2, at,
-                                         kr1.to(cache["k_rope"].dtype))
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    sp = _seq_stretch(spec.window, c_kv)
+    part = c_kv.shape[2]
+    L, lo = (part, 0) if sp is None else sp[1:]
+    slot = _slot(spec.window, pos, L)
+    _write_slot(c_kv, c1, slot, lo, sp is not None)
+    _write_slot(k_rope, kr1, slot, lo, sp is not None)
     q_lat = weight_einsum("rbshk,rlhk->rbshl", q_nope, p["wk_b"])
     scale = 1.0 / math.sqrt(spec.qk_nope_dim + spec.qk_rope_dim)
     scores = (torch.einsum("rbshl,rbtl->rbhst", q_lat, c_kv)
               + _rope_scores(q_rope, k_rope)).float() * scale
-    idx = torch.arange(L, device=x1.device)
-    if spec.window is None:
-        valid = idx <= pos
-    else:
-        valid = (slot - idx) % L < torch.clamp(pos + 1, max=L)
-    w = _mla_weights(scores, valid, c_kv.dtype)
-    lat = torch.einsum("rbhst,rbtl->rbshl", w, c_kv)
+    valid = _valid(spec.window, L, lo, part, slot, pos, x1.device)
+    if sp is None:
+        w = _mla_weights(scores, valid, c_kv.dtype)
+        lat = torch.einsum("rbhst,rbtl->rbshl", w, c_kv)
+    else:   # the weighted latents over the stretch, combined
+        lat = _seq_combine(_masked(scores, valid), valid, c_kv,
+                           "rbhst,rbtl->rbhsl", sp[0],
+                           c_kv.dtype).transpose(2, 3)
     out = weight_einsum("rbshl,rlhk->rbshk", lat, p["wv_b"])
     return weight_einsum("rbshk,rhkd->rbsd", out, p["wo"]), cache

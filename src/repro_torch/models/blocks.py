@@ -26,7 +26,10 @@ the same tree: ``stack_cache_init`` returns one replica's, leaves
 replica axis, ``(dp, R, b, ...)``, and write each layer's view in place. A
 cross-attention layer's cache also holds the encoder's keys and values
 (``mem_k``, ``mem_v``: ``(b, n_frames, K, hd)``), which
-``transformer.lm_prefill`` fills and decode only reads.
+``transformer.lm_prefill`` fills and decode only reads. Under a
+sequence-parallel serve step (``dist_ctx.current_seq()``) prefill still
+computes every position's keys and values and writes into a split leaf
+only its stretch's positions (``_cache_write_seq``'s ``lo``, ``length``).
 """
 from __future__ import annotations
 
@@ -194,19 +197,36 @@ def block_decode(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
 
 
 def _cache_write_seq(cache_arr: torch.Tensor, full: torch.Tensor,
-                     axis: int = 1) -> torch.Tensor:
+                     axis: int = 1, lo: int = 0,
+                     length: Optional[int] = None) -> torch.Tensor:
     """Write a full prefill sequence (positions 0..S-1 along ``axis``) into
     a decode cache of length L, in place, and return the cache. If L < S
     (sliding-window ring buffer), keep the last L positions at their ring
-    slots (pos % L); else write at the front."""
-    L, S = cache_arr.shape[axis], full.shape[axis]
+    slots (pos % L); else write at the front.
+
+    With ``length`` the cache is a stretch of a cache of ``length``
+    positions starting at ``lo`` (the sequence-parallel cache): it takes
+    positions ``[lo, lo + its length)`` of what the whole-length write
+    would hold, and keeps what it holds where that write writes nothing."""
+    part, S = cache_arr.shape[axis], full.shape[axis]
+    L = part if length is None else length
     full = full.to(cache_arr.dtype)
     if S <= L:
-        cache_arr.narrow(axis, 0, S).copy_(full)
+        n = min(S, lo + part) - lo
+        if n > 0:
+            cache_arr.narrow(axis, 0, n).copy_(full.narrow(axis, lo, n))
     else:
         tail = full.narrow(axis, S - L, L)
-        cache_arr.copy_(torch.roll(tail, (S - L) % L, axis))
+        cache_arr.copy_(torch.roll(tail, (S - L) % L, axis).narrow(
+            axis, lo, part))
     return cache_arr
+
+
+def _stretch_of(window, leaf: torch.Tensor):
+    """(lo, length) of the sequence-parallel stretch ``leaf`` holds
+    (``attention._seq_stretch``), or (0, None): the leaf is whole."""
+    sp = attn_mod._seq_stretch(window, leaf)
+    return (0, None) if sp is None else (sp[2], sp[1])
 
 
 def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
@@ -228,8 +248,10 @@ def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
         a, m = spec.attn, p["mixer"]
         pos = torch.arange(S, device=h.device)[None]
         q, k, v = attn_mod._project_qkv(m, a, x, x, pos, pos)
-        new_cache["kv"] = {"k": _cache_write_seq(cache["kv"]["k"], k, 2),
-                           "v": _cache_write_seq(cache["kv"]["v"], v, 2)}
+        lo, L = _stretch_of(a.window, cache["kv"]["k"])
+        new_cache["kv"] = {
+            "k": _cache_write_seq(cache["kv"]["k"], k, 2, lo, L),
+            "v": _cache_write_seq(cache["kv"]["v"], v, 2, lo, L)}
         mask = attn_mod.causal_window_mask(S, S, a.window, device=h.device)
         out = attn_mod._sdpa(q, k, v, mask, a.n_kv_heads)
         h = h + torch.einsum("rbshk,rhkd->rbsd", out, m["wo"])
@@ -238,9 +260,10 @@ def block_prefill(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
         pos = torch.arange(S, device=h.device)[None]
         c_kv, k_rope = attn_mod._mla_latent_kv(p["mixer"], m, x, pos)
         kv = cache["kv"]
-        new_cache["kv"] = {"c_kv": _cache_write_seq(kv["c_kv"], c_kv, 2),
-                           "k_rope": _cache_write_seq(kv["k_rope"], k_rope,
-                                                      2)}
+        lo, L = _stretch_of(m.window, kv["c_kv"])
+        new_cache["kv"] = {
+            "c_kv": _cache_write_seq(kv["c_kv"], c_kv, 2, lo, L),
+            "k_rope": _cache_write_seq(kv["k_rope"], k_rope, 2, lo, L)}
         h = h + attn_mod.mla_apply(p["mixer"], m, x)
     else:
         s, m, st = spec.ssm, p["mixer"], cache["ssm"]

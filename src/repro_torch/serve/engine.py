@@ -10,10 +10,14 @@ and the tokens come back to the host in one transfer after it.
 On one device by default; over a process mesh with ``dist`` and ``group``
 (a ``core.replica_group.ReplicaGroup``), as the serve steps run there: the
 rank's pieces of the weights gathered once into its serving weights
-(``serve.step.rank_serving_params``), its rows of the batch and of the
-cache, the steps under ``use_distribution(dist, group)`` (the MoE layers'
-experts split over the model group), and every step's logits gathered
-over the batch group, so every rank returns the global greedy tokens.
+(``serve.step.rank_serving_params``), its cache from
+``serve.step.rank_cache_init``, the steps under ``use_distribution(dist,
+group, seq)`` (the MoE layers' experts split over the model group). Where
+the batch splits over the batch group the rank serves its rows and every
+step's logits are gathered over the group; where it does not (batch 1),
+every rank serves every row over its stretch of the sequence-parallel
+cache (``serve.step.seq_shards``). Either way every rank returns the
+global greedy tokens.
 """
 from __future__ import annotations
 
@@ -24,11 +28,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist_ctx import use_distribution
-from repro_torch.models import lm_cache_init, lm_decode, lm_prefill
+from repro_torch.models import lm_decode, lm_prefill
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
 
-from .step import global_logits, local_rows, rank_serving_params
+from .step import (global_logits, local_rows, rank_cache_init,
+                   rank_serving_params, seq_shards)
 
 __all__ = ["ServingEngine"]
 
@@ -71,21 +76,22 @@ class ServingEngine:
             return None if x is None else local_rows(
                 torch.as_tensor(x).to(dev), group)
 
-        with torch.inference_mode(), use_distribution(self.dist, group):
+        seq = seq_shards(self.cfg, self.dist, group, B, self.max_seq)
+        with torch.inference_mode(), use_distribution(self.dist, group, seq):
             toks = rows(np.asarray(prompts, dtype=np.int64))
-            cache = lm_cache_init(self.cfg, toks.shape[0], self.max_seq,
-                                  device=dev)
+            cache = rank_cache_init(self.cfg, self.dist, group, B,
+                                    self.max_seq, device=dev)
             pos = torch.full((), S + n_img, dtype=torch.int64, device=dev)
             logits, cache = lm_prefill(
                 self.params, self.cfg, toks, cache,
                 image_embeds=rows(image_embeds),
                 audio_frames=rows(audio_frames))
             out = []
-            tok = global_logits(logits, group).argmax(-1)
+            tok = global_logits(logits, group, B).argmax(-1)
             for t in range(max_new_tokens):
                 out.append(tok)
                 logits, cache = lm_decode(self.params, self.cfg,
                                           local_rows(tok, group), cache,
                                           pos + t)
-                tok = global_logits(logits, group).argmax(-1)
+                tok = global_logits(logits, group, B).argmax(-1)
             return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()

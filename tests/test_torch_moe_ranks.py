@@ -21,7 +21,8 @@ are killed, as in ``tests/test_torch_fsdp_ranks.py``):
   remat on against off bit for bit, and the model-group collectives a
   step with remat off, on and ``save_moe_combine``; serving: prefill and
   decode logits against the reference, greedy tokens against the
-  one-process engine, an indivisible batch refused;
+  one-process engine, a batch of 3 (which does not split) served over
+  the sequence-parallel cache against the one-process port;
 * (1, 2, 2) replica, kimi-k2: the per-leaf first step against the
   reference.
 
@@ -110,7 +111,7 @@ print("REF_OK")
 """
 
 _WORKER = r"""
-import json, pickle, sys
+import importlib, json, pickle, sys
 import torch
 torch.set_num_threads(1)
 torch.use_deterministic_algorithms(True)
@@ -118,7 +119,7 @@ rank, world, init, out, spec = (int(sys.argv[1]), int(sys.argv[2]),
                                 sys.argv[3], sys.argv[4],
                                 json.loads(sys.argv[5]))
 sys.path.insert(0, spec["tests"])
-import test_torch_moe_ranks as T
+T = importlib.import_module(spec["module"])
 from repro_torch.launch.mesh import destroy_replica_group, init_replica_group
 dist = T.plan(spec["mode"])
 group = init_replica_group("cpu", dist=dist, rank=rank, world_size=world,
@@ -310,11 +311,13 @@ def task_train(dist, group, spec):
 def task_serve(dist, group, spec):
     """The serve steps' prefill and decode logits and the engine's greedy
     tokens over the ranks from the reference's weights (each rank its
-    pieces, gathered once); a batch that does not split refused."""
+    pieces, gathered once); then the first 3 rows, a batch that does not
+    split, served over the ranks' sequence-parallel cache."""
     from repro_torch.models import lm_axes, lm_cache_init
     from repro_torch.serve import ServingEngine
     from repro_torch.serve.step import (make_decode_step, make_prefill_step,
-                                        rank_serving_params, serve_pieces)
+                                        rank_cache_init, rank_serving_params,
+                                        serve_pieces)
     cfg = _cfg(JAMBA, "fsdp")
     ref, init = _init(spec)
     pieces = serve_pieces(cfg, dist).cut_pieces(init, group.shard)
@@ -337,14 +340,19 @@ def task_serve(dist, group, spec):
             logits, cache = decode(weights, cache, toks[:, t],
                                    torch.tensor(t))
             served.append(logits.numpy().copy())
-        try:
-            prefill(weights, cache, toks[:3, :PROMPT])
-            refused = ""
-        except ValueError as e:
-            refused = str(e)
+        cache = rank_cache_init(cfg, dist, group, 3, MAX_SEQ, device="cpu")
+        kw.update(cache_shapes=cache, max_seq=MAX_SEQ)
+        logits, cache = make_prefill_step(cfg, dist, **kw).step_fn(
+            weights, cache, toks[:3, :PROMPT])
+        rows3 = [logits.numpy().copy()]
+        decode = make_decode_step(cfg, dist, **kw).step_fn
+        for t in range(PROMPT, PROMPT + NEW):
+            logits, cache = decode(weights, cache, toks[:3, t],
+                                   torch.tensor(t))
+            rows3.append(logits.numpy().copy())
     engine = ServingEngine(cfg, pieces, MAX_SEQ, device="cpu", dist=dist,
                            group=group)
-    out.update({"serve/logits": served, "serve/refused": refused,
+    out.update({"serve/logits": served, "serve/rows3": rows3,
                 "serve/tokens": engine.generate(
                     ref["tokens"][:, :PROMPT], NEW + 2)})
     return out
@@ -357,12 +365,16 @@ def _specs(cfg):
 
 # ---------------------------------------------------------------- harness
 
-def _spawn(tmp, world, tasks, **spec):
+def _spawn(tmp, world, tasks, module="test_torch_moe_ranks", mode=None,
+           **spec):
     """Run the worker on every position of the world's (1, 2, 2) mesh;
-    each rank's results, by rank."""
+    each rank's results, by rank. The worker calls ``task_<name>`` of the
+    test module ``module`` (which also provides ``plan``) for each of
+    ``tasks``, under the plan of ``mode`` (default: the world's)."""
     d = tmp / world
     d.mkdir()
-    spec = dict(spec, world=world, mode=WORLDS[world][1], tasks=list(tasks),
+    spec = dict(spec, world=world, mode=mode or WORLDS[world][1],
+                tasks=list(tasks), module=module,
                 tests=str(Path(__file__).parent))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     init = f"file://{d / 'rendezvous'}"
@@ -557,15 +569,27 @@ def test_serving_over_the_ranks(runs):
     experts; prefill and decode logits of the global batch on every rank
     against the reference's under the plan within 2e-4; the engine's
     greedy tokens equal the one-process engine's on the same weights; a
-    batch that does not split over the batch group is refused, naming the
-    sequence-parallel cache."""
+    batch that does not split over the batch group (3 rows) is served over
+    the sequence-parallel cache, its logits within 2e-4 of the one-process
+    port's."""
     from repro_torch.checkpoint import params_from_numpy
+    from repro_torch.models import lm_cache_init, lm_decode, lm_prefill
     from repro_torch.serve import ServingEngine
     cfg = _cfg(JAMBA, "fsdp")
     ref = runs["ref"]["fsdp"]
-    one = ServingEngine(cfg, params_from_numpy(ref["init"], device="cpu"),
-                        MAX_SEQ, device="cpu").generate(
-                            ref["tokens"][:, :PROMPT], NEW + 2)
+    params = params_from_numpy(ref["init"], device="cpu")
+    one = ServingEngine(cfg, params, MAX_SEQ, device="cpu").generate(
+        ref["tokens"][:, :PROMPT], NEW + 2)
+    toks = torch.from_numpy(ref["tokens"][:3].astype(np.int64))
+    with torch.inference_mode():
+        logits, cache = lm_prefill(params, cfg, toks[:, :PROMPT],
+                                   lm_cache_init(cfg, 3, MAX_SEQ,
+                                                 device="cpu"))
+        rows3 = [logits.numpy().copy()]
+        for t in range(PROMPT, PROMPT + NEW):
+            logits, cache = lm_decode(params, cfg, toks[:, t], cache,
+                                      torch.tensor(t))
+            rows3.append(logits.numpy().copy())
     E = cfg.blocks[1].moe.n_experts
     for r in runs["fsdp"]:
         assert {s[1] for s in r["serve/expert_shapes"]} == {E // 2}
@@ -574,7 +598,10 @@ def test_serving_over_the_ranks(runs):
             assert g.shape == (B, cfg.vocab)
             np.testing.assert_allclose(g, w, **TOL)
         assert np.array_equal(r["serve/tokens"], one)
-        assert "sequence-parallel" in r["serve/refused"]
+        assert len(r["serve/rows3"]) == len(rows3)
+        for g, w in zip(r["serve/rows3"], rows3):
+            assert g.shape == (3, cfg.vocab)
+            np.testing.assert_allclose(g, w, **TOL)
 
 
 def test_launcher_on_four_ranks_matches_one_process(runs, capsys):

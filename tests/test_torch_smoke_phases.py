@@ -418,3 +418,31 @@ def test_moe_ranks_phases(cs):
         assert served[tag]["experts_a_rank"] == [2]
         assert served[tag]["greedy_tokens_equal"] == \
             served[tag]["greedy_tokens"]
+
+
+def test_serve_seq_ranks_phase(cs):
+    """[serve_seq_ranks] at toy size: four gloo ranks of the (1, 2, 2)
+    fsdp mesh on the CPU serving batch 1 of reduced qwen3 (full cache and
+    a windowed ring) and deepseek-v3 over the sequence-parallel cache:
+    every rank holds half of every attention / MLA leaf, the combine's
+    bytes a token equal the count from the shapes, and every rank returns
+    the one-process engine's tokens and logits."""
+    tiny = dict(reduced=dict(d_model=32), prompt=6, new=3, max_seq=16)
+    runs = tuple(dict(run, **tiny, **({"window": 8} if "shape" in run
+                                      else {}))
+                 for run in cs.SERVE_SEQ_RANKS["runs"])
+    out = cs.seq_ranks_run("cpu", serve=dict(cs.SERVE_SEQ_RANKS, runs=runs))
+    assert cs._ranks_failed(out, "serve_seq_ranks") is None
+    rec = cs.check_serve_seq_ranks(out, "cpu")
+    assert rec["world"] == 4 and rec["mesh"] == [1, 2, 2]
+    splits = {"qwen3_decode_32k": [16], "qwen3_long_500k": [8],
+              "deepseek_v3": [16], "qwen3_decode_32k/small": [32],
+              "qwen3_long_500k/small": [16], "deepseek_v3/small": [32]}
+    assert set(rec) - {"world", "mesh"} == set(splits)
+    for tag, lengths in splits.items():
+        row = rec[tag]
+        assert row["split_lengths"] == lengths and row["batch"] == 1
+        assert 2 * row["cache_bytes_rank"] == row["cache_bytes_whole"]
+        assert row["greedy_tokens_equal"] == row["greedy_tokens"]
+        assert row["peak_mem_gb_by_rank"] == [None] * 4
+    assert rec["deepseek_v3/small"]["logits_max_abs_diff"] <= 1e-5
