@@ -1909,11 +1909,13 @@ def _device_rows(prof, per: int = 1):
     the device-side events only (an operator's row would repeat its
     kernels' time), summed by name straight from the profiler's raw
     events: ``key_averages()`` first builds a Python record of every event,
-    which at a Mamba train step's 475k kernels took minutes."""
+    which at a Mamba train step's 475k kernels took minutes. The port's
+    spans (``repro_torch.spans``) show on the device's track as ranges,
+    not activity, and are left out."""
     from torch.autograd import DeviceType
     rows = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
             ms, n = rows.get(e.name(), (0.0, 0))
             rows[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     return sorted(((k, ms / per, n / per) for k, (ms, n) in rows.items()),

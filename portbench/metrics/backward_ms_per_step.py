@@ -1,0 +1,9 @@
+"""Device ms a step launched inside ``repro.backward`` (``train/step.py``:
+the loss's backward, remat's recompute included), by the span rules of
+``portbench/spans.py``."""
+from portbench import spans
+
+
+def read(ctx):
+    s = spans.of(ctx)
+    return None if s is None else s.ms_per_step(s.device_s, spans.BACKWARD)

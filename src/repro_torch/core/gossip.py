@@ -66,6 +66,8 @@ from repro_torch.kernels.fused_update import device_scalar
 from repro_torch.kernels.ops import gossip_mix_bucket
 from repro_torch.kernels.quantize import (WireFormat, encode_wire, wire_itemsize,
                                           wire_key)
+from repro_torch.spans import (ENCODE, EXCHANGE, EXCHANGE_BYTES, count,
+                               recording, span)
 from repro_torch.tree import tree_flatten
 
 from .buckets import (LANE, BucketLayout, PackedParams, check_layout_mesh,
@@ -109,6 +111,11 @@ def _tensors(x) -> list:
     return list(x.values()) if isinstance(x, dict) else [x]
 
 
+def _recv_row(recv_from) -> np.ndarray:
+    return np.asarray(recv_from.cpu() if isinstance(recv_from, torch.Tensor)
+                      else recv_from).reshape(-1)
+
+
 def _exchange_ranks(x, recv_from, group):
     """``exchange`` between processes: this replica sends its tensors to
     every replica j with ``recv_from[j] == replica`` and receives from
@@ -116,8 +123,7 @@ def _exchange_ranks(x, recv_from, group):
     over the cross-replica group (peers named by their global ranks). An
     empty tensor (a per-leaf rank's empty piece, empty at every replica of
     its shard) moves nothing."""
-    rf = np.asarray(recv_from.cpu() if isinstance(recv_from, torch.Tensor)
-                    else recv_from).reshape(-1)
+    rf = _recv_row(recv_from)
     if rf.shape[0] != group.dp:
         raise ValueError(f"recv_from has {rf.shape[0]} entries for "
                          f"{group.dp} replicas")
@@ -150,7 +156,22 @@ def exchange(x, recv_from, group: Optional[ReplicaGroup] = None):
     and scales alike). Stacked (``group`` None), ``recv_from`` is an index
     tensor on ``x``'s device and row j is row ``recv_from[j]``; under a
     replica group it is the whole row of ranks (host ints) and the rows
-    move between processes."""
+    move between processes. Runs inside the ``repro.exchange`` span and
+    counts the bytes this process's rows receive (``spans.py``): stacked,
+    every output row; under a group, the row unless it is its own."""
+    with span(EXCHANGE):
+        out = _exchange(x, recv_from, group)
+    if recording():
+        own = (group is not None
+               and int(_recv_row(recv_from)[group.replica]) == group.replica)
+        count(EXCHANGE_BYTES,
+              0 if own else sum(t.nbytes for t in _tensors(out)))
+    return out
+
+
+def _exchange(x, recv_from, group: Optional[ReplicaGroup] = None):
+    """``exchange`` outside its span and counters: the batch shuffle's,
+    which moves samples, not weights."""
     if group is not None:
         return _exchange_ranks(x, recv_from, group)
     if isinstance(x, dict):
@@ -218,7 +239,8 @@ def encode_bucket(wire: WireFormat, bucket: torch.Tensor, t: int,
                      wire.seed)
             if wire.dtype == "int8" else None)
     base = group.shard * int(bucket.shape[-1]) if group is not None else 0
-    return encode_wire(bucket, wire.dtype, keys=keys, base_index=base)
+    with span(ENCODE):
+        return encode_wire(bucket, wire.dtype, keys=keys, base_index=base)
 
 
 def send_masks(subset: BucketSubsetSchedule | None, num_buckets: int,

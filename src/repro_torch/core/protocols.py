@@ -52,7 +52,7 @@ from repro_torch.tree import tree_flatten, tree_map
 
 from .async_gossip import make_async_gossip_mix, make_packed_async_gossip_mix
 from .buckets import BucketLayout, PackedParams
-from .gossip import (_RecvTables, exchange, make_gossip_mix,
+from .gossip import (_exchange, _RecvTables, make_gossip_mix,
                      make_packed_gossip_mix, replica_mean, wire_period,
                      wire_subset_of)
 from .replica_group import ReplicaGroup
@@ -194,8 +194,8 @@ def make_ring_shuffle(p: int, group: Optional[ReplicaGroup] = None
     shard, the reference's ppermute with pairs (i, i+1), as one
     ``exchange`` over the ring topology's row (under a replica group a
     send of the rank's rows to the next replica at the same shard
-    position)."""
+    position), outside the exchange's span and counters."""
     recv = _RecvTables(build_schedule(p, topology="ring", num_rotations=1),
                        group)
     return lambda batch: tree_map(
-        lambda x: exchange(x, recv(0, x.device), group), batch)
+        lambda x: _exchange(x, recv(0, x.device), group), batch)

@@ -8,6 +8,7 @@ Port of ``repro/models/blocks.py`` (``AUX_KEYS``, ``segments_of``,
 blocks. A block is pre-norm residual: ``h += mixer(norm1(h))``
 (attention, MLA or the Mamba mixer); in an enc-dec decoder
 ``h += cross(norm_x(h), memory)``; then ``h += moe(norm2(h))`` or, if ``d_ff``, ``h += mlp(norm2(h))``.
+The self mixer runs inside the ``repro.mixer`` span (``repro_torch.spans``).
 ``block_apply`` returns ``(h, aux)``: the MoE layer's ``moe_aux`` and
 ``moe_dropped_frac`` per replica (zeros without MoE), which
 ``stack_apply`` sums over every layer.
@@ -41,6 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from repro_torch.spans import MIXER, span
 from repro_torch.tree import tree_flatten, tree_map
 
 from . import attention as attn_mod
@@ -113,15 +115,16 @@ def block_apply(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     cross-attention layer. Returns (h, aux), aux's values (dp,) fp32."""
     _check_kind(spec)
     x = norm_apply(cfg.norm, p["norm1"], h)
-    if spec.kind == "attn":
-        h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x,
-                                    positions=positions)
-    elif spec.kind == "mla":
-        h = h + attn_mod.mla_apply(p["mixer"], spec.mla, x,
-                                   positions=positions)
-    else:
-        h = h + mamba_mod.mamba_apply(p["mixer"], spec.ssm, cfg.d_model, x,
-                                      scan_impl=ssm_scan_impl)
+    with span(MIXER):
+        if spec.kind == "attn":
+            h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x,
+                                        positions=positions)
+        elif spec.kind == "mla":
+            h = h + attn_mod.mla_apply(p["mixer"], spec.mla, x,
+                                       positions=positions)
+        else:
+            h = h + mamba_mod.mamba_apply(p["mixer"], spec.ssm, cfg.d_model,
+                                          x, scan_impl=ssm_scan_impl)
     if spec.cross_attn is not None:
         xc = norm_apply(cfg.norm, p["norm_x"], h)
         h = h + attn_mod.attn_apply(p["cross"], spec.cross_attn, xc,

@@ -17,6 +17,11 @@ Step layout (GossipGraD Fig. 8/9):
     5. ring-rotate the batch shards (§4.5.2; skipped with ``rotate=False``
        by a caller that draws the next batch itself, as the Trainer does)
 
+The step, its forward, its backward and steps 2-4 run inside the
+``repro_torch.spans`` ranges ``repro.step``, ``repro.forward``,
+``repro.backward`` and ``repro.update``, which cost one C call each unless
+a profiler records.
+
 **Per-leaf** (``gossip_packed=False``, the reference's default): the params
 are a tree of tensors, the autograd leaves; the loss runs over the tree,
 then the tree-level ``optimizer.update``, then the per-leaf engine's
@@ -115,6 +120,7 @@ from repro_torch.mesh_spec import PartitionSpec
 from repro_torch.models import lm_init, lm_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer
+from repro_torch.spans import BACKWARD, FORWARD, STEP, UPDATE, span
 from repro_torch.tree import tree_flatten, tree_map
 
 from .loss import make_loss_fn
@@ -470,19 +476,25 @@ def make_train_step_bundle(
     loss_scale = 1.0 / group.batch_shards if group is not None else 1.0
 
     def train_step(state, batch, phase: int, rotate: bool = True):
+        with span(STEP):
+            return step_body(state, batch, phase, rotate)
+
+    def step_body(state, batch, phase: int, rotate: bool):
         params, inbox = state["params"], state.get("inbox")
         if ring and fused_eng is None:
             # bounded-delay arrival: mix the oldest slot in and re-dispatch,
             # in place on the autograd leaves, before the forward pass
-            with torch.no_grad():
+            with torch.no_grad(), span(UPDATE):
                 params, inbox = proto.comm_params(params, phase, inbox=inbox)
         with use_distribution(dist, group):
-            loss, metrics = loss_fn(as_tree(params), batch)
-            # replica r's grad is d loss_r / d params_r
-            total = loss.sum()
-            (total * loss_scale if loss_scale != 1.0 else total).backward()
+            with span(FORWARD):
+                loss, metrics = loss_fn(as_tree(params), batch)
+                # replica r's grad is d loss_r / d params_r
+                total = loss.sum()
+            with span(BACKWARD):
+                (total * loss_scale if loss_scale != 1.0 else total).backward()
         grads = grads_of(params)
-        with torch.no_grad():
+        with torch.no_grad(), span(UPDATE):
             grads = proto.comm_grads(grads, phase)
             if fused_eng is not None and ring:
                 params, opt, inbox = fused_eng(params, grads, inbox,
