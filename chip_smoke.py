@@ -75,7 +75,11 @@ package ``repro``. Phases, each of which fails the run on any error:
    layers, so the raw mix kernel runs on its path.
 10. The forward-only kernels. ``[check_ssm]`` holds ``ssm_scan`` against its
     plain loop bit for bit at (2, 4096, 8192, 16) (falcon-mamba's scan at 2 x
-    4096 tokens), a ragged (3, 1000, 100, 5) and S = 1. ``[check_attn]``
+    4096 tokens), a ragged (3, 1000, 100, 5) and S = 1; then the scan under
+    autograd (``ssm_scan_train``), its forward and its backward kernel
+    (``ssm_scan_bwd.cu``) against ``ssm_scan_ref`` and ``ssm_scan_bwd_ref``
+    bit for bit at (1, 4096, 8192, 16), the ragged shape, S = 1 and
+    (1, 33, 7, 3). ``[check_attn]``
     holds ``flash_attention`` against its plain version
     ``flash_attention_plain`` (dense ``attention_ref``, and the reference's
     block rule for rows with no admissible key) at qwen3-0.6b's
@@ -87,8 +91,9 @@ package ``repro``. Phases, each of which fails the run on any error:
     bf16 (one bf16 ulp of the plain output plus 2e-5), with
     ``torch.backends.cuda.matmul.allow_tf32`` logged and required False (the
     plain version's fp32 einsum would round to TF32); a block that does not
-    divide S raises. ``[time_ssm]`` and ``[time_attn]`` time both against
-    their plain versions, their bounds and, for attention, PyTorch's
+    divide S raises. ``[time_ssm]`` and ``[time_attn]`` time both, and
+    ``[time_ssm]`` the scan's backward kernel at (2, 4096, 8192, 16) too,
+    against their plain versions, their bounds and, for attention, PyTorch's
     ``scaled_dot_product_attention`` (a yardstick the port never calls), at
     S = 4096 and 32768, and the keyless-rows case (S 256, T 128, window 8,
     blocks 32) against its plain version. Attention's bound prices each product at the
@@ -186,9 +191,10 @@ package ``repro``. Phases, each of which fails the run on any error:
     ``[mamba_train]``: falcon-mamba-7b at full width and depth (64 layers,
     7.27 G params, bf16), dp 1, 1 x 4096 tokens (train_4k's length, the
     batch cut from 256 for one card), remat on, the chunked scan (chunk
-    256, plain torch under autograd), packed fused ``sgd(0.1, 0.9)``, 3
-    steps: the first apart, ms/step, tokens/s, peak, one step profiled,
-    ``fused_sgd`` launches = 3 x 13 buckets; then ``fused_sgd_1d`` on
+    256; on the card ``ssm_scan_train``'s forward and backward kernels),
+    packed fused ``sgd(0.1, 0.9)``, 3 steps: the first apart, ms/step,
+    tokens/s, peak, one step profiled, ``fused_sgd`` launches = 3 x 13
+    buckets, ``ssm_scan_train`` 3 x 2 x 64 and ``ssm_scan_bwd`` 3 x 64; then ``fused_sgd_1d`` on
     buffers of the largest bucket's 4,294,967,296 elements (past int32
     range) and 3 fewer (the tail), bit-equal to its plain version.
     ``[mamba_remat]``: the same model at 2 layers (a depth cut), 1 x 4096,
@@ -407,8 +413,10 @@ ASYNC_WIRE = dict(protocol="gossip_async", staleness=2, drop_rate=0.2,
 AGREE_BUCKET_BYTES = 96 << 10        # 5 buckets for the small model
 OPT_KERNELS = ("fused_adamw", "fused_adamw_q", "fused_lars")
 KERNELS = ("gossip_mix", "gossip_mix_q", "fused_sgd", "fused_sgd_q") \
-    + OPT_KERNELS + ("ssm_scan", "flash_attention")
+    + OPT_KERNELS + ("ssm_scan", "flash_attention", "ssm_scan_train",
+                     "ssm_scan_bwd")
 SSM_SHAPE = (2, 4096, 8192, 16)   # falcon-mamba's scan at 2 x 4096 tokens
+SSM_BWD_CHECK_SHAPE = (1, 4096, 8192, 16)   # one sequence of it
 EVAL_B, EVAL_S, EVAL_FORWARDS = 2, 4096, 3   # train_4k's length
 ATTN_S, ATTN_S_LONG = 4096, 32768            # and prefill_32k's
 # serving at full width: decode_32k's cache length, batch 8, a 512-token
@@ -912,10 +920,15 @@ def phase_time_opt(layout, dev):
 
 
 def phase_check_ssm(dev, shapes=(SSM_SHAPE, (3, 1000, 100, 5),
-                                  (2, 1, 8192, 16))):
-    """ssm_scan against its plain loop, bit for bit."""
-    from repro_torch.kernels import ssm_scan
-    from repro_torch.kernels.ref import ssm_scan_ref
+                                  (2, 1, 8192, 16)),
+                    bwd_shapes=(SSM_BWD_CHECK_SHAPE, (3, 1000, 100, 5),
+                                (2, 1, 8192, 16), (1, 33, 7, 3))):
+    """ssm_scan against its plain loop, bit for bit; then, at
+    ``bwd_shapes``, the scan under autograd (``ssm_scan_train``): h against
+    ``ssm_scan_ref`` and the backward kernel's (ddA, ddBx) against
+    ``ssm_scan_bwd_ref``, bit for bit."""
+    from repro_torch.kernels import ssm_scan, ssm_scan_train
+    from repro_torch.kernels.ref import ssm_scan_bwd_ref, ssm_scan_ref
     gen = torch.Generator(device=dev).manual_seed(5)
     err = 0.0
     for shape in shapes:
@@ -930,7 +943,28 @@ def phase_check_ssm(dev, shapes=(SSM_SHAPE, (3, 1000, 100, 5),
         assert eq, "ssm_scan disagrees with its plain version"
         del dA, dBx, got, want
         torch.cuda.empty_cache()
-    return {"ssm_scan": err}
+    bwd_err = 0.0
+    for shape in bwd_shapes:
+        dA = torch.rand(shape, generator=gen, device=dev) * 0.8 + 0.2
+        dBx, dh = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(2))
+        a = dA.clone().requires_grad_(True)
+        b = dBx.clone().requires_grad_(True)
+        h = ssm_scan_train(a, b)
+        h.backward(dh)
+        h = h.detach()
+        fwd_eq = torch.equal(h, ssm_scan_ref(dA, dBx))
+        want_a, want_b = ssm_scan_bwd_ref(dA, h, dh)
+        torch.cuda.synchronize()
+        eq = torch.equal(a.grad, want_a) and torch.equal(b.grad, want_b)
+        e = max(_diff(a.grad, want_a), _diff(b.grad, want_b))
+        bwd_err = max(bwd_err, e)
+        log(f"[check_ssm] ssm_scan_train {shape}: forward_equal={fwd_eq} "
+            f"backward_equal={eq} max_abs_err={e}")
+        assert fwd_eq and eq, "ssm_scan_train disagrees with its plain versions"
+        del dA, dBx, dh, a, b, h, want_a, want_b
+        torch.cuda.empty_cache()
+    return {"ssm_scan": err, "ssm_scan_bwd": bwd_err}
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1008,9 +1042,13 @@ def phase_check_attn(dev, S=ATTN_S, heads=16, kv_heads=8, d=128):
 def phase_time_ssm(dev, shape=SSM_SHAPE):
     """ssm_scan and its plain loop at falcon-mamba's scan shape. Bound:
     bytes, dA and dBx read and h written once (12 per element); no single
-    PyTorch call computes a linear recurrence."""
+    PyTorch call computes a linear recurrence. Then the backward kernel of
+    ``ssm_scan_train`` at the same shape against its plain loop
+    ``ssm_scan_bwd_ref``. Bound: bytes, dh, dA and h read and ddA and ddBx
+    written once (20 per element)."""
     from repro_torch.kernels import ssm_scan
-    from repro_torch.kernels.ref import ssm_scan_ref
+    from repro_torch.kernels.ref import ssm_scan_bwd_ref, ssm_scan_ref
+    from repro_torch.kernels.ssm_scan_kernel import _launch_bwd
     gen = torch.Generator(device=dev).manual_seed(7)
     dA = torch.rand(shape, generator=gen, device=dev) * 0.8 + 0.2
     dBx = torch.randn(shape, generator=gen, device=dev)
@@ -1020,9 +1058,18 @@ def phase_time_ssm(dev, shape=SSM_SHAPE):
                               warmup=1),
              library_ms=None, bytes=12 * n, **bound(12 * n, 2 * n))
     log(f"[time_ssm] {shape} fp32: " + json.dumps(t))
-    del dA, dBx
+    h = ssm_scan(dA, dBx)
+    dh = dBx
+    del dBx
+    tb = dict(ms=time_ms(lambda: _launch_bwd(dA, h, dh), reps=10, warmup=2),
+              plain_ms=time_ms(lambda: ssm_scan_bwd_ref(dA, h, dh), reps=1,
+                               warmup=1),
+              library_ms=None, bytes=20 * n, **bound(20 * n, 3 * n))
+    tb["share_of_bound"] = tb["bound_ms"] / tb["ms"]
+    log(f"[time_ssm] ssm_scan_bwd {shape} fp32: " + json.dumps(tb))
+    del dA, dh, h
     torch.cuda.empty_cache()
-    return {"ssm_scan": t}
+    return {"ssm_scan": t, "ssm_scan_bwd": tb}
 
 
 def _attn_flops(B, H, S, T, d, causal) -> float:
@@ -1722,7 +1769,9 @@ def _counters():
             "fused_adamw_q": fused_update.adamw_scaled_launches,
             "fused_lars": fused_update.lars_launches,
             "ssm_scan": ssm_scan_kernel.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "ssm_scan_train": ssm_scan_kernel.train_launches,
+            "ssm_scan_bwd": ssm_scan_kernel.bwd_launches}
 
 
 def _reset_counts():
@@ -2604,6 +2653,14 @@ def _chunked(chunk: int):
     return functools.partial(ssm_scan_chunked_torch, chunk=chunk)
 
 
+def _train_scan_launches(cfg, steps: int) -> dict:
+    """The chunked scan's kernels over ``steps`` steps under remat on the
+    card (``kernels.ssm_scan_train``): two forwards a Mamba layer (the
+    forward and remat's recompute) and one backward."""
+    m = sum(k.kind == "mamba" for k in cfg.blocks)
+    return {"ssm_scan_train": 2 * m * steps, "ssm_scan_bwd": m * steps}
+
+
 def mamba_train_run(cfg, dev, *, batch, seq, steps, chunk):
     """falcon-mamba training at dp = 1 as the reference's dry run trains it:
     remat on, the chunked scan (``ssm_scan_chunked_torch``) under autograd,
@@ -2657,7 +2714,8 @@ def sweep_check(dev, n: int, *, lr: float, alpha: float = 0.0,
 
 def phase_mamba_train(dev, cfg=None, sizes=MAMBA_TRAIN):
     """falcon-mamba-7b training at full width and depth on the card
-    (``mamba_train_run``): ``fused_sgd`` launches = steps x buckets, finite
+    (``mamba_train_run``): ``fused_sgd`` launches = steps x buckets, the
+    chunked scan's kernels 2 forwards and 1 backward a layer a step, finite
     losses, the first within 1 of ln(vocab), one step profiled; then the
     sweep on the largest bucket's size (past int32 range) against its plain
     version (``sweep_check``)."""
@@ -2665,7 +2723,8 @@ def phase_mamba_train(dev, cfg=None, sizes=MAMBA_TRAIN):
     cfg = cfg or get_config("falcon-mamba-7b")
     rec, bundle, tr = mamba_train_run(cfg, dev, **sizes)
     want = dict(dict.fromkeys(KERNELS, 0),
-                fused_sgd=sizes["steps"] * bundle.layout.num_buckets)
+                fused_sgd=sizes["steps"] * bundle.layout.num_buckets,
+                **_train_scan_launches(cfg, sizes["steps"]))
     rec["expected_launches"] = want
     log("[mamba_train] " + json.dumps(rec))
     assert rec["launches"] == want, (rec["launches"], want)
@@ -2939,7 +2998,8 @@ def jamba_remat_pair(cfg, dev, *, dp, seq, per_replica, chunk, steps=2):
 def phase_jamba_train(dev, cfg=None, layers=2, sizes=JAMBA_TRAIN):
     """jamba at full width, ``layers`` layers (Mamba + MLP, Mamba + MoE),
     dp 2 on mesh (2, 1, 1) in its fsdp mode, remat on, the chunked scan:
-    ``fused_sgd`` launches = steps x buckets, losses, peak, one step
+    ``fused_sgd`` launches = steps x buckets, the scan's kernels 2 forwards
+    and 1 backward a Mamba layer a step, losses, peak, one step
     profiled; then plain remat against save_moe_combine (peak, ms/step,
     params bit-equal); then the sweep on the largest replica-stacked
     bucket with a partner at alpha 0.5 (``sweep_check``)."""
@@ -2947,7 +3007,8 @@ def phase_jamba_train(dev, cfg=None, layers=2, sizes=JAMBA_TRAIN):
     cfg = _depth(cfg or get_config("jamba-v0.1-52b"), layers)
     rec, bundle, tr = jamba_train_run(cfg, dev, **sizes)
     want = dict(dict.fromkeys(KERNELS, 0),
-                fused_sgd=sizes["steps"] * bundle.layout.num_buckets)
+                fused_sgd=sizes["steps"] * bundle.layout.num_buckets,
+                **_train_scan_launches(cfg, sizes["steps"]))
     rec["expected_launches"] = want
     log("[jamba_train] " + json.dumps(rec))
     assert rec["launches"] == want, (rec["launches"], want)
@@ -2981,7 +3042,8 @@ def phase_jamba_eval(dev, cfg=None):
     from repro_torch.configs import get_config
     cfg = _depth(cfg or get_config("jamba-v0.1-52b"), JAMBA_UNIT)
     res = phase_mamba_eval(dev, cfg, name="jamba_eval", **JAMBA_EVAL)
-    res["check_ssm"] = phase_check_ssm(dev, shapes=(JAMBA_SSM_SHAPE,))
+    res["check_ssm"] = phase_check_ssm(dev, shapes=(JAMBA_SSM_SHAPE,),
+                                       bwd_shapes=())
     return res
 
 
@@ -5224,6 +5286,11 @@ def main() -> int:
          "src/repro/kernels/flash_attention.py:97",
          f"flash_path (flash_mha on a bf16 qwen3-0.6b attention layer, "
          f"S {ATTN_S}, causal, fp32 q and k, bf16 v)", flash_res),
+        ("ssm_scan_bwd", "ssm_scan_bwd.cu",
+         "none (the reference's scan is forward-only; XLA differentiates "
+         "its jnp train scan)",
+         f"mamba_train (falcon-mamba-7b training, 64 layers, remat, the "
+         f"chunked scan, {MAMBA_TRAIN['steps']} steps)", mamba_train_res),
     ]
     timing["flash_attention"] = flash_res["timing"]
     kernels = [dict(name=name, route="cuda", source=src + f,
@@ -5320,6 +5387,12 @@ def main() -> int:
     scan["launches_per_forward_by_path"] = {
         "mamba_eval": mamba_res["ssm_scan_launches_per_forward"],
         "jamba_eval": jamba_eval_res["ssm_scan_launches_per_forward"]}
+    scan["launches_train_by_path"] = {
+        "mamba_train": mamba_train_res["launches"]["ssm_scan_train"],
+        "jamba_train": jamba_train_res["launches"]["ssm_scan_train"]}
+    by_name["ssm_scan_bwd"]["launches_by_path"] = {
+        "mamba_train": mamba_train_res["launches"]["ssm_scan_bwd"],
+        "jamba_train": jamba_train_res["launches"]["ssm_scan_bwd"]}
     scan["max_abs_err_jamba_shape"] = jamba_eval_res["check_ssm"]["ssm_scan"]
     scan["max_abs_err"] = max(scan["max_abs_err"],
                               scan["max_abs_err_jamba_shape"])

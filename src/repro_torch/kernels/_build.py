@@ -55,6 +55,8 @@ SOURCES = {
                     _F, _P]),
     "ssm_scan": ("ssm_scan.cu", "ssm_scan_launch",
                  [_P, _P, _P, _LL, _LL, _LL, _P]),
+    "ssm_scan_bwd": ("ssm_scan_bwd.cu", "ssm_scan_bwd_launch",
+                     [_P, _P, _P, _P, _P, _LL, _LL, _LL, _P]),
     "flash_attention": ("flash_attention.cu", "flash_attention_launch",
                         [_I, _I, _I, _P, _P, _P, _P, _LL, _LL, _LL, _I, _F,
                          _I, _I, _LL, _LL, _LL, _P]),

@@ -1,22 +1,24 @@
 """Plain PyTorch versions of the forward-only kernels: dense attention and
-the sequential selective scan.
+the sequential selective scan, and of the scan's adjoint.
 
 Port of ``repro/kernels/ref.py`` (``attention_ref``, ``ssm_scan_ref``; the
 mix's twin lives in ``kernels/gossip_mix.py``). ``ssm_scan_ref`` is the
-plain version of ``kernels/ssm_scan_kernel.py``; ``attention_ref`` is that
+plain version of ``kernels/ssm_scan_kernel.py``'s forward kernel and
+``ssm_scan_bwd_ref`` (no reference counterpart: XLA differentiates the
+reference's scan) that of its backward kernel; ``attention_ref`` is that
 of ``kernels/flash_attention.py`` for every query row that has an
 admissible key (``flash_attention_plain`` adds the rows that have none).
 The wrappers run them on CPU tensors, and ``chip_smoke.py`` holds the CUDA
-kernels against them on the card. Both stay differentiable.
+kernels against them on the card. The two forwards stay differentiable.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "ssm_scan_ref", "NEG_INF"]
+__all__ = ["attention_ref", "ssm_scan_ref", "ssm_scan_bwd_ref", "NEG_INF"]
 
 NEG_INF = -1e30   # the reference's finite mask value, never -inf
 
@@ -55,3 +57,22 @@ def ssm_scan_ref(dA: torch.Tensor, dBx: torch.Tensor,
         h = dA[:, t] * h + dBx[:, t]
         out[:, t] = h
     return out
+
+
+def ssm_scan_bwd_ref(dA: torch.Tensor, h: torch.Tensor,
+                     dh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adjoint of ``ssm_scan_ref`` from a zero state: for the forward's
+    ``dA`` and ``h`` and the gradient ``dh`` of every h_t, (B, S, D, N),
+    walks ``g_t = dA_{t+1} * g_{t+1} + dh_t`` from ``g_S = 0`` and
+    ``dA_S = 0`` down to t = 0 and returns ``(ddA, ddBx)`` with
+    ``ddBx_t = g_t`` and ``ddA_t = g_t * h_{t-1}`` (``h_{-1} = 0``): the
+    multiplies and the add each rounded, in the CUDA kernel's order."""
+    ddA, ddBx = torch.empty_like(dA), torch.empty_like(dA)
+    zero = torch.zeros_like(dh[:, 0])
+    g, a_next = zero, zero
+    for t in range(dA.shape[1] - 1, -1, -1):
+        g = a_next * g + dh[:, t]
+        ddBx[:, t] = g
+        ddA[:, t] = g * (h[:, t - 1] if t else zero)
+        a_next = dA[:, t]
+    return ddA, ddBx

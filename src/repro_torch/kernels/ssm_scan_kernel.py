@@ -7,6 +7,13 @@ and D); on a CPU tensor it runs the plain version ``kernels.ref.ssm_scan_ref``
 (the same multiply and add per step, each rounded). There is no fallback
 between the two. Like the reference's kernel it is forward-only: a call that
 autograd would record raises. Launches count on ``launches``.
+
+``ssm_scan_train`` (no reference counterpart: the reference's train path
+lets XLA differentiate its jnp scan) is the same scan under autograd: a
+``torch.autograd.Function`` whose forward launches ``csrc/ssm_scan.cu`` and
+whose backward launches the adjoint kernel of ``csrc/ssm_scan_bwd.cu``, or
+on a CPU tensor runs ``ssm_scan_ref`` and ``kernels.ref.ssm_scan_bwd_ref``.
+Its launches count on ``train_launches`` (forward) and ``bwd_launches``.
 """
 from __future__ import annotations
 
@@ -15,14 +22,22 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import ssm_scan_ref
+from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 
-__all__ = ["ssm_scan_chunked", "launches"]
+__all__ = ["ssm_scan_chunked", "ssm_scan_train", "launches",
+           "train_launches", "bwd_launches"]
 
 launches = _build.Launches()
+train_launches = _build.Launches()
+bwd_launches = _build.Launches()
 
 
-def _launch(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch(dA: torch.Tensor, dBx: torch.Tensor,
+            count: _build.Launches = launches) -> torch.Tensor:
     if dBx.device != dA.device:
         raise ValueError(f"dA on {dA.device}, dBx on {dBx.device}")
     dA, dBx = dA.contiguous(), dBx.contiguous()
@@ -31,11 +46,40 @@ def _launch(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
         return h
     B, S, D, N = dA.shape
     rc = _build.kernel("ssm_scan")(
-        dA.data_ptr(), dBx.data_ptr(), h.data_ptr(), B, S, D * N,
-        torch.cuda.current_stream(dA.device).cuda_stream)
-    launches.count += 1
+        dA.data_ptr(), dBx.data_ptr(), h.data_ptr(), B, S, D * N, _stream(dA))
+    count.count += 1
     _build.check_launch("ssm_scan", rc)
     return h
+
+
+def _launch_bwd(dA: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    dh = dh.contiguous()
+    ddA, ddBx = torch.empty_like(dA), torch.empty_like(dA)
+    if dA.numel() == 0:
+        return ddA, ddBx
+    B, S, D, N = dA.shape
+    rc = _build.kernel("ssm_scan_bwd")(
+        dA.data_ptr(), h.data_ptr(), dh.data_ptr(), ddA.data_ptr(),
+        ddBx.data_ptr(), B, S, D * N, _stream(dA))
+    bwd_launches.count += 1
+    _build.check_launch("ssm_scan_bwd", rc)
+    return ddA, ddBx
+
+
+def _check(dA: torch.Tensor, dBx: torch.Tensor) -> None:
+    if dA.dim() != 4 or dA.shape != dBx.shape:
+        raise ValueError(f"dA {tuple(dA.shape)} and dBx {tuple(dBx.shape)} "
+                         f"must both be (B, S, D, N)")
+    if dA.dtype != torch.float32 or dBx.dtype != torch.float32:
+        raise TypeError(f"the scan takes float32, got {dA.dtype}, {dBx.dtype}")
+
+
+def _device(x: torch.Tensor) -> str:
+    if x.is_cuda:
+        return "cuda"
+    if x.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"unsupported device {x.device}")
 
 
 def ssm_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, *,
@@ -46,20 +90,47 @@ def ssm_scan_chunked(dA: torch.Tensor, dBx: torch.Tensor, *,
     (``ValueError`` otherwise). The Hopper kernel does not tile S or D, so
     the two only keep that contract; ``None`` takes the whole axis as one
     chunk or block, which is how ``ops.ssm_scan`` calls it."""
-    if dA.dim() != 4 or dA.shape != dBx.shape:
-        raise ValueError(f"dA {tuple(dA.shape)} and dBx {tuple(dBx.shape)} "
-                         f"must both be (B, S, D, N)")
+    _check(dA, dBx)
     _, S, D, _ = dA.shape
     ch = max(min(S if chunk is None else chunk, S), 1)
     bd = max(min(D if block_d is None else block_d, D), 1)
     if S % ch or D % bd:
         raise ValueError(f"S={S} is not a multiple of chunk={ch} or D={D} "
                          f"of block_d={bd}")
-    if dA.dtype != torch.float32 or dBx.dtype != torch.float32:
-        raise TypeError(f"the scan takes float32, got {dA.dtype}, {dBx.dtype}")
     _build.forward_only("ssm_scan", dA, dBx)
-    if dA.is_cuda:
+    if _device(dA) == "cuda":
         return _launch(dA, dBx)
-    if dA.device.type == "cpu":
-        return ssm_scan_ref(dA, dBx)
-    raise ValueError(f"unsupported device {dA.device}")
+    return ssm_scan_ref(dA, dBx)
+
+
+class _ScanTrain(torch.autograd.Function):
+    """``(dA, dBx) -> h``; saves ``dA`` and ``h``, which the Mamba mixer's
+    ``exp_`` and read-out keep alive anyway."""
+
+    @staticmethod
+    def forward(ctx, dA, dBx):
+        if _device(dA) == "cuda":
+            h = _launch(dA, dBx, train_launches)
+        else:
+            h = ssm_scan_ref(dA, dBx)
+        ctx.save_for_backward(dA, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        dA, h = ctx.saved_tensors
+        if dA.is_cuda:
+            return _launch_bwd(dA, h, dh)
+        return ssm_scan_bwd_ref(dA, h, dh)
+
+
+def ssm_scan_train(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
+    """Differentiable (B, S, D, N) float32 scan -> h, from a zero state, in
+    fp32 throughout: forward ``ssm_scan_ref``'s order, backward
+    ``ssm_scan_bwd_ref``'s, each the CUDA kernel on a CUDA tensor (one
+    launch each way, counted on ``train_launches`` and ``bwd_launches``)
+    and the plain loop on a CPU tensor. Any S and D."""
+    _check(dA, dBx)
+    if dBx.device != dA.device:
+        raise ValueError(f"dA on {dA.device}, dBx on {dBx.device}")
+    return _ScanTrain.apply(dA.contiguous(), dBx.contiguous())

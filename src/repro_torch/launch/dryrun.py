@@ -14,7 +14,10 @@ The traced program is what the reference's dry run builds:
 
 * train: ``make_train_step_bundle(cfg, sgd(0.1, momentum=0.9), ...)`` with
   the reference's defaults (the per-leaf engine, ``gossip_packed=False``;
-  ``ssm_scan_chunked_torch(chunk=256)`` under ``--ssm-scan chunked``);
+  ``ssm_scan_chunked_torch(chunk=256)`` under ``--ssm-scan chunked``,
+  which on ``meta`` is the reference's chunk loop over the associative
+  scan: on the card it is the two scan kernels of ``kernels.ssm_scan_train``,
+  which no count here describes);
 * decode and prefill: ``serve/step.py: make_decode_step`` /
   ``make_prefill_step`` (with image or audio where the config has one).
 

@@ -10,7 +10,8 @@ weights ``(dp, ...)``; a scan implementation sees ``(dp * b, S, D, N)``.
 ``mamba_apply``'s default scan is ``ssm_assoc_scan``, a log-depth scan in
 plain PyTorch that autograd differentiates (the train path);
 ``ssm_scan_chunked_torch`` is the same scan chunk by chunk, the reference's
-long-sequence train scan; the scoring path passes
+long-sequence train scan (on the card, ``kernels.ssm_scan_train``'s forward
+and adjoint kernels); the scoring path passes
 ``scan_impl=repro_torch.kernels.ssm_scan``, the CUDA kernel, which is
 forward-only as the reference's Pallas kernel is.
 
@@ -26,6 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan_kernel import ssm_scan_train
 
 from .config import SSMSpec
 from .layers import Param, dense_param, per_replica, replica_matmul, silu
@@ -133,12 +135,20 @@ def ssm_assoc_scan(dA: torch.Tensor, dBx: torch.Tensor,
 
 def ssm_scan_chunked_torch(dA: torch.Tensor, dBx: torch.Tensor,
                            chunk: int = 256) -> torch.Tensor:
-    """The reference's ``ssm_scan_chunked_jnp``: a loop over S / chunk
-    chunks carrying the state ``h``, the associative scan only within a
-    chunk (``ssm_assoc_scan(a, b, h0=h)``, the body of the reference's
-    ``lax.scan``, from a zero state). Plain PyTorch, differentiable; the
-    associative scan over the whole sequence when ``S % chunk`` or
-    ``S <= chunk``, as the reference."""
+    """The reference's ``ssm_scan_chunked_jnp``, differentiable.
+
+    On CUDA tensors it is ``kernels.ssm_scan_train``: the hand-written
+    forward and adjoint kernels, fp32 in the sequential order of
+    ``ssm_scan_ref``, over the whole sequence at once; ``chunk`` then only
+    keeps the reference's contract, as ``ssm_scan_chunked``'s tile sizes do.
+    On other tensors it is the reference's algorithm in plain PyTorch: a
+    loop over S / chunk chunks carrying the state ``h``, the associative
+    scan only within a chunk (``ssm_assoc_scan(a, b, h0=h)``, the body of
+    the reference's ``lax.scan``, from a zero state); the associative scan
+    over the whole sequence when ``S % chunk`` or ``S <= chunk``, as the
+    reference."""
+    if dA.is_cuda:
+        return ssm_scan_train(dA, dBx)
     B, S, D, N = dA.shape
     if S % chunk or S <= chunk:
         return ssm_assoc_scan(dA, dBx)

@@ -8,7 +8,10 @@ fp32) and int8 / fp8 wire partners, and the fused LARS sweep with raw
 partners of either width and a per-row trust scale, under a static alpha,
 a () tensor alpha and one alpha per replica row. The forward-only kernels:
 ``ssm_scan`` bit for bit against its plain sequential loop (ragged S and D
-included), ``flash_attention`` against its plain version (dense
+included); the scan under autograd, ``ssm_scan_train``, its forward and
+adjoint kernels bit for bit against their plain loops, and a reduced
+falcon-mamba's loss and gradients through the chunked train scan, remat on,
+against the CPU's, with the kernels' launches counted; ``flash_attention`` against its plain version (dense
 ``attention_ref``; rows with no admissible key by the caller's blocks) within
 the reference's fp32 tolerance (2e-5) and, in bf16, within one bf16 ulp of the
 plain output plus 2e-5 (the final cast splits an fp32 gap below 2e-5);
@@ -40,11 +43,15 @@ from repro_torch.kernels import (fused_adamw_1d,  # noqa: E402
                                  fused_sgd_plain, fused_update, gossip_mix,
                                  gossip_mix_1d, gossip_mix_plain,
                                  gossip_mix_q2d, gossip_mix_q_plain)
-from repro_torch.kernels import _build, flash_mha, ssm_scan  # noqa: E402
+from repro_torch.kernels import (_build, flash_mha, ssm_scan,  # noqa: E402
+                                 ssm_scan_train)
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.quantize import encode_wire, wire_key  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, ssm_scan_ref  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
+                                     ssm_scan_bwd_ref, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan_kernel import launches as ssm_launches  # noqa: E402
+from repro_torch.kernels.ssm_scan_kernel import (  # noqa: E402
+    bwd_launches as ssm_bwd_launches, train_launches as ssm_train_launches)
 
 
 @pytest.fixture
@@ -447,6 +454,75 @@ def test_ssm_scan_kernel_matches_plain_bitwise(cuda_device, shape):
     torch.cuda.synchronize()
     assert ssm_launches.count == before + 1
     assert torch.equal(got, ssm_scan_ref(dA, dBx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 7, 3), (1, 7, 5, 3), (3, 33, 10, 5),
+                                   (1, 4096, 33, 3), (2, 9, 3, 1)])
+def test_ssm_scan_train_kernels_match_plain_bitwise(cuda_device, shape):
+    """``ssm_scan_train`` on the card: one ``ssm_scan.cu`` launch forward
+    and one ``ssm_scan_bwd.cu`` launch backward, h bit-equal to
+    ``ssm_scan_ref`` and (ddA, ddBx) to ``ssm_scan_bwd_ref``; S = 1, below
+    and past the unroll of 8, and odd D * N."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape) + 1)
+    dA = torch.rand(shape, generator=gen, device=cuda_device) * 0.8 + 0.2
+    dBx = torch.randn(shape, generator=gen, device=cuda_device)
+    dh = torch.randn(shape, generator=gen, device=cuda_device)
+    before = (ssm_launches.count, ssm_train_launches.count,
+              ssm_bwd_launches.count)
+    a, b = dA.clone().requires_grad_(True), dBx.clone().requires_grad_(True)
+    h = ssm_scan_train(a, b)
+    h.backward(dh)
+    torch.cuda.synchronize()
+    assert (ssm_launches.count, ssm_train_launches.count,
+            ssm_bwd_launches.count) == (before[0], before[1] + 1,
+                                        before[2] + 1)
+    assert torch.equal(h.detach(), ssm_scan_ref(dA, dBx))
+    want_a, want_b = ssm_scan_bwd_ref(dA, h.detach(), dh)
+    assert torch.equal(a.grad, want_a) and torch.equal(b.grad, want_b)
+
+
+@pytest.mark.cuda
+def test_mamba_train_step_through_the_scan_kernels_matches_cpu(cuda_device):
+    """The loss and every gradient of a reduced fp32 falcon-mamba under
+    remat through ``partial(ssm_scan_chunked_torch, chunk=256)`` on 2 x 512
+    tokens: on the card 2 forward launches a layer (the forward and remat's
+    recompute) and 1 backward launch; against the same on the CPU (the
+    reference's chunk loop) within tests/test_torch_remat.py's tolerances
+    (loss rtol 1e-4, gradients 1e-4 of their largest magnitude)."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm_init, reduced
+    from repro_torch.models.mamba import ssm_scan_chunked_torch
+    from repro_torch.train import make_loss_fn
+    from repro_torch.tree import tree_flatten, tree_map
+    cfg = dataclasses.replace(reduced(get_config("falcon-mamba-7b")),
+                              param_dtype="float32", compute_dtype="float32")
+    loss_fn = make_loss_fn(cfg, remat=True, ssm_scan_impl=functools.partial(
+        ssm_scan_chunked_torch, chunk=256))
+    cpu = lm_init(cfg, seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (1, 2, 513),
+                         generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda w: w[None].to(dev).requires_grad_(True), cpu)
+        before = (ssm_train_launches.count, ssm_bwd_launches.count)
+        loss, _ = loss_fn(p, {"tokens": toks.to(dev)})
+        loss.sum().backward()
+        leaves = tree_flatten(p)[0]
+        runs[str(dev)] = [loss.detach().cpu()] + [w.grad.cpu() for w in leaves]
+        launched = (ssm_train_launches.count - before[0],
+                    ssm_bwd_launches.count - before[1])
+        assert launched == ((0, 0) if dev == "cpu"
+                            else (2 * cfg.n_layers, cfg.n_layers)), launched
+    want, got = runs["cpu"], runs[str(cuda_device)]
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(w.abs().max().item(),
+                                                   1e-30))
 
 
 @pytest.mark.cuda
