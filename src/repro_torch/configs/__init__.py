@@ -6,7 +6,8 @@ members (qwen3-0.6b, olmo-1b, stablelm-1.6b, internlm2-20b and
 llava-next-mistral-7b with its vision stub), falcon-mamba-7b, whisper-base
 (encoder-decoder, audio stub), the routed-MoE members kimi-k2 and jamba
 (with Mamba), and deepseek-v3 (MLA, MoE with a shared expert, the MTP
-head). ``NOT_PORTED`` is empty.
+head). ``NOT_PORTED`` is empty. ``PORT_ONLY`` adds the archs the port runs
+that the reference does not: AI21-Jamba2-3B.
 """
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ from typing import Dict, Tuple
 
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["get_config", "list_archs", "NOT_PORTED", "with_sliding_window", "SHAPES",
-           "LONG_CONTEXT_WINDOW"]
+__all__ = ["get_config", "list_archs", "all_archs", "PORT_ONLY", "NOT_PORTED",
+           "with_sliding_window", "SHAPES", "LONG_CONTEXT_WINDOW"]
 
 _ARCH_MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
@@ -30,6 +31,13 @@ _ARCH_MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+}
+
+# archs of the port alone (no counterpart in the reference package):
+# ``get_config`` and the launchers name them; ``list_archs`` stays the
+# reference's list, which the parity tests walk
+PORT_ONLY = {
+    "jamba2-3b": "jamba2_3b",
 }
 
 # the reference's archs whose families are not ported yet, and the ROADMAP
@@ -50,14 +58,20 @@ LONG_CONTEXT_WINDOW = 8192
 
 
 def list_archs():
+    """The reference's archs, every one ported."""
     return sorted(_ARCH_MODULES)
 
 
+def all_archs():
+    """Every arch ``get_config`` knows: the reference's and ``PORT_ONLY``."""
+    return sorted({**_ARCH_MODULES, **PORT_ONLY})
+
+
 def get_config(name: str) -> ModelConfig:
-    if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; options: {list_archs()}")
-    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[name]}")
-    return mod.CONFIG
+    module = {**_ARCH_MODULES, **PORT_ONLY}.get(name)
+    if module is None:
+        raise KeyError(f"unknown arch {name!r}; options: {all_archs()}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
 
 def with_sliding_window(cfg: ModelConfig, window: int) -> ModelConfig:

@@ -71,7 +71,7 @@ import json
 
 from repro_torch.checkpoint import (checkpoint_exists, read_manifest,
                                     restore_state, save_state)
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import all_archs, get_config
 from repro_torch.data import ShardedTokenDataset
 from repro_torch.launch.mesh import (destroy_replica_group,
                                      init_replica_group, make_smoke_mesh,
@@ -85,7 +85,7 @@ from repro_torch.train import (Trainer, init_train_state, make_distribution,
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="qwen3-0.6b", choices=list_archs())
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=all_archs())
     ap.add_argument("--protocol", default="gossip",
                     choices=["gossip", "gossip_async", "agd", "every_logp",
                              "none"])

@@ -8,12 +8,13 @@ Port of ``repro/models/blocks.py`` (``AUX_KEYS``, ``segments_of``,
 blocks. A block is pre-norm residual: ``h += mixer(norm1(h))``
 (attention, MLA or the Mamba mixer); in an enc-dec decoder
 ``h += cross(norm_x(h), memory)``; then ``h += moe(norm2(h))`` or, if ``d_ff``, ``h += mlp(norm2(h))``.
-The self mixer runs inside the ``repro.mixer`` span (``repro_torch.spans``).
+The self mixer runs inside the ``repro.mixer`` span (``repro_torch.spans``),
+and inside it ``repro.mixer.attn`` (attention, MLA) or ``repro.mixer.mamba``.
 ``block_apply`` returns ``(h, aux)``: the MoE layer's ``moe_aux`` and
 ``moe_dropped_frac`` per replica (zeros without MoE), which
 ``stack_apply`` sums over every layer.
 ``ssm_scan_impl`` reaches every Mamba mixer's ``scan_impl``; ``remat``
-checkpoints each repeat of a segment's pattern (``torch.utils.checkpoint``),
+checkpoints each block (``torch.utils.checkpoint``),
 ``remat_policy="dots"`` saving the weight products' outputs and
 ``"save_moe_combine"`` each MoE layer's combined output.
 
@@ -42,7 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from repro_torch.spans import MIXER, span
+from repro_torch.spans import MIXER, MIXER_ATTN, MIXER_MAMBA, span
 from repro_torch.tree import tree_flatten, tree_map
 
 from . import attention as attn_mod
@@ -115,7 +116,8 @@ def block_apply(p, cfg: ModelConfig, spec: BlockSpec, h: torch.Tensor,
     cross-attention layer. Returns (h, aux), aux's values (dp,) fp32."""
     _check_kind(spec)
     x = norm_apply(cfg.norm, p["norm1"], h)
-    with span(MIXER):
+    with span(MIXER), span(MIXER_MAMBA if spec.kind == "mamba"
+                           else MIXER_ATTN):
         if spec.kind == "attn":
             h = h + attn_mod.attn_apply(p["mixer"], spec.attn, x,
                                         positions=positions)
@@ -340,21 +342,16 @@ def _remat_context(policy: Optional[str]):
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 
-def _segment_body(cfg: ModelConfig, pattern, per_pos, ssm_scan_impl):
-    """One repeat of a segment's pattern as a function of its input, the
-    running aux sums, the encoder's output and the repeat's weight views.
-    The segment is bound here, not read through the caller's loop
-    variables: a checkpointed repeat reruns this function in backward,
-    after the loop has moved on to later segments."""
+def _block_body(cfg: ModelConfig, spec: BlockSpec, treedef, ssm_scan_impl):
+    """One block as a function of its input, the running aux sums, the
+    encoder's output and the layer's weight views. The block is bound
+    here, not read through the caller's loop variables: a checkpointed
+    block reruns this function in backward, after the loop has moved on."""
     def body(hh, aux, memory, positions, *ws):
-        i = 0
-        for spec, (treedef, n, _) in zip(pattern, per_pos):
-            hh, a = block_apply(treedef.unflatten(ws[i:i + n]), cfg, spec, hh,
-                                memory=memory, positions=positions,
-                                ssm_scan_impl=ssm_scan_impl)
-            aux = {k: aux[k] + a[k] for k in AUX_KEYS}
-            i += n
-        return hh, aux
+        hh, a = block_apply(treedef.unflatten(ws), cfg, spec, hh,
+                            memory=memory, positions=positions,
+                            ssm_scan_impl=ssm_scan_impl)
+        return hh, {k: aux[k] + a[k] for k in AUX_KEYS}
     return body
 
 
@@ -370,11 +367,14 @@ def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor,
     backward then stacks the R layer gradients in one pass instead of
     adding R leaf-sized zero-padded ones.
 
-    ``remat=True`` checkpoints each repeat of the pattern (the reference's
-    scan body) with ``torch.utils.checkpoint(use_reentrant=False)``, its
-    input, the aux sums, ``memory`` and its weight views passed as inputs:
-    backward recomputes the repeat from its input instead of saving its
-    internals for the whole depth. Remat changes no value.
+    ``remat=True`` checkpoints each block, one region a layer, with
+    ``torch.utils.checkpoint(use_reentrant=False)``, its input, the aux
+    sums, ``memory`` and its weight views passed as inputs: backward
+    recomputes one layer at a time from its input instead of saving its
+    internals for the whole depth (the reference checkpoints its scan
+    body, a whole repeat of the pattern; a hybrid's 14-layer repeat would
+    hold 13 Mamba layers' internals at once). For a pattern of one block
+    the two are the same regions. Remat changes no value.
     ``remat_policy="dots"`` saves the weight products' outputs
     (``_save_weight_products``), ``"save_moe_combine"`` each MoE layer's
     combined output (``_save_moe_combine``)."""
@@ -382,15 +382,17 @@ def stack_apply(params, cfg: ModelConfig, segs, h: torch.Tensor,
     aux = _zero_aux(h.shape[0], h.device)
     for (pattern, R), seg_p in zip(segs, params):
         per_pos = []
-        for bp in seg_p:
+        for spec, bp in zip(pattern, seg_p):
             leaves, treedef = tree_flatten(bp)
-            per_pos.append((treedef, len(leaves), [w.unbind(1) for w in leaves]))
-        body = _segment_body(cfg, pattern, per_pos, ssm_scan_impl)
+            per_pos.append((_block_body(cfg, spec, treedef, ssm_scan_impl),
+                            [w.unbind(1) for w in leaves]))
         for r in range(R):
-            ws = [views[r] for _, _, layers in per_pos for views in layers]
-            h, aux = (checkpoint(body, h, aux, memory, positions, *ws,
-                                 use_reentrant=False, context_fn=context_fn)
-                      if remat else body(h, aux, memory, positions, *ws))
+            for body, layers in per_pos:
+                ws = [views[r] for views in layers]
+                h, aux = (checkpoint(body, h, aux, memory, positions, *ws,
+                                     use_reentrant=False,
+                                     context_fn=context_fn)
+                          if remat else body(h, aux, memory, positions, *ws))
     return h, aux
 
 

@@ -50,11 +50,17 @@ class MLASpec:
 
 @dataclasses.dataclass(frozen=True)
 class SSMSpec:
-    """Mamba-1 selective SSM [arXiv:2312.00752 / falcon-mamba 2410.05355]."""
+    """Mamba-1 selective SSM [arXiv:2312.00752 / falcon-mamba 2410.05355].
+
+    ``bcdt_norm``: an RMSNorm (eps 1e-6) on the mixer's dt, B and C after
+    ``x_proj``, before ``dt_proj`` and the scan's inputs: "weighted", with
+    a learned scale each (Jamba [arXiv:2403.19887] §6.4), or "weightless"
+    (Falcon Mamba); None, the reference's mixer, has none."""
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
     dt_rank: Optional[int] = None   # default ceil(d_model/16)
+    bcdt_norm: Optional[str] = None
 
     def resolved_dt_rank(self, d_model: int) -> int:
         return (self.dt_rank if self.dt_rank is not None

@@ -185,9 +185,10 @@ def norm_init(kind: str, d: int, dtype=torch.float32) -> Dict:
 
 def norm_apply(kind: str, params: Dict, x: torch.Tensor, eps: float = 1e-6):
     xf = x.float()
-    if kind == "rms":
+    if kind == "rms":   # weightless where ``params`` holds no scale
         y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-        y = y * per_replica(params["scale"], x.dim()).float()
+        if "scale" in params:
+            y = y * per_replica(params["scale"], x.dim()).float()
     else:  # ln / nonparam; the variance is jnp.var's, the mean square of
         # the deviations
         mu = xf.mean(-1, keepdim=True)

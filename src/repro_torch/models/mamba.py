@@ -15,6 +15,11 @@ and adjoint kernels); the scoring path passes
 ``scan_impl=repro_torch.kernels.ssm_scan``, the CUDA kernel, which is
 forward-only as the reference's Pallas kernel is.
 
+``SSMSpec.bcdt_norm`` adds RMSNorms on dt, B and C between ``x_proj`` and
+their uses (Jamba's weighted ones, Falcon Mamba's weightless ones), on
+every path: train, prefill and decode all form the scan's inputs in
+``_ssm_inputs``.
+
 Decode carries O(1) state per layer: ``h`` (b, d_inner, d_state) in fp32
 and ``conv``, the last ``d_conv - 1`` pre-conv inputs (b, d_conv - 1,
 d_inner) in the param dtype; ``mamba_decode`` writes both in place.
@@ -30,16 +35,25 @@ from repro_torch.kernels.ref import ssm_scan_ref
 from repro_torch.kernels.ssm_scan_kernel import ssm_scan_train
 
 from .config import SSMSpec
-from .layers import Param, dense_param, per_replica, replica_matmul, silu
+from .layers import (Param, dense_param, norm_apply, per_replica,
+                     replica_matmul, silu)
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_state_init",
            "ssm_scan_ref", "ssm_assoc_scan", "ssm_scan_chunked_torch"]
 
 
+BCDT_NORMS = (None, "weighted", "weightless")
+
+
 def mamba_init(d_model: int, spec: SSMSpec, dtype=torch.float32) -> Dict:
+    """The mixer's params; under ``bcdt_norm="weighted"`` also the scales
+    of the norms on dt, B and C (``dt_norm``, ``b_norm``, ``c_norm``)."""
+    if spec.bcdt_norm not in BCDT_NORMS:
+        raise ValueError(f"bcdt_norm {spec.bcdt_norm!r}: want one of "
+                         f"{BCDT_NORMS}")
     d_in = spec.expand * d_model
     dt_rank = spec.resolved_dt_rank(d_model)
-    return {
+    p = {
         "in_proj": dense_param(d_model, (2 * d_in,), "embed", ("inner",),
                                dtype=dtype),
         "conv_w": Param((spec.d_conv, d_in), (None, "inner"),
@@ -56,6 +70,11 @@ def mamba_init(d_model: int, spec: SSMSpec, dtype=torch.float32) -> Dict:
         "out_proj": dense_param(d_in, (d_model,), "inner", ("embed",),
                                 dtype=dtype),
     }
+    if spec.bcdt_norm == "weighted":
+        for name, n in (("dt_norm", dt_rank), ("b_norm", spec.d_state),
+                        ("c_norm", spec.d_state)):
+            p[name] = Param((n,), (None,), init="ones", dtype=dtype)
+    return p
 
 
 def _conv_causal(x: torch.Tensor, w: torch.Tensor,
@@ -78,12 +97,20 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _ssm_inputs(p, spec: SSMSpec, x: torch.Tensor, dt_rank: int):
     """dA, dBx (dp, b, S, Di, N) in fp32 and C (dp, b, S, N) for x
-    (dp, b, S, Di), formed as the reference forms them."""
+    (dp, b, S, Di), formed as the reference forms them; under
+    ``spec.bcdt_norm`` dt's low-rank input, B and C normalized first."""
     dbc = replica_matmul(x, p["x_proj"])
-    dt = _softplus(replica_matmul(dbc[..., :dt_rank], p["dt_proj"])
-                   + per_replica(p["dt_bias"], 4))
+    dt_low = dbc[..., :dt_rank]
     B = dbc[..., dt_rank:dt_rank + spec.d_state]
     C = dbc[..., dt_rank + spec.d_state:]
+    if spec.bcdt_norm is not None:   # layers.norm_apply's RMSNorm
+        weighted = spec.bcdt_norm == "weighted"
+        dt_low, B, C = (norm_apply("rms", {"scale": p[k]} if weighted
+                                   else {}, v)
+                        for v, k in ((dt_low, "dt_norm"), (B, "b_norm"),
+                                     (C, "c_norm")))
+    dt = _softplus(replica_matmul(dt_low, p["dt_proj"])
+                   + per_replica(p["dt_bias"], 4))
     A = -torch.exp(p["A_log"].float())                        # (dp, Di, N)
     # exp in place: the product is saved by nothing, and at falcon-mamba
     # width each of these buffers is 4.3 GB

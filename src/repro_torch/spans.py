@@ -17,7 +17,8 @@ its phases itself:
   them all. A reader takes the difference of two copies around the
   profiled steps.
 
-Spans (``STEP`` ⊃ ``FORWARD`` ⊃ ``MIXER``; ``STEP`` ⊃ ``BACKWARD``, which
+Spans (``STEP`` ⊃ ``FORWARD`` ⊃ ``MIXER`` ⊃ ``MIXER_ATTN`` or
+``MIXER_MAMBA``; ``STEP`` ⊃ ``BACKWARD``, which
 holds remat's recompute and so ``MIXER`` again; ``STEP`` ⊃ ``UPDATE`` ⊃
 ``ENCODE``, ``EXCHANGE``):
 
@@ -28,7 +29,10 @@ holds remat's recompute and so ``MIXER`` again; ``STEP`` ⊃ ``UPDATE`` ⊃
   the mix after the backward, and the unfused ring's mix before the
   forward;
 * ``repro.mixer``: a block's self mixer (attention, MLA or Mamba;
-  ``models/blocks.py: block_apply``);
+  ``models/blocks.py: block_apply``), the residual add included;
+* ``repro.mixer.attn``, ``repro.mixer.mamba``: inside ``repro.mixer``, the
+  same range named by the mixer's kind (attention or MLA; Mamba), so that
+  a hybrid's step splits by kind;
 * ``repro.exchange``: ``core/gossip.py: exchange``, the replicas' weights
   or wire payloads moving between replicas;
 * ``repro.encode``: ``core/gossip.py: encode_bucket``, a bucket encoded
@@ -49,7 +53,8 @@ from typing import Dict
 import torch
 
 __all__ = ["span", "count", "counters", "recording", "STEP", "FORWARD",
-           "BACKWARD", "UPDATE", "MIXER", "EXCHANGE", "ENCODE",
+           "BACKWARD", "UPDATE", "MIXER", "MIXER_ATTN", "MIXER_MAMBA",
+           "EXCHANGE", "ENCODE",
            "EXCHANGE_BYTES"]
 
 STEP = "repro.step"
@@ -57,6 +62,8 @@ FORWARD = "repro.forward"
 BACKWARD = "repro.backward"
 UPDATE = "repro.update"
 MIXER = "repro.mixer"
+MIXER_ATTN = "repro.mixer.attn"
+MIXER_MAMBA = "repro.mixer.mamba"
 EXCHANGE = "repro.exchange"
 ENCODE = "repro.encode"
 

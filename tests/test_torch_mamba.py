@@ -65,8 +65,12 @@ def _stack(trees):
 
 def test_reduced_config_matches_reference():
     ref, port = _cfgs()
-    assert [dataclasses.asdict(b.ssm) for b in port.blocks] == \
-        [dataclasses.asdict(b.ssm) for b in ref.blocks]
+    # the port's one field beyond the reference's, off: no norms on dt,
+    # B and C
+    assert all(b.ssm.bcdt_norm is None for b in port.blocks)
+    assert [dict(dataclasses.asdict(b.ssm), bcdt_norm=None)
+            for b in port.blocks] == \
+        [dict(dataclasses.asdict(b.ssm), bcdt_norm=None) for b in ref.blocks]
     full = get_config("falcon-mamba-7b")
     assert full.n_layers == 64 and full.d_model == 4096 and full.vocab == 65024
     assert not full.tie_embeddings and full.param_dtype == "bfloat16"

@@ -5,7 +5,8 @@ buckets):
 
 * with no profiler no ``record_function`` is entered and no counter moves;
 * under a CPU profiler the ranges nest as ``repro.step`` ⊃
-  {``repro.forward`` ⊃ ``repro.mixer``, ``repro.backward``,
+  {``repro.forward`` ⊃ ``repro.mixer`` ⊃ ``repro.mixer.attn``,
+  ``repro.backward``,
   ``repro.update`` ⊃ {``repro.encode``, ``repro.exchange``}}, with one
   ``repro.mixer`` a layer in the forward and one more in the backward under
   remat (its recompute);
@@ -116,7 +117,7 @@ def test_spans_nest_in_the_step(proto, remat):
     got = _ranges(prof)
     by = {n: [r for r in got if r[0] == n] for n in
           (spans.STEP, spans.FORWARD, spans.BACKWARD, spans.UPDATE,
-           spans.MIXER, spans.ENCODE, spans.EXCHANGE)}
+           spans.MIXER, spans.MIXER_ATTN, spans.ENCODE, spans.EXCHANGE)}
     assert len(by[spans.STEP]) == 1
     assert len(by[spans.FORWARD]) == len(by[spans.BACKWARD]) == 1
     assert len(by[spans.UPDATE]) == 1 and by[spans.EXCHANGE]
@@ -130,6 +131,9 @@ def test_spans_nest_in_the_step(proto, remat):
     assert len(fwd) == cfg.n_layers
     assert len(bwd) == (cfg.n_layers if remat == "on" else 0)
     assert len(fwd) + len(bwd) == len(by[spans.MIXER])
+    # an attention model's mixer ranges each hold one of its kind's
+    assert len(by[spans.MIXER_ATTN]) == len(by[spans.MIXER])
+    assert all(_within(r, by[spans.MIXER]) for r in by[spans.MIXER_ATTN])
 
 
 @pytest.mark.parametrize("proto", list(PROTOCOLS))
